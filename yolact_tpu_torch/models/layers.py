@@ -1,0 +1,87 @@
+"""Building blocks shared by the backbone and heads, NCHW.
+
+Port of ``yolact_tpu/models/layers.py``.  Convolutions are plain
+``nn.Conv2d`` with torch integer padding (the reference's own layer), and
+parameter names follow the reference's ``state_dict``.  The JAX package's
+space-to-depth stem helpers are TPU lane-layout tricks and are not ported:
+the port runs the plain 7x7/s2 stem, the same math on the same parameters.
+
+Compute dtype follows the JAX convention: parameters are float32 in the
+state dict, convolutions run in the compute dtype (``Yolact.set_compute_dtype``
+casts the conv weights once), and batch norm keeps float32 statistics.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class BatchNorm2d(nn.Module):
+    """Eval-mode batch norm (running statistics, eps 1e-5) with the
+    reference's parameter names.  Statistics stay float32 whatever the
+    input dtype; the output has the input's dtype."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer('running_mean', torch.zeros(num_features))
+        self.register_buffer('running_var', torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, False, 0.0, self.eps)
+
+
+def max_pool(x: torch.Tensor, kernel: int, stride: int, padding: int = 0,
+             ceil_mode: bool = False) -> torch.Tensor:
+    """torch-style max pool (pads with -inf; floor or ceil output size)."""
+    return F.max_pool2d(x, kernel, stride, padding, ceil_mode=ceil_mode)
+
+
+class InterpolateModule(nn.Module):
+    """Bilinear scale-by-factor layer (half-pixel centers)."""
+
+    def __init__(self, scale_factor: int = 2):
+        super().__init__()
+        self.scale_factor = scale_factor
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        size = (x.shape[2] * self.scale_factor, x.shape[3] * self.scale_factor)
+        return F.interpolate(x, size=size, mode='bilinear',
+                             align_corners=False)
+
+
+def make_net(in_channels: int, spec: Tuple[Tuple[Any, ...], ...],
+             include_last_relu: bool = True) -> Tuple[nn.Sequential, int]:
+    """Build a make_net layer spec as an ``nn.Sequential`` with a ReLU slot
+    after every entry, so index ``i`` is the JAX ``layers_{i}`` and the
+    reference's ``state_dict`` index.  Returns (net, out_channels).
+
+    Entries are ``(channels, kernel, kwargs)``: a conv for kernel > 0, a
+    bilinear upsample by ``-kernel`` for channels None."""
+    layers = []
+    ch = in_channels
+    for entry in spec:
+        num, k = entry[0], entry[1]
+        kw = dict(entry[2]) if len(entry) > 2 else {}
+        if isinstance(num, str) or (num is not None and k < 0):
+            raise NotImplementedError(
+                f'make_net entry {entry!r} (parallel branches or transposed '
+                f'conv) is not ported')
+        if k > 0:
+            layers.append(nn.Conv2d(ch, num, k, stride=kw.get('stride', 1),
+                                    padding=kw.get('padding', 0),
+                                    dilation=kw.get('dilation', 1)))
+            ch = num
+        else:
+            layers.append(InterpolateModule(-k))
+        layers.append(nn.ReLU())
+    if not include_last_relu and layers:
+        layers = layers[:-1]
+    return nn.Sequential(*layers), ch
