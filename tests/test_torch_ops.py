@@ -36,6 +36,15 @@ def test_priors_equal_jax_exactly(make_cfg, img_size):
         jax_anchors.proto_size(cfg, img_size)
 
 
+def test_yolact_plus_base_priors_equal_jax_exactly():
+    """9 anchors per position (3 scales x 3 ratios) over 5 levels."""
+    cfg = C.get_config('yolact_plus_base')
+    got = anchors.generate_priors(cfg)
+    np.testing.assert_array_equal(got, jax_anchors.generate_priors(cfg))
+    assert got.shape == (57744, 4)
+    assert anchors.proto_size(cfg) == (138, 138)
+
+
 def test_yolact_base_prior_count_and_square_anchors():
     cfg = C.get_config('yolact_base')
     priors = anchors.generate_priors(cfg)

@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from _tiny import tiny_resnet_config
+from _tiny import tiny_plus_config, tiny_resnet_config
+from test_torch_inputs import seed_offsets_jax
 from yolact_tpu import config as C
 from yolact_tpu.detect.detection import Detections as JaxDetections
 from yolact_tpu.detect.detection import detect as jax_detect
@@ -26,6 +27,7 @@ from yolact_tpu.detect.postprocess import \
 from yolact_tpu.infer import Pipeline as JaxPipeline
 from yolact_tpu.infer import forward_and_detect as jax_forward_and_detect
 from yolact_tpu.infer import random_variables
+from yolact_tpu.models.yolact import MaskIoUHead
 from yolact_tpu.models.yolact import Yolact as JaxYolact
 from yolact_tpu_torch.convert.from_jax import jax_variables_to_state_dict
 from yolact_tpu_torch.detect import detection as torch_detection
@@ -97,6 +99,36 @@ def test_forward_and_detect_matches_jax(sparse, branch, stem_s2d):
     assert torch_detection.branch_counts[branch] == before[branch] + 1
     assert bool(got.valid.any())
     _assert_outputs_match(want, got)
+
+
+# tiny-plus: DCN blocks in stages 1-3 with seeded non-zero offsets, and
+# the maskiou re-scoring (JAX's separate MaskIoUHead tree); mask_scores are
+# compared where the detection is valid, within the masks' 1e-4
+@pytest.mark.parametrize('sparse,branch', [(True, 'pruned'),
+                                           (False, 'full')])
+def test_plus_forward_and_detect_matches_jax(sparse, branch):
+    cfg = tiny_plus_config(nms_candidates=256)
+    variables = seed_offsets_jax(_variables(cfg, sparse), seed=4)
+    miou = jax.tree_util.tree_map(np.array, dict(MaskIoUHead(cfg).init(
+        jax.random.PRNGKey(9), jnp.zeros((1, 32, 32, 1)))))
+    frames = _frames(cfg)
+    want = jax.jit(lambda v, m, x: jax_forward_and_detect(
+        cfg, JaxYolact(cfg), v, x, maskiou_variables=m))(
+            variables, miou, jnp.asarray(frames))
+
+    sd = jax_variables_to_state_dict(cfg, dict(variables, maskiou=miou))
+    pipe = Pipeline(cfg, sd, 'cpu')
+    before = dict(torch_detection.branch_counts)
+    got = pipe(frames)
+    assert torch_detection.branch_counts[branch] == before[branch] + 1
+    assert bool(got.valid.any())
+    _assert_outputs_match(want, got)
+    valid = got.valid.numpy()
+    assert got.mask_scores.shape == got.scores.shape
+    np.testing.assert_allclose(got.mask_scores.numpy()[valid],
+                               np.asarray(want.mask_scores)[valid],
+                               rtol=0, atol=1e-4)
+    assert (got.mask_scores.numpy()[valid] > 0).any()
 
 
 def test_uncropped_masks_match_jax():
@@ -227,6 +259,24 @@ def test_random_state_dict_is_seeded_and_loads():
                for t in (out.boxes, out.scores, out.masks))
 
 
+def test_bf16_pipeline_keeps_maskiou_net_float32():
+    """A bfloat16 Pipeline casts the conv and DCN weights, never the mask
+    scorer's: JAX runs MaskIoUHead in float32, so its weights must equal
+    the state dict bit for bit."""
+    cfg = tiny_plus_config()
+    sd = random_state_dict(cfg, torch.Generator().manual_seed(0))
+    model = Pipeline(cfg, sd, 'cpu', 'bfloat16').model
+    params = dict(model.named_parameters())
+    scorer = [k for k in params if k.startswith('maskiou_net.')]
+    assert scorer
+    for k in scorer:
+        assert params[k].dtype == torch.float32
+        assert torch.equal(params[k], sd[k]), k
+    dcn_weight = 'backbone.layers.1.0.conv2.weight'
+    assert params[dcn_weight].dtype == torch.bfloat16
+    assert params['backbone.conv1.weight'].dtype == torch.bfloat16
+
+
 def test_pipeline_cuda_raises_without_gpu():
     if torch.cuda.is_available():
         pytest.skip('a GPU is present; this checks the no-GPU error')
@@ -239,6 +289,9 @@ def test_pipeline_cuda_raises_without_gpu():
 def test_port_imports_no_jax_flax_or_cv2():
     code = ('import sys, yolact_tpu_torch.infer, yolact_tpu_torch.kernels.nms, '
             'yolact_tpu_torch.kernels.mask_assembly, '
+            'yolact_tpu_torch.kernels.dcn, yolact_tpu_torch.models.resnet, '
+            'yolact_tpu_torch.models.heads, '
+            'yolact_tpu_torch.detect.postprocess, '
             'yolact_tpu_torch.convert.from_jax\n'
             'bad = sorted(m for m in sys.modules\n'
             '             if m.split(".")[0] in ("jax", "flax", "cv2"))\n'

@@ -2,10 +2,14 @@
 
 The inverse of ``yolact_tpu/convert/torch_import.py:convert_state_dict``
 for the modules the port has: flax paths become the reference's torch
-``state_dict`` keys, conv kernels go HWIO -> OIHW, and batch norm ``scale`` / ``bias`` /
-``mean`` / ``var`` become ``weight`` / ``bias`` / ``running_mean`` /
-``running_var``.  Inputs are nested dicts of numpy arrays, so this module
-needs no JAX.
+``state_dict`` keys, conv kernels (and a DCN layer's 4-D ``weight``) go
+HWIO -> OIHW, and batch norm ``scale`` / ``bias`` / ``mean`` / ``var``
+become ``weight`` / ``bias`` / ``running_mean`` / ``running_var``.  The
+YOLACT++ mask scorer, a separate ``MaskIoUHead`` tree in JAX
+(``{'params': {'maskiou': {'maskiou_net': ...}}}``), is read from the
+``'maskiou'`` entry, where ``convert_state_dict`` puts it, and becomes
+``maskiou_net.maskiou_net.{i}``.  Inputs are nested dicts of numpy arrays,
+so this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -57,6 +61,8 @@ def _torch_key(path: Tuple[str, ...]) -> str:
     *mods, leaf = path
     if mods and mods[0] == 'proto':       # ProtoNet is the torch proto_net
         mods = mods[1:]
+    elif mods and mods[0] == 'maskiou':   # MaskIoUHead's FastMaskIoUNet
+        mods = ['maskiou_net'] + mods[1:]
     names = [_module_name(p) for p in mods if p not in _WRAPPERS]
     return '.'.join(names + [_LEAF[leaf]])
 
@@ -72,11 +78,11 @@ def _to_torch(path: Tuple[str, ...], value) -> torch.Tensor:
 
 def jax_variables_to_state_dict(cfg: YolactConfig, variables: Dict
                                 ) -> Dict[str, torch.Tensor]:
-    """``{'params': ..., 'batch_stats': ...}`` of ``yolact_tpu`` Yolact(cfg)
+    """``{'params': ..., 'batch_stats': ...}`` of ``yolact_tpu`` Yolact(cfg),
+    plus for YOLACT++ ``'maskiou'``: the ``MaskIoUHead(cfg)`` variables
     -> the port's ``state_dict`` (float32 CPU tensors)."""
     del cfg  # names and shapes follow from the tree itself
-    sd = {}
-    for coll in ('params', 'batch_stats'):
-        for path, value in _walk(variables.get(coll, {})):
-            sd[_torch_key(path)] = _to_torch(path, value)
-    return sd
+    trees = [variables.get('params', {}), variables.get('batch_stats', {}),
+             variables.get('maskiou', {}).get('params', {})]
+    return {_torch_key(path): _to_torch(path, value)
+            for tree in trees for path, value in _walk(tree)}

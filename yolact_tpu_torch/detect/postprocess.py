@@ -1,5 +1,6 @@
-"""Mask assembly at prototype resolution.  Port of
-``yolact_tpu/detect/postprocess.py:postprocess_device``.
+"""Mask assembly at prototype resolution and YOLACT++ mask re-scoring.
+Port of ``yolact_tpu/detect/postprocess.py`` (``postprocess_device``,
+``select_class_maskiou``, ``rescore_with_maskiou``).
 
 The standard sigmoid + crop configuration runs the fused CUDA kernel of
 ``kernels/mask_assembly.py`` (under the same condition as the JAX package
@@ -15,6 +16,7 @@ from yolact_tpu.config import MaskType, YolactConfig
 from yolact_tpu_torch.detect.detection import Detections
 from yolact_tpu_torch.kernels.mask_assembly import (assemble_masks,
                                                     assemble_masks_plain)
+from yolact_tpu_torch.models.heads import FastMaskIoUNet
 from yolact_tpu_torch.ops.boxes import crop
 
 
@@ -60,3 +62,21 @@ def postprocess_device(cfg: YolactConfig, dets: Detections,
             m = torch.stack([crop(mi, bi) for mi, bi in zip(m, dets.boxes)])
         masks = m.permute(0, 3, 1, 2)
     return masks, _threshold(dets, score_threshold)
+
+
+def select_class_maskiou(iou_p: torch.Tensor,
+                         classes: torch.Tensor) -> torch.Tensor:
+    """[B, D, C-1] per-class maskiou -> [B, D] at each detection's class."""
+    cls = classes.long().clamp(0, iou_p.shape[-1] - 1)
+    return torch.gather(iou_p, -1, cls[..., None])[..., 0]
+
+
+def rescore_with_maskiou(maskiou_net: FastMaskIoUNet, masks: torch.Tensor,
+                         dets: Detections) -> torch.Tensor:
+    """Run the mask scorer on the assembled [B, D, Hp, Wp] masks (every
+    slot, padding included) and multiply its score at each detection's
+    class into the detection score -> mask_scores [B, D]."""
+    B, D, Hp, Wp = masks.shape
+    iou_p = maskiou_net(masks.reshape(B * D, 1, Hp, Wp))
+    return dets.scores * select_class_maskiou(iou_p.reshape(B, D, -1),
+                                              dets.classes)

@@ -23,9 +23,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolact_tpu.config import MEANS, STD, YolactConfig
+from yolact_tpu.config import MEANS, STD, MaskType, YolactConfig
 from yolact_tpu_torch.detect.detection import detect
-from yolact_tpu_torch.detect.postprocess import postprocess_device
+from yolact_tpu_torch.detect.postprocess import (postprocess_device,
+                                                 rescore_with_maskiou)
+from yolact_tpu_torch.models.resnet import DCNLayer
 from yolact_tpu_torch.models.yolact import Yolact
 
 
@@ -66,6 +68,7 @@ class InferenceOutput(NamedTuple):
     scores: torch.Tensor     # [B, D]
     masks: torch.Tensor      # [B, D, Hp, Wp] proto-res sigmoid masks (cropped)
     valid: torch.Tensor      # [B, D] bool
+    mask_scores: Optional[torch.Tensor] = None  # [B, D] maskiou-rescored
 
 
 def forward_and_detect(cfg: YolactConfig, model: Yolact,
@@ -74,18 +77,24 @@ def forward_and_detect(cfg: YolactConfig, model: Yolact,
                        score_threshold: float = 0.0,
                        crop_masks: bool = True,
                        use_kernels: bool = True) -> InferenceOutput:
-    """The whole device program: preprocess, model, fast NMS, masks.
-    ``images`` are raw [B, H, W, 3] BGR frames, or with
-    ``preprocess=False`` an already normalized NCHW batch."""
+    """The whole device program: preprocess, model, fast NMS, masks and,
+    for YOLACT++ configs, the maskiou re-scoring of the masks.  ``images``
+    are raw [B, H, W, 3] BGR frames, or with ``preprocess=False`` an
+    already normalized NCHW batch.  ``use_kernels=False`` runs every
+    kernel's plain PyTorch version, to compare the two."""
     x = preprocess_device(cfg, images) if preprocess else images
-    preds = model(x)
+    preds = model(x, use_kernels=use_kernels)
     dets = detect(cfg, preds, use_cross_class_nms=use_cross_class_nms,
                   use_kernels=use_kernels)
     masks, dets = postprocess_device(cfg, dets, crop_masks=crop_masks,
                                      score_threshold=score_threshold,
                                      use_kernels=use_kernels)
+    mask_scores = None
+    if (cfg.use_maskiou and cfg.mask_type != MaskType.DIRECT
+            and cfg.eval_mask_branch):
+        mask_scores = rescore_with_maskiou(model.maskiou_net, masks, dets)
     return InferenceOutput(dets.boxes, dets.classes, dets.scores, masks,
-                           dets.valid)
+                           dets.valid, mask_scores)
 
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
@@ -130,7 +139,9 @@ class Pipeline:
 def random_state_dict(cfg: YolactConfig, generator: torch.Generator
                       ) -> Dict[str, torch.Tensor]:
     """Seeded random float32 weights in the JAX package's init scheme:
-    xavier-uniform conv kernels, zero biases, identity batch norm."""
+    xavier-uniform conv kernels, zero biases, identity batch norm; a DCN
+    layer's offset/mask conv is all zero (offsets 0, mask 0.5) and its
+    weight is flax's kaiming-normal (truncated normal, variance 2/fan_in)."""
     model = Yolact(cfg)
     with torch.no_grad():
         for m in model.modules():
@@ -138,4 +149,14 @@ def random_state_dict(cfg: YolactConfig, generator: torch.Generator
                 nn.init.xavier_uniform_(m.weight, generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
+        for m in model.modules():
+            if isinstance(m, DCNLayer):
+                m.conv_offset_mask.weight.zero_()
+                fan_in = m.weight[0].numel()
+                # flax's truncated normal at +-2 std, rescaled to unit
+                # variance: std / 0.8796...
+                std = math.sqrt(2.0 / fan_in) / .87962566103423978
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
+                                      b=2 * std, generator=generator)
+                m.bias.zero_()
     return {k: v.detach().clone() for k, v in model.state_dict().items()}

@@ -1,16 +1,18 @@
 """Build and load the port's CUDA kernels at first use.
 
-Every ``yolact_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` into one
-shared library with a plain C interface, which is loaded with ``ctypes``
-(no PyTorch headers, so a build takes seconds).  The library lands in
+Every ``yolact_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, which is loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds).  The library lands in
 ``yolact_tpu_torch/_build/<hash>/``, keyed on a hash of the sources and
 flags, so an edited ``.cu`` file rebuilds and an unchanged one is reused.
 
 ``--fmad=false`` is part of the contract, not a tuning flag: without it
 nvcc may contract ``a * b - c`` into one fused multiply-add, which rounds
-once instead of twice.  The IoU and crop-bound arithmetic must round like
-the plain PyTorch versions, because a last-bit change there flips an
-``iou <= nms_thresh`` decision or moves a crop edge by a whole pixel.
+once instead of twice.  The IoU, crop-bound and bilinear-sample arithmetic
+must round like the plain PyTorch versions, because a last-bit change there
+flips an ``iou <= nms_thresh`` decision, moves a crop edge by a whole pixel
+or breaks the DCN columns' bit-equality.
 Products the kernels do want fused are written as explicit ``fmaf``.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*``
@@ -35,7 +37,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '--fmad=false', '-Xcompiler', '-fPIC')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +49,11 @@ SIGNATURES = {
     # [b, d, hp*wp] (all f32), b, d, hp, wp, md, padding, stream
     'yolact_mask_assembly': (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                              ctypes.c_float, _P),
+    # x [b, c, h, w], offset [b, 2k^2, ho, wo] f32, mask [b, k^2, ho, wo],
+    # cols [b, c*k^2, ho*wo], dtype (0 f32, 1 bf16), b, c, h, w, ho, wo, k,
+    # stride, pad, dil, stream
+    'yolact_dcn_im2col': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -83,18 +90,34 @@ def _digest(srcs) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs) -> None:
+    """Wait for every nvcc process; raise with the output of a failed one."""
+    failed = []
+    for proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f'{" ".join(proc.args)} ({proc.returncode}):\n'
+                          f'{out}\n{err}')
+    if failed:
+        raise RuntimeError('nvcc failed: ' + '\n'.join(failed))
+
+
 def _compile(srcs, out_path: str) -> None:
     nvcc = _find_nvcc()
-    os.makedirs(os.path.dirname(out_path), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=os.path.dirname(out_path))
-    os.close(fd)
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, '-o', tmp, *srcs],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                           f'{proc.stdout}\n{proc.stderr}')
-    os.replace(tmp, out_path)       # atomic: concurrent builders agree
+    out_dir = os.path.dirname(out_path)
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src) + '.o')
+                for src in srcs]
+        _run([subprocess.Popen([nvcc, *NVCC_FLAGS, '-c', '-o', obj, src],
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               text=True)
+              for src, obj in zip(srcs, objs)])
+        lib = os.path.join(tmp, 'lib.so')
+        _run([subprocess.Popen([nvcc, *NVCC_FLAGS, '-shared', '-o', lib,
+                                *objs], stdout=subprocess.PIPE,
+                               stderr=subprocess.PIPE, text=True)])
+        os.replace(lib, out_path)   # atomic: concurrent builds agree
 
 
 def load() -> ctypes.CDLL:

@@ -1,9 +1,9 @@
 """Prototype network and prediction head, NCHW.
 
-Port of ``yolact_tpu/models/heads.py`` (``ProtoNet``, ``PredictionHead``).
-``FastMaskIoUNet`` is YOLACT++ and waits for ROADMAP A7.  Parameter names
-are the reference's (``proto_net.{i}``, ``upfeature.{i}``, ``bbox_layer``,
-``conf_layer``, ``mask_layer``, ...).
+Port of ``yolact_tpu/models/heads.py`` (``ProtoNet``, ``PredictionHead``,
+``FastMaskIoUNet``).  Parameter names are the reference's
+(``proto_net.{i}``, ``upfeature.{i}``, ``bbox_layer``, ``conf_layer``,
+``mask_layer``, ``maskiou_net.{i}``, ...).
 """
 
 from __future__ import annotations
@@ -108,3 +108,17 @@ class PredictionHead(nn.Module):
             mask = bbox.new_zeros((bbox.shape[0], bbox.shape[1],
                                    self.mask_dim))
         return {'loc': bbox, 'conf': conf, 'mask': mask}
+
+
+class FastMaskIoUNet(nn.Module):
+    """YOLACT++ mask scorer: a small convnet over assembled masks, then a
+    global max.  Input [N, 1, H, W], output [N, num_classes - 1].  Its
+    parameters are ``maskiou_net.{i}``."""
+
+    def __init__(self, cfg: YolactConfig):
+        super().__init__()
+        spec = tuple(cfg.maskiou_net) + ((cfg.num_classes - 1, 1, ()),)
+        self.maskiou_net, _ = make_net(1, spec, include_last_relu=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.maskiou_net(x).amax(dim=(2, 3))

@@ -3,9 +3,8 @@
 Port of ``yolact_tpu/models/resnet.py`` (``Bottleneck``, ``_stage_plan``,
 ``ResNetBackbone``) with the reference's parameter names
 (``layers.{stage}.{block}.conv1.weight``, ``...downsample.0.weight``).
-Atrous stages and SSD-style extra stages are kept.  DCNv2 stages are
-YOLACT++ (ROADMAP A7) and group norm is ResNet-GN (ROADMAP A8): both
-raise ``NotImplementedError``.
+Atrous stages, SSD-style extra stages and DCNv2 blocks (YOLACT++) are
+kept.  Group norm (ResNet-GN, ROADMAP A8) is not ported.
 """
 
 from __future__ import annotations
@@ -16,9 +15,40 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yolact_tpu_torch.kernels import dcn
 from yolact_tpu_torch.models.layers import BatchNorm2d, max_pool
 
 EXPANSION = 4
+
+
+class DCNLayer(nn.Module):
+    """DCNv2 layer: a conv predicts per-tap offsets and modulation logits,
+    then the deformable conv consumes them.  Port of JAX
+    ``resnet.py:DCNLayer`` with the reference's parameter names
+    (``conv_offset_mask.{weight,bias}``, ``weight``, ``bias``).  Offsets
+    (the first 2*K*K channels, (dy, dx) per tap) go to float32 before
+    sampling; the mask is the sigmoid of the last K*K channels."""
+
+    def __init__(self, inplanes: int, planes: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, dilation: int = 1):
+        super().__init__()
+        k = kernel_size
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.conv_offset_mask = nn.Conv2d(inplanes, 3 * k * k, k,
+                                          stride=stride, padding=padding,
+                                          dilation=dilation, bias=True)
+        self.weight = nn.Parameter(torch.empty(planes, inplanes, k, k))
+        self.bias = nn.Parameter(torch.zeros(planes))
+
+    def forward(self, x: torch.Tensor,
+                use_kernels: bool = True) -> torch.Tensor:
+        kk = self.weight.shape[-1] ** 2
+        om = self.conv_offset_mask(x)
+        offset = om[:, :2 * kk].float().contiguous()
+        mask = torch.sigmoid(om[:, 2 * kk:]).contiguous()
+        fn = dcn.deform_conv2d if use_kernels else dcn.deform_conv2d_plain
+        return fn(x.contiguous(), offset, mask, self.weight, self.bias,
+                  self.stride, self.padding, self.dilation)
 
 
 class Bottleneck(nn.Module):
@@ -26,13 +56,19 @@ class Bottleneck(nn.Module):
     residual."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dilation: int = 1, has_downsample: bool = False):
+                 dilation: int = 1, use_dcn: bool = False,
+                 has_downsample: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False,
                                dilation=dilation)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
-                               padding=dilation, dilation=dilation, bias=False)
+        if use_dcn:
+            self.conv2 = DCNLayer(planes, planes, 3, stride=stride,
+                                  padding=dilation, dilation=dilation)
+        else:
+            self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
+                                   padding=dilation, dilation=dilation,
+                                   bias=False)
         self.bn2 = BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, planes * EXPANSION, 1, bias=False,
                                dilation=dilation)
@@ -42,9 +78,14 @@ class Bottleneck(nn.Module):
                       bias=False, dilation=dilation),
             BatchNorm2d(planes * EXPANSION)) if has_downsample else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                use_kernels: bool = True) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        if isinstance(self.conv2, DCNLayer):
+            out = self.conv2(out, use_kernels)
+        else:
+            out = self.conv2(out)
+        out = F.relu(self.bn2(out))
         out = self.bn3(self.conv3(out))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(out + residual)
@@ -85,7 +126,8 @@ def _stage_plan(layers: Sequence[int], dcn_layers: Sequence[int],
 
 
 class ResNetBackbone(nn.Module):
-    """Returns one feature map per stage (C2..C5 [+ extra stages])."""
+    """Returns one feature map per stage (C2..C5 [+ extra stages]).
+    ``use_kernels=False`` runs the DCN blocks' plain PyTorch sampling."""
 
     def __init__(self, layers: Sequence[int],
                  dcn_layers: Sequence[int] = (0, 0, 0, 0),
@@ -95,23 +137,19 @@ class ResNetBackbone(nn.Module):
         extra = max(0, (num_stages or len(layers)) - len(layers))
         plans = _stage_plan(layers, dcn_layers, dcn_interval, atrous_layers,
                             extra)
-        if any(blk['use_dcn'] for stage in plans for blk in stage):
-            raise NotImplementedError(
-                'DCNv2 backbone stages (YOLACT++) are not ported yet '
-                '(ROADMAP A7)')
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.layers = nn.ModuleList(
-            nn.Sequential(*[Bottleneck(**{k: v for k, v in blk.items()
-                                          if k != 'use_dcn'})
-                            for blk in stage])
+            nn.Sequential(*[Bottleneck(**blk) for blk in stage])
             for stage in plans)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor,
+                use_kernels: bool = True) -> Tuple[torch.Tensor, ...]:
         x = F.relu(self.bn1(self.conv1(x)))
         x = max_pool(x, 3, 2, 1)
         outs = []
         for stage in self.layers:
-            x = stage(x)
+            for block in stage:
+                x = block(x, use_kernels)
             outs.append(x)
         return tuple(outs)

@@ -1,8 +1,12 @@
 """Top-level YOLACT model, eval forward: backbone -> FPN -> (protonet ‖ heads).
 
 Port of ``yolact_tpu/models/yolact.py:Yolact`` for the ResNet + FPN +
-lincomb configurations (``yolact_base``).  Training outputs,
-prototypes-as-features and the other backbones are not ported yet.
+lincomb configurations (``yolact_base``, and ``yolact_plus_base`` with its
+DCN blocks).  With ``cfg.use_maskiou`` the model also holds the YOLACT++
+mask scorer as ``maskiou_net`` (the JAX package keeps it in a separate
+``MaskIoUHead`` tree); ``forward`` does not run it, ``infer`` does, on the
+assembled masks.  Training outputs, prototypes-as-features and the other
+backbones are not ported yet.
 
 Input is NCHW, already preprocessed (``infer.preprocess_device``).
 Output dict, in the JAX package's layouts:
@@ -22,8 +26,9 @@ from torch import nn
 
 from yolact_tpu.config import MaskType, YolactConfig, backbone_channels
 from yolact_tpu_torch.models.fpn import FPN
-from yolact_tpu_torch.models.heads import PredictionHead, ProtoNet
-from yolact_tpu_torch.models.resnet import ResNetBackbone
+from yolact_tpu_torch.models.heads import (FastMaskIoUNet, PredictionHead,
+                                           ProtoNet)
+from yolact_tpu_torch.models.resnet import DCNLayer, ResNetBackbone
 from yolact_tpu_torch.ops.anchors import generate_priors
 
 
@@ -64,6 +69,7 @@ class Yolact(nn.Module):
         self.prediction_layers = nn.ModuleList(
             PredictionHead(cfg, nf, self._priors_per_pos(i))
             for i in range(n_heads))
+        self.maskiou_net = FastMaskIoUNet(cfg) if cfg.use_maskiou else None
         self._priors = {}
 
     def _priors_per_pos(self, idx: int) -> int:
@@ -73,9 +79,13 @@ class Yolact(nn.Module):
 
     def set_compute_dtype(self, dtype: torch.dtype) -> 'Yolact':
         """Run the convolutions in `dtype` (the JAX ``compute_dtype``): conv
-        weights are cast once here, batch-norm statistics stay float32."""
+        and DCN weights are cast once here, batch-norm statistics stay
+        float32, and so does the mask scorer, which JAX runs in float32 on
+        float32 masks: its weights are never cast, so they keep every bit."""
+        scorer = (set(self.maskiou_net.modules())
+                  if self.maskiou_net is not None else set())
         for m in self.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, DCNLayer)) and m not in scorer:
                 m.to(dtype)
         self.compute_dtype = dtype
         return self
@@ -87,11 +97,14 @@ class Yolact(nn.Module):
                 generate_priors(self.cfg, (h, w)).copy()).to(device)
         return self._priors[key]
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                use_kernels: bool = True) -> Dict[str, torch.Tensor]:
+        """``use_kernels=False`` runs the DCN sampling's plain PyTorch
+        version on the card too, to compare the two."""
         cfg = self.cfg
         h, w = x.shape[2], x.shape[3]
         x = x.to(self.compute_dtype)
-        outs = self.backbone(x)
+        outs = self.backbone(x, use_kernels)
         outs = self.fpn([outs[i] for i in cfg.backbone.selected_layers])
 
         preds = []
