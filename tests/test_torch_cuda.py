@@ -11,16 +11,20 @@ built with --fmad=false), DCN columns exact in float32 and within 1 ulp in
 bfloat16 (the same float operations, rounded at the same points, NaN where
 the plain version has NaN); the tiny pipelines' kernel and plain paths
 agree like chip_smoke.py's main paths (identical classes and validity,
-scores and boxes within 1e-5, masks and mask_scores within 1e-4)."""
+scores and boxes within 1e-5, masks and mask_scores within 1e-4).  The s2d
+stem kernel against its plain version (cuDNN's float32 conv, TF32 off,
+rounded once): within 1e-5 of max|out| in float32 (cuDNN may sum the 192
+products in another order) and 1 ulp in bfloat16."""
 
 import pytest
 import torch
 
 from _tiny import tiny_plus_config, tiny_resnet_config
-from test_torch_inputs import (dcn_inputs, seed_offsets_state_dict,
-                               ulp_distance)
+from test_torch_inputs import (SyntheticEvalSet, dcn_inputs,
+                               seed_offsets_state_dict, ulp_distance)
+from yolact_tpu_torch.eval.evaluate import evaluate_dataset
 from yolact_tpu_torch.infer import Pipeline, random_state_dict
-from yolact_tpu_torch.kernels import dcn, mask_assembly, nms
+from yolact_tpu_torch.kernels import dcn, mask_assembly, nms, stem
 
 torch.set_num_threads(2)
 
@@ -183,3 +187,89 @@ def test_tiny_plus_pipeline_kernels_match_plain(cuda):
     torch.testing.assert_close(got.masks, want.masks, rtol=0, atol=1e-4)
     torch.testing.assert_close(got.mask_scores, want.mask_scores, rtol=0,
                                atol=1e-4)
+
+
+def _rel_err(got, want):
+    """Largest abs difference over the largest |want| (float32)."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('shape', [(1, 12, 275, 275), (8, 12, 275, 275),
+                                   (2, 12, 37, 41), (1, 12, 3, 5)])
+def test_stem_kernel_matches_plain(cuda, dtype, shape):
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen).to(dtype).to(cuda)
+    w2 = (torch.randn(64, 12, 4, 4, generator=gen) * 0.1).to(dtype).to(cuda)
+    n0 = stem.launches
+    got = stem.stem_conv_s2d(x, w2)
+    torch.cuda.synchronize()
+    assert stem.launches == n0 + 1
+    want = stem.stem_conv_s2d_plain(x, w2)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        assert _rel_err(got, want) <= 1e-5
+    else:
+        assert ulp_distance(got, want) <= 1
+
+
+@pytest.mark.cuda
+def test_stem_wrapper_rejects_bad_inputs(cuda):
+    x = torch.zeros(1, 12, 8, 8, device=cuda)
+    w2 = torch.zeros(64, 12, 4, 4, device=cuda)
+    bad = [
+        (x[:, :4], w2),                                   # channels
+        (x, w2[:32]),                                     # weight shape
+        (x.bfloat16(), w2),                               # dtypes differ
+        (x.half(), w2.half()),                            # dtype
+        (x.transpose(2, 3), w2),                          # not contiguous
+        (x, w2.cpu()),                                    # devices
+    ]
+    n0 = stem.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            stem.stem_conv_s2d(*args)
+    assert stem.launches == n0
+
+
+@pytest.mark.cuda
+def test_tiny_s2d_pipeline_kernels_match_plain(cuda):
+    cfg = tiny_resnet_config(stem_s2d=True)
+    sd = random_state_dict(cfg, torch.Generator().manual_seed(0))
+    frames = torch.randint(0, 256, (2, 128, 128, 3),
+                           generator=torch.Generator().manual_seed(1)
+                           ).float().to(cuda)
+    want = Pipeline(cfg, sd, cuda, 'float32', use_kernels=False)(frames)
+    s0 = stem.launches
+    got = Pipeline(cfg, sd, cuda, 'float32')(frames)
+    torch.cuda.synchronize()
+    assert stem.launches == s0 + 1
+    assert torch.equal(got.valid, want.valid)
+    assert torch.equal(got.classes, want.classes)
+    torch.testing.assert_close(got.scores, want.scores, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.boxes, want.boxes, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.masks, want.masks, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('fast_nms,stem_s2d', [(True, True), (False, False)],
+                         ids=['fast_s2d', 'traditional'])
+def test_evaluate_dataset_on_cuda(cuda, fast_nms, stem_s2d):
+    """The eval loop on the card, with the kernels and with their plain
+    versions: the same mAP table, and the kernels were launched."""
+    cfg = tiny_resnet_config(stem_s2d=stem_s2d)
+    sd = random_state_dict(cfg, torch.Generator().manual_seed(0))
+    data = SyntheticEvalSet(5, cfg.max_size, cfg.num_classes, seed=3)
+    kw = dict(compute_dtype='float32', eval_batch_size=2, fast_nms=fast_nms,
+              quiet=True)
+    want = evaluate_dataset(cfg, sd, data, cuda, use_kernels=False, **kw)
+    counts = (stem.launches, nms.launches, mask_assembly.launches)
+    got = evaluate_dataset(cfg, sd, data, cuda, **kw)
+    torch.cuda.synchronize()
+    assert got == want and set(got) == {'box', 'mask'}
+    ran = [now > before for now, before in zip(
+        (stem.launches, nms.launches, mask_assembly.launches), counts)]
+    assert ran == [stem_s2d, fast_nms, fast_nms]

@@ -13,11 +13,15 @@ to the smoke script's inputs does not move the unit tests.
   integer, fractional, far out-of-bounds and non-finite offsets.
 - :func:`ulp_distance` measures two bfloat16 tensors in units in the last
   place.
+- :class:`SyntheticEvalSet` is an in-memory eval dataset of seeded frames
+  with boxes and masks, for ``evaluate_dataset`` where no image files or
+  cv2 are at hand.
 """
 
 import numpy as np
 import torch
 
+from yolact_tpu_torch import MEANS, STD
 from yolact_tpu_torch.kernels.dcn import out_size
 
 
@@ -84,6 +88,66 @@ def ulp_distance(a, b):
         i = t.view(torch.int16).int()
         return torch.where(i < 0, -(i & 0x7fff), i)
     return int((ordered(a) - ordered(b)).abs().max())
+
+
+class SyntheticEvalSet:
+    """``n`` seeded BGR frames of ``size`` x ``size`` pixels, each with 1-3
+    objects of random foreground classes (elliptic masks inside their
+    boxes), in the COCODetection item contract that ``evaluate_dataset``
+    reads: ``pull_item`` -> (frame normalized as ``BaseTransform`` does for
+    a ResNet config at ``max_size == size``, gt ``[k, 5]`` relative boxes
+    and 0-based labels, masks ``[k, size, size]``, h, w, 0 crowds)."""
+
+    def __init__(self, n, size, num_classes, seed=0):
+        rng = np.random.RandomState(seed)
+        self.ids = list(range(1, n + 1))
+        self.raw, self.items = [], []
+        yy, xx = np.mgrid[:size, :size] + 0.5
+        for _ in range(n):
+            raw = rng.randint(0, 256, (size, size, 3)).astype(np.float32)
+            k = rng.randint(1, 4)
+            xy1 = rng.randint(0, size // 2, (k, 2))
+            xy2 = xy1 + rng.randint(size // 8, size // 2, (k, 2))
+            cx, cy = (xy1 + xy2).T / 2
+            rx, ry = (xy2 - xy1).T / 2
+            masks = ((((xx[None] - cx[:, None, None]) / rx[:, None, None]) ** 2
+                      + ((yy[None] - cy[:, None, None]) / ry[:, None, None])
+                      ** 2) <= 1).astype(np.float32)
+            labels = rng.randint(0, num_classes - 1, k)
+            gt = np.hstack([np.hstack([xy1, xy2]) / size, labels[:, None]])
+            img = ((raw - np.float32(MEANS)) / np.float32(STD))[..., ::-1]
+            self.raw.append(raw)
+            self.items.append((np.ascontiguousarray(img, np.float32), gt,
+                               masks, size, size, 0))
+
+    def __len__(self):
+        return len(self.items)
+
+    def pull_item(self, index):
+        return self.items[index]
+
+    def pull_image(self, index):
+        return self.raw[index]
+
+
+def test_synthetic_eval_set_is_seeded_and_consistent():
+    a, b = SyntheticEvalSet(3, 32, 5, seed=1), SyntheticEvalSet(3, 32, 5,
+                                                                 seed=1)
+    assert len(a) == 3 and a.ids == [1, 2, 3]
+    for (img, gt, masks, h, w, crowds), other in zip(a.items, b.items):
+        assert img.shape == (32, 32, 3) and img.dtype == np.float32
+        assert (h, w, crowds) == (32, 32, 0)
+        assert np.array_equal(img, other[0]) and np.array_equal(gt, other[1])
+        assert masks.shape == (len(gt), 32, 32) and masks.any(axis=(1, 2)).all()
+        assert ((0 <= gt[:, :4]) & (gt[:, :4] <= 1)).all()
+        assert set(gt[:, 4]) <= {0, 1, 2, 3}
+        for box, m in zip(gt[:, :4] * 32, masks):      # masks inside boxes
+            ys, xs = np.nonzero(m)
+            assert xs.min() >= box[0] and xs.max() < box[2]
+            assert ys.min() >= box[1] and ys.max() < box[3]
+    # normalized RGB: channel 0 holds the raw frame's R (BGR index 2)
+    np.testing.assert_allclose(a.items[0][0][..., 0] * STD[2] + MEANS[2],
+                               a.raw[0][..., 2], rtol=0, atol=1e-3)
 
 
 def test_dcn_inputs_cover_every_offset_kind():

@@ -292,7 +292,11 @@ def test_port_imports_no_jax_flax_or_cv2():
             'yolact_tpu_torch.kernels.dcn, yolact_tpu_torch.models.resnet, '
             'yolact_tpu_torch.models.heads, '
             'yolact_tpu_torch.detect.postprocess, '
-            'yolact_tpu_torch.convert.from_jax\n'
+            'yolact_tpu_torch.convert.from_jax, '
+            'yolact_tpu_torch.kernels.stem, yolact_tpu_torch.cli.eval, '
+            'yolact_tpu_torch.eval.evaluate, '
+            'yolact_tpu_torch.eval.traditional, '
+            'yolact_tpu_torch.train.checkpoint\n'
             'bad = sorted(m for m in sys.modules\n'
             '             if m.split(".")[0] in ("jax", "flax", "cv2"))\n'
             'print(bad)\n'

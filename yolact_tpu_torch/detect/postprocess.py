@@ -1,6 +1,8 @@
-"""Mask assembly at prototype resolution and YOLACT++ mask re-scoring.
-Port of ``yolact_tpu/detect/postprocess.py`` (``postprocess_device``,
-``select_class_maskiou``, ``rescore_with_maskiou``).
+"""Mask assembly at prototype resolution, YOLACT++ mask re-scoring and the
+upsample to image size.  Port of ``yolact_tpu/detect/postprocess.py``
+(``postprocess_device``, ``select_class_maskiou``, ``rescore_with_maskiou``,
+``upsample_masks_device``, ``finish_masks`` for lincomb masks; the port
+builds no direct-mask config).
 
 The standard sigmoid + crop configuration runs the fused CUDA kernel of
 ``kernels/mask_assembly.py`` (under the same condition as the JAX package
@@ -10,7 +12,11 @@ a different computation and use the plain composition, as in JAX.
 
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from yolact_tpu.config import MaskType, YolactConfig
 from yolact_tpu_torch.detect.detection import Detections
@@ -80,3 +86,24 @@ def rescore_with_maskiou(maskiou_net: FastMaskIoUNet, masks: torch.Tensor,
     iou_p = maskiou_net(masks.reshape(B * D, 1, Hp, Wp))
     return dets.scores * select_class_maskiou(iou_p.reshape(B, D, -1),
                                               dets.classes)
+
+
+def upsample_masks_device(masks: torch.Tensor, size: Tuple[int, int],
+                          binarize: bool = True) -> torch.Tensor:
+    """[B, D, Hp, Wp] -> [B, D, h, w]: bilinear upsample (half-pixel
+    centres, ``F.interpolate(align_corners=False)``, the reference's
+    ``output_utils.py:91-94``) and, with ``binarize``, ``> 0.5``."""
+    out = F.interpolate(masks.float(), size=tuple(size), mode='bilinear',
+                        align_corners=False)
+    return out > 0.5 if binarize else out
+
+
+def finish_masks(masks: torch.Tensor, w: int, h: int) -> np.ndarray:
+    """Proto-resolution lincomb masks [D, Hp, Wp] (on any device) ->
+    binary [D, h, w] numpy masks at image size.  The upsample runs where
+    the masks are (on the card in the eval loop); JAX's host version
+    imitates this ``F.interpolate`` with a separable matmul."""
+    masks = torch.as_tensor(masks)
+    if masks.shape[0] == 0:
+        return np.zeros((0, h, w), dtype=bool)
+    return upsample_masks_device(masks[None], (h, w))[0].cpu().numpy()

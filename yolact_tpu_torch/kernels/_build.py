@@ -54,6 +54,9 @@ SIGNATURES = {
     # stride, pad, dil, stream
     'yolact_dcn_im2col': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _P),
+    # x [b, 12, h, w], w2 [64, 12, 4, 4], out [b, 64, h, w], dtype (0 f32,
+    # 1 bf16), b, h, w, stream
+    'yolact_stem_s2d_conv': (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -2,9 +2,16 @@
 
 Port of ``yolact_tpu/models/layers.py``.  Convolutions are plain
 ``nn.Conv2d`` with torch integer padding (the reference's own layer), and
-parameter names follow the reference's ``state_dict``.  The JAX package's
-space-to-depth stem helpers are TPU lane-layout tricks and are not ported:
-the port runs the plain 7x7/s2 stem, the same math on the same parameters.
+parameter names follow the reference's ``state_dict``.
+
+The space-to-depth ("s2d") stem helpers are ported with JAX's channel
+contract: a 2x2 space-to-depth input has channel ``(p*2+q)*3 + c`` for the
+pixel at row offset ``p`` and column offset ``q`` of each 2x2 cell, ``c``
+in raw BGR order, and the 7x7/s2/p3 stem conv becomes a 4x4/s1 conv with
+padding (2, 1) over it (:func:`s2d_stem_kernel`, ``kernels/stem.py``).  The
+rearrangement is a reshape and permute; JAX's one-hot stride-2 conv, which
+makes the TPU's matrix unit do the shuffle, is not ported.  The s2d stem
+runs only where a config asks for it (``cfg.stem_s2d``).
 
 Compute dtype follows the JAX convention: parameters are float32 in the
 state dict, convolutions run in the compute dtype (``Yolact.set_compute_dtype``
@@ -18,6 +25,35 @@ from typing import Any, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def s2d_stem_kernel(w: torch.Tensor) -> torch.Tensor:
+    """A 7x7/s2/p3 stem weight ``[O, C, 7, 7]`` (RGB input order) as the
+    equivalent 4x4/s1 weight ``[O, 4*C, 4, 4]`` over a 2x2 space-to-depth
+    input in raw (BGR) order, channel ``(p*2+q)*C + c`` (JAX
+    ``s2d_stem_kernel`` in OIHW).  Output tap ``a = 2m + p - 1`` covers the
+    7 taps for ``m`` in [0, 4), ``p`` in {0, 1}; the tap at -1 is zero.
+    Exact: only a flip, a zero pad and a rearrangement."""
+    o, c, kh, kw = w.shape
+    if (kh, kw) != (7, 7):
+        raise NotImplementedError('s2d stem assumes a 7x7/s2/p3 conv')
+    wp = F.pad(w.flip(1), (1, 0, 1, 0))           # fold BGR->RGB; a+1 >= 0
+    wp = wp.view(o, c, 4, 2, 4, 2)                # [o, c, m, p, n, q]
+    return wp.permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * c, 4, 4)
+
+
+def s2d_input(x: torch.Tensor, from_rgb: bool = False) -> torch.Tensor:
+    """``[B, C, H, W]`` -> 2x2 space-to-depth ``[B, 4*C, H/2, W/2]`` with
+    channel ``(p*2+q)*C + c`` (JAX ``s2d_input`` / ``s2d_eye_kernel``).
+    ``from_rgb`` reverses the channels first, so an RGB input lands in raw
+    (BGR) order, the stem conv's contract."""
+    b, c, h, w = x.shape
+    if h % 2 or w % 2:
+        raise ValueError('s2d input needs even H and W')
+    if from_rgb:
+        x = x.flip(1)
+    x = x.reshape(b, c, h // 2, 2, w // 2, 2)      # [b, c, h, p, w, q]
+    return x.permute(0, 3, 5, 1, 2, 4).reshape(b, 4 * c, h // 2, w // 2)
 
 
 class BatchNorm2d(nn.Module):

@@ -3,8 +3,9 @@
 Port of ``yolact_tpu/models/resnet.py`` (``Bottleneck``, ``_stage_plan``,
 ``ResNetBackbone``) with the reference's parameter names
 (``layers.{stage}.{block}.conv1.weight``, ``...downsample.0.weight``).
-Atrous stages, SSD-style extra stages and DCNv2 blocks (YOLACT++) are
-kept.  Group norm (ResNet-GN, ROADMAP A8) is not ported.
+Atrous stages, SSD-style extra stages, DCNv2 blocks (YOLACT++) and the
+space-to-depth stem are kept.  Group norm (ResNet-GN, ROADMAP A8) is not
+ported.
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolact_tpu_torch.kernels import dcn
-from yolact_tpu_torch.models.layers import BatchNorm2d, max_pool
+from yolact_tpu_torch.kernels import dcn, stem
+from yolact_tpu_torch.models.layers import (BatchNorm2d, max_pool,
+                                            s2d_stem_kernel)
 
 EXPANSION = 4
 
@@ -127,12 +129,22 @@ def _stage_plan(layers: Sequence[int], dcn_layers: Sequence[int],
 
 class ResNetBackbone(nn.Module):
     """Returns one feature map per stage (C2..C5 [+ extra stages]).
-    ``use_kernels=False`` runs the DCN blocks' plain PyTorch sampling."""
+    ``use_kernels=False`` runs the plain PyTorch versions of the DCN
+    sampling and the s2d stem conv.
+
+    ``stem_s2d``: the input is the 2x2 space-to-depth of the raw-order
+    (BGR) image, ``[B, 12, S/2, S/2]`` (``models/layers.py:s2d_input``),
+    and the stem runs as the 4x4/s1 conv of ``kernels/stem.py`` with the
+    weight derived from ``conv1.weight`` by ``s2d_stem_kernel``.  The
+    parameter keeps its name and shape, so state dicts are unchanged.  The
+    derived weight is cached and rebuilt whenever ``conv1.weight`` changes:
+    another storage (a dtype cast or a move to another device) or an
+    in-place write (``load_state_dict``) bumps the key it is cached on."""
 
     def __init__(self, layers: Sequence[int],
                  dcn_layers: Sequence[int] = (0, 0, 0, 0),
                  dcn_interval: int = 1, atrous_layers: Sequence[int] = (),
-                 num_stages: Optional[int] = None):
+                 num_stages: Optional[int] = None, stem_s2d: bool = False):
         super().__init__()
         extra = max(0, (num_stages or len(layers)) - len(layers))
         plans = _stage_plan(layers, dcn_layers, dcn_interval, atrous_layers,
@@ -142,10 +154,37 @@ class ResNetBackbone(nn.Module):
         self.layers = nn.ModuleList(
             nn.Sequential(*[Bottleneck(**blk) for blk in stage])
             for stage in plans)
+        self.stem_s2d = stem_s2d
+        self._w2 = None    # (conv1.weight's storage, its version, 4x4 weight)
+
+    def s2d_weight(self) -> torch.Tensor:
+        """``conv1.weight`` as the 4x4/s1 weight ``[64, 12, 4, 4]`` of the
+        s2d stem, in the weight's dtype and on its device."""
+        conv = self.conv1
+        if (conv.kernel_size, conv.stride, conv.padding, conv.dilation,
+                conv.bias) != ((7, 7), (2, 2), (3, 3), (1, 1), None):
+            raise NotImplementedError('stem_s2d supports 7x7/s2/p3')
+        w = conv.weight
+        if self._w2 is not None:
+            src, version, w2 = self._w2
+            # src shares w's storage while it is cached, so an equal
+            # data_ptr means the same storage, not a reused address
+            if (src.data_ptr() == w.data_ptr() and src.device == w.device
+                    and src.dtype == w.dtype and version == w._version):
+                return w2
+        with torch.no_grad():
+            src = w.detach()
+            self._w2 = (src, w._version, s2d_stem_kernel(src).contiguous())
+        return self._w2[2]
 
     def forward(self, x: torch.Tensor,
                 use_kernels: bool = True) -> Tuple[torch.Tensor, ...]:
-        x = F.relu(self.bn1(self.conv1(x)))
+        if self.stem_s2d:
+            fn = stem.stem_conv_s2d if use_kernels else stem.stem_conv_s2d_plain
+            x = fn(x.contiguous(), self.s2d_weight())
+        else:
+            x = self.conv1(x)
+        x = F.relu(self.bn1(x))
         x = max_pool(x, 3, 2, 1)
         outs = []
         for stage in self.layers:

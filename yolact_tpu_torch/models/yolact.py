@@ -8,7 +8,10 @@ mask scorer as ``maskiou_net`` (the JAX package keeps it in a separate
 assembled masks.  Training outputs, prototypes-as-features and the other
 backbones are not ported yet.
 
-Input is NCHW, already preprocessed (``infer.preprocess_device``).
+Input is NCHW, already preprocessed (``infer.preprocess_device``); with
+``cfg.stem_s2d`` it is the 2x2 space-to-depth ``[B, 12, S/2, S/2]``
+(``infer.preprocess_device_s2d``) and the trunk's first conv is the s2d
+stem kernel.
 Output dict, in the JAX package's layouts:
   loc    [B, P, 4]       raw box regressions
   conf   [B, P, C]       raw class logits
@@ -34,6 +37,8 @@ from yolact_tpu_torch.ops.anchors import generate_priors
 
 def _build_backbone(cfg: YolactConfig) -> ResNetBackbone:
     bb = cfg.backbone
+    if cfg.stem_s2d and bb.type not in ('resnet', 'resnet_gn'):
+        raise ValueError('stem_s2d is only supported for ResNet backbones')
     if bb.type != 'resnet':
         raise NotImplementedError(
             f'backbone type {bb.type!r} is not ported yet (ROADMAP A8)')
@@ -43,12 +48,17 @@ def _build_backbone(cfg: YolactConfig) -> ResNetBackbone:
         dcn_layers=tuple(bb.args[1]) if len(bb.args) > 1 else (0, 0, 0, 0),
         dcn_interval=bb.args[2] if len(bb.args) > 2 else 1,
         atrous_layers=tuple(bb.args[3]) if len(bb.args) > 3 else (),
-        num_stages=max(max(bb.selected_layers) + 1, len(layers)))
+        num_stages=max(max(bb.selected_layers) + 1, len(layers)),
+        stem_s2d=cfg.stem_s2d)
 
 
 class Yolact(nn.Module):
     def __init__(self, cfg: YolactConfig):
         super().__init__()
+        if (cfg.stem_s2d and cfg.mask_type == MaskType.LINCOMB
+                and cfg.eval_mask_branch and cfg.mask_proto_src is None):
+            raise ValueError('stem_s2d cannot feed the protonet the raw '
+                             'image (mask_proto_src=None)')
         if cfg.mask_type != MaskType.LINCOMB or cfg.mask_proto_src is None \
                 or cfg.fpn is None:
             raise NotImplementedError(
@@ -99,10 +109,13 @@ class Yolact(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 use_kernels: bool = True) -> Dict[str, torch.Tensor]:
-        """``use_kernels=False`` runs the DCN sampling's plain PyTorch
-        version on the card too, to compare the two."""
+        """``use_kernels=False`` runs the plain PyTorch versions of the DCN
+        sampling and the s2d stem conv on the card too, to compare the
+        two."""
         cfg = self.cfg
-        h, w = x.shape[2], x.shape[3]
+        # logical image size: a space-to-depth input is at half resolution
+        scale = 2 if cfg.stem_s2d else 1
+        h, w = x.shape[2] * scale, x.shape[3] * scale
         x = x.to(self.compute_dtype)
         outs = self.backbone(x, use_kernels)
         outs = self.fpn([outs[i] for i in cfg.backbone.selected_layers])
