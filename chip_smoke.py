@@ -4,46 +4,55 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card, nvcc and
-PyTorch built for CUDA.  It imports nothing of JAX.  Phases, each of which
-raises on failure:
+PyTorch built for CUDA.  It imports nothing of JAX or of the JAX package.
+Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (nvidia-smi); exit 1 without CUDA
 2. build: the four kernels compiled from yolact_tpu_torch/csrc/*.cu
 3. kernels vs their plain PyTorch versions on the card at main-path shapes;
-   the DCN sampling at the five yolact_plus_base DCN shapes, in bf16 at b8
-   and in f32 at b1, with integer, fractional, far out-of-bounds and
-   non-finite offsets; the s2d stem conv at the yolact_base shapes (bf16
-   b8, f32 b1) and an odd one
+   the DCN sampling at the five yolact_plus_base DCN shapes and one with
+   Cin % 8 != 0, in bf16 at b8 and in f32 at b1, with integer, fractional,
+   far out-of-bounds and non-finite offsets, bit for bit, from NCHW and
+   channels_last inputs; the s2d stem conv at the yolact_base shapes (bf16
+   b8, f32 b1) and an odd one: f32 within 1e-5 of max|out|, bf16 within
+   one bf16 ulp of |plain| plus 1e-5 of max|plain|
 4. the three paths, each at 550x550 with seeded random weights, b1 and b8
    in bf16 and b1 in f32 (TF32 off), with the kernels and with the plain
    versions, for (a) a dense conf head (most priors pass conf_thresh: the
    unpruned NMS fallback) and (b) a background-biased one (a few hundred
    pass: the pruned NMS tail):
-   - Pipeline(yolact_base): the NMS and mask-assembly kernels;
-   - Pipeline(yolact_base with stem_s2d): the same weights through the
-     space-to-depth stem kernel as well, and held against the plain-stem
-     path in f32;
+   - yolact_base through the plain 7x7/s2 stem (load_model and
+     forward_and_detect): the NMS and mask-assembly kernels;
+   - Pipeline(yolact_base), which takes the space-to-depth stem for raw
+     frames: the stem kernel as well, held against the plain-stem path
+     (exactly in f32, as matched sets in bf16);
    - Pipeline(yolact_plus_base): ResNet-101 with 11 DCN blocks, whose
      offset convs get seeded non-zero weights (the zero init would put
      every sample on the grid), 57,744 priors, and the maskiou re-scoring;
-     the NMS, mask-assembly and DCN kernels.
+     the NMS, mask-assembly, DCN and stem kernels.
    Each path's launch counts are set to 0 just before its kernel-path runs
-   and must be above 0 just after
+   and must be above 0 just after; paths with the bf16 s2d stem are held
+   against their plain versions as matched sets in bf16, exactly in f32
 5. eval: evaluate_dataset over 16 seeded in-memory 550x550 frames with
    boxes and masks (no image files, no cv2), yolact_base sparse cell, b8
    bf16: fast NMS with the s2d stem (kernels, then plain versions: the same
    mAP table) and traditional NMS; launch counts checked, tables and
    frames/s printed
-6. timing with CUDA events over 100 calls: median and p90 ms per batch at
-   b1 / b8 bf16 for every path (the s2d A/B in the order plain, s2d, s2d,
-   plain), each kernel's call time against its plain version, and the stem
-   kernel's device time against its plain version and cuDNN's 7x7/s2 conv
-   on the 3-channel image it replaces
+6. timing: median and p90 ms per batch at b1 / b8 bf16 for every path
+   (CUDA events over 100 calls; the s2d A/B in the order plain, s2d, s2d,
+   plain), device busy and idle share per batch (torch.profiler kernel
+   events) with the top kernels, yolact_plus_base's DCN sampling and GEMM
+   kernels per batch, the 11 DCN blocks at their shapes (sampling, GEMM
+   against one on per-image [Cin*9, Ho*Wo] columns and a cuDNN 3x3 conv,
+   the block's tail on channels_last against NCHW), and each kernel's
+   device time against its plain version, its bound and, for the stem,
+   cuDNN's convs
 
 The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}.
+error, times and bound; the last line is {"ok": true, "device": {...}}.
 """
 
+import collections
 import contextlib
 import io
 import json
@@ -60,8 +69,10 @@ import torch.nn.functional as F
 from yolact_tpu_torch import MEANS, STD, get_config
 from yolact_tpu_torch.detect import detection
 from yolact_tpu_torch.eval.evaluate import evaluate_dataset
-from yolact_tpu_torch.infer import Pipeline, random_state_dict
+from yolact_tpu_torch.infer import (Pipeline, forward_and_detect, load_model,
+                                    maybe_enable_stem_s2d, random_state_dict)
 from yolact_tpu_torch.kernels import _build, dcn, mask_assembly, nms, stem
+from yolact_tpu_torch.models.resnet import DCNLayer
 from yolact_tpu_torch.ops.anchors import proto_size
 
 # Each kernel with the path whose launches the kernels line reports.
@@ -74,7 +85,7 @@ KERNELS = {
         source='yolact_tpu_torch/csrc/mask_assembly.cu', module=mask_assembly,
         replaces='yolact_tpu/kernels/mask_assembly.py:24', tol=1e-5,
         path='yolact_base'),
-    # f32 columns within 1e-5 (bit-equal expected); bf16 within 1 ulp
+    # the columns bit-equal to the plain version, NaNs included
     'dcn': dict(
         source='yolact_tpu_torch/csrc/dcn_im2col.cu', module=dcn,
         replaces='scripts/bench_gather2.py:174,239,268; '
@@ -82,7 +93,10 @@ KERNELS = {
                  'yolact_tpu/kernels/dcn.py:155 _bilinear_gather)',
         tol=1e-5, path='yolact_plus_base'),
     # f32 within 1e-5 of max|out| (TF32 off; cuDNN may sum the 192 products
-    # in another order); bf16 within 1 ulp of the float32 conv rounded once
+    # in another order); bf16 within one bf16 ulp of |plain| plus 1e-5 of
+    # max|plain| (the tensor cores sum the exact products in another order
+    # than the float32 conv rounded once; the absolute term covers outputs
+    # near zero after cancellation)
     'stem_s2d': dict(
         source='yolact_tpu_torch/csrc/stem_s2d.cu', module=stem,
         replaces='yolact_tpu/kernels/stem.py:52', tol=1e-5,
@@ -90,29 +104,39 @@ KERNELS = {
 }
 # The paths driven, each with its config, its conf-head cells (name,
 # scale, background bias, the NMS tail it must take; see shape_conf) and
-# its kernels.  yolact_base_s2d is yolact_base with the same weights
-# through the space-to-depth stem.
+# its kernels.  Pipeline takes the space-to-depth stem for raw frames, as
+# JAX's does: yolact_base_s2d is Pipeline(yolact_base), and yolact_base
+# is the same weights through the plain 7x7/s2 stem (load_model and
+# forward_and_detect, PlainStemPipeline).
 PATHS = {
     'yolact_base': dict(
-        config='yolact_base',
+        config='yolact_base', plain_stem=True,
         cells=(('dense', 3.0, 0.0, 'full'), ('sparse', 3.0, 7.0, 'pruned')),
         kernels=('fast_nms_iou_max', 'mask_assembly')),
     'yolact_base_s2d': dict(
-        config='yolact_base', stem_s2d=True,
+        config='yolact_base',
         cells=(('dense', 3.0, 0.0, 'full'), ('sparse', 3.0, 7.0, 'pruned')),
         kernels=('fast_nms_iou_max', 'mask_assembly', 'stem_s2d')),
     'yolact_plus_base': dict(
         config='yolact_plus_base',
         cells=(('dense', 3.0, 0.0, 'full'), ('sparse', 3.0, 7.75, 'pruned')),
-        kernels=('fast_nms_iou_max', 'mask_assembly', 'dcn')),
+        kernels=('fast_nms_iou_max', 'mask_assembly', 'dcn', 'stem_s2d')),
 }
-# The DCN blocks of yolact_plus_base at 550x550: (blocks, Cin, H, stride);
-# 3x3, padding 1, dilation 1 everywhere
-DCN_SHAPES = (('layers.1 block 0', 128, 138, 2),
-              ('layers.1 block 3', 128, 69, 1),
-              ('layers.2 block 0', 256, 69, 2),
-              ('layers.2 blocks 3-21', 256, 35, 1),
-              ('layers.3 block 0', 512, 35, 2))
+# The 11 DCN blocks of yolact_plus_base at 550x550: (blocks, how many per
+# batch, Cin = Cout, H, stride); 3x3, padding 1, dilation 1 everywhere
+DCN_SHAPES = (('layers.1 block 0', 1, 128, 138, 2),
+              ('layers.1 block 3', 1, 128, 69, 1),
+              ('layers.2 block 0', 1, 256, 69, 2),
+              ('layers.2 blocks 3-21', 7, 256, 35, 1),
+              ('layers.3 block 0', 1, 512, 35, 2))
+# Cin % 8 != 0: the kernel's channel-by-channel path
+DCN_ODD_SHAPE = ('Cin 60', 0, 60, 35, 1)
+# The card's data-sheet rates (H100 SXM at 700 W): the bound of a kernel is
+# the larger of its bytes over the memory rate and its operations over the
+# rate of their type
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 # The s2d stem conv: yolact_base 550 at b8 bf16 and b1 f32, and an odd shape
 STEM_SHAPES = ((torch.bfloat16, (8, 12, 275, 275)),
                (torch.float32, (1, 12, 275, 275)),
@@ -211,13 +235,20 @@ def dcn_inputs(gen, dev, b, cin, h, stride, dtype, finite=False):
     return x.to(dev), offset.to(dev), mask.to(dev)
 
 
-def ulp_distance(a, b):
-    """Largest distance in units in the last place between two bfloat16
+def ulps(a, b):
+    """Elementwise distance in units in the last place between two bfloat16
     tensors of finite values."""
     def ordered(t):
         i = t.view(torch.int16).int()
         return torch.where(i < 0, -(i & 0x7fff), i)
-    return int((ordered(a) - ordered(b)).abs().max())
+    return (ordered(a) - ordered(b)).abs()
+
+
+def bf16_ulp(t):
+    """One bfloat16 ulp of |t| (8 significant bits), 0 where t is 0."""
+    _, e = torch.frexp(t.float())
+    return torch.where(t == 0, 0.0, torch.ldexp(torch.ones_like(t.float()),
+                                                e - 8))
 
 
 def dcn_vs_plain(dev):
@@ -226,30 +257,30 @@ def dcn_vs_plain(dev):
     gen = torch.Generator().manual_seed(2)
     worst = 0.0
     for dtype, batch in ((torch.bfloat16, 8), (torch.float32, 1)):
-        for name, cin, h, stride in DCN_SHAPES:
+        for name, _, cin, h, stride in DCN_SHAPES + (DCN_ODD_SHAPE,):
             x, offset, mask = dcn_inputs(gen, dev, batch, cin, h, stride,
                                          dtype)
             got = dcn.dcn_columns(x, offset, mask, 3, stride)
             want = dcn.dcn_columns_plain(x, offset, mask, 3, stride)
+            # a channels_last x is read as it lies: the same columns
+            cl = dcn.dcn_columns(
+                x.contiguous(memory_format=torch.channels_last), offset,
+                mask, 3, stride)
             torch.cuda.synchronize()
             nan = want.isnan()
             same_nan = bool(torch.equal(got.isnan(), nan))
             g, w = got[~nan], want[~nan]
             err = float((g.float() - w.float()).abs().max())
-            ulps = ulp_distance(g, w) if dtype == torch.bfloat16 else None
+            equal = same_nan and bool(torch.equal(g, w))
             tag = (f'dcn {name} {str(dtype)[6:]} b{batch} x{list(x.shape)} '
                    f'cols{list(got.shape)}')
-            print(f'{tag}: max_abs_err={err!r} bit_equal='
-                  f'{same_nan and bool(torch.equal(g, w))} same_nan={same_nan}'
-                  + ('' if ulps is None else f' max_ulps={ulps}'))
-            check(same_nan, f'{tag}: NaN columns differ')
-            if dtype == torch.float32:
-                check(err <= KERNELS['dcn']['tol'],
-                      f'{tag}: disagrees with its plain version')
-            else:
-                check(ulps <= 1, f'{tag}: more than 1 bf16 ulp off')
+            print(f'{tag}: max_abs_err={err!r} bit_equal={equal} '
+                  f'same_nan={same_nan} nan_columns={int(nan.sum())}')
+            check(equal, f'{tag}: not bit-equal to its plain version')
+            check(bool(torch.equal(cl.nan_to_num(), got.nan_to_num())),
+                  f'{tag}: a channels_last x gives other columns')
             worst = max(worst, err)
-            del x, offset, mask, got, want
+            del x, offset, mask, got, want, cl
     return worst
 
 
@@ -266,8 +297,10 @@ def stem_vs_plain(dev):
         want = stem.stem_conv_s2d_plain(x, w2)
         exact = F.conv2d(F.pad(x.double(), (2, 1, 2, 1)), w2.double())
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        rel = err / float(want.float().abs().max())
+        diff = (got.float() - want.float()).abs()
+        top = float(want.float().abs().max())
+        err = float(diff.max())
+        rel = err / top
         tag = (f'stem_s2d {str(dtype)[6:]} x{list(shape)}: max_abs_err={err!r} '
                f'rel_to_max={rel!r} vs_float64: kernel '
                f'{float((got.double() - exact).abs().max())!r} plain '
@@ -277,9 +310,15 @@ def stem_vs_plain(dev):
             check(rel <= KERNELS['stem_s2d']['tol'],
                   f'{tag}: disagrees with its plain version')
         else:
-            ulps = ulp_distance(got, want)
-            print(f'{tag} max_ulps={ulps}')
-            check(ulps <= 1, f'{tag}: more than 1 bf16 ulp off')
+            big = want.float().abs() >= 1e-3 * top
+            over = diff > bf16_ulp(want) + KERNELS['stem_s2d']['tol'] * top
+            print(f'{tag} bit_equal_share='
+                  f'{float((got == want).float().mean())!r} '
+                  f'max_ulps_where_|plain|>=1e-3max='
+                  f'{int(ulps(got, want)[big].max())} beyond_criterion='
+                  f'{int(over.sum())}')
+            check(not bool(over.any()),
+                  f'{tag}: beyond one bf16 ulp + 1e-5 max|plain|')
         worst = max(worst, err)
         del x, w2, got, want, exact
     return worst
@@ -453,8 +492,8 @@ def main_path(name, sd, frames8, dev):
     the kernel-path outputs, the sparse bf16 kernel pipeline)."""
     cfg = path_config(name)
     path = PATHS[name]
-    # cuDNN may sum the stem's products in another order than the kernel:
-    # near ties may swap
+    # cuDNN may sum the stem's products in another order than the float32
+    # kernel: near ties may swap
     ties_ok = cfg.stem_s2d
     runs = [('b1 bf16', 'bfloat16', 1), ('b8 bf16', 'bfloat16', 8),
             ('b1 f32', 'float32', 1)]
@@ -465,7 +504,7 @@ def main_path(name, sd, frames8, dev):
     reset_launches()
     for wname, wsd, _ in weights:
         for rname, dtype, batch in runs:
-            pipe = Pipeline(cfg, wsd, dev, dtype, use_kernels=False)
+            pipe = make_pipeline(name, wsd, dev, dtype, use_kernels=False)
             plain[wname, rname] = pipe(frames8[:batch])
             del pipe
     torch.cuda.synchronize()
@@ -475,7 +514,9 @@ def main_path(name, sd, frames8, dev):
     kernel_pipes, kernel_out, branches = {}, {}, {}
     for wname, wsd, _ in weights:
         for dtype in ('bfloat16', 'float32'):
-            kernel_pipes[wname, dtype] = Pipeline(cfg, wsd, dev, dtype)
+            kernel_pipes[wname, dtype] = make_pipeline(name, wsd, dev, dtype)
+            check(kernel_pipes[wname, dtype].model.backbone.stem_s2d ==
+                  cfg.stem_s2d, f'{name}: the stem is not the expected one')
     # the path's run: counts from 0, read right after
     reset_launches()
     for wname, _, _ in weights:
@@ -500,6 +541,12 @@ def main_path(name, sd, frames8, dev):
             tag = f'{name} {wname} {rname}'
             check_output(tag, kernel_out[wname, rname], cfg, batch)
             check_output(tag + ' plain', plain[wname, rname], cfg, batch)
+            if dtype == 'bfloat16' and cfg.stem_s2d:
+                # the tensor-core stem puts about 1 in 10^4 outputs one bf16
+                # ulp from its plain version, and the bf16 trunk carries
+                # that on: matched as sets, as the two stems are below
+                match(tag, kernel_out[wname, rname], plain[wname, rname])
+                continue
             n = compare(tag, kernel_out[wname, rname], plain[wname, rname],
                         exact=dtype == 'float32', ties_ok=ties_ok)
             if dtype == 'bfloat16':
@@ -512,9 +559,38 @@ def main_path(name, sd, frames8, dev):
 
 
 def path_config(name):
-    path = PATHS[name]
-    return get_config(path['config']).copy(
-        stem_s2d=path.get('stem_s2d', False))
+    """The config a path's model runs: Pipeline's choice of stem for raw
+    frames, or the plain stem."""
+    cfg = get_config(PATHS[name]['config'])
+    return cfg if PATHS[name].get('plain_stem') else maybe_enable_stem_s2d(cfg)
+
+
+class PlainStemPipeline:
+    """yolact_base through the plain 7x7/s2 stem: load_model and
+    forward_and_detect, the Pipeline's parts without its choice of the s2d
+    stem for raw frames."""
+
+    def __init__(self, cfg, state_dict, device, compute_dtype,
+                 use_kernels=True):
+        self.cfg = cfg
+        self.model = load_model(cfg, state_dict, device, compute_dtype)
+        self.device = device
+        self.use_kernels = use_kernels
+
+    def __call__(self, images):
+        with torch.inference_mode():
+            return forward_and_detect(self.cfg, self.model,
+                                      torch.as_tensor(images,
+                                                      device=self.device),
+                                      use_kernels=self.use_kernels)
+
+
+def make_pipeline(name, state_dict, device, compute_dtype, use_kernels=True):
+    if PATHS[name].get('plain_stem'):
+        return PlainStemPipeline(path_config(name), state_dict, device,
+                                 compute_dtype, use_kernels)
+    return Pipeline(get_config(PATHS[name]['config']), state_dict, device,
+                    compute_dtype, use_kernels=use_kernels)
 
 
 class SyntheticEvalSet:
@@ -602,9 +678,73 @@ def eval_phase(sd, dev, card):
     return rates
 
 
+def bound(nbytes, ops, ops_per_s):
+    """The least time in ms the card could take: the larger of `nbytes`
+    over the memory rate and `ops` over `ops_per_s`, with which of the two
+    bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def profile_kernels(fn, calls=20, warmup=3):
+    """torch.profiler kernel events over `calls` calls: (device busy ms per
+    call, idle share of the span from the first kernel's start to the last
+    one's end, {kernel name: ms per call}), or None when the profiler
+    recorded no kernel."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return None
+    by_name = collections.Counter()
+    for e in events:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3 / calls
+    busy = sum(by_name.values())
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events)) / 1e3 / calls
+    return busy, 1 - busy / span, dict(by_name)
+
+
+def device_times(fn, symbol=None):
+    """Device ms per call of `fn` by torch.profiler kernel events over 20
+    calls: (all its kernels, those whose name holds `symbol`).  Launched
+    back to back, a short kernel's calls can outrun CUDA events' view of
+    the device (the host is slower than the kernel), so the kernel's own
+    events are its time.  Where the profiler records nothing, both are the
+    CUDA-event time of device_ms, and say so."""
+    prof = profile_kernels(fn)
+    if prof is None:
+        t = device_ms(fn)
+        print('profiler recorded no kernel: CUDA-event time instead')
+        return t, t
+    return prof[0], sum(v for k, v in prof[2].items()
+                        if symbol is not None and symbol in k)
+
+
+def kernel_names(fn):
+    """The names of the kernels the calls of `fn` launch."""
+    prof = profile_kernels(fn)
+    return sorted(prof[2]) if prof else ['not measured']
+
+
 def stem_timing(dev, card):
-    """The stem kernel's call and device time against its plain version and
-    cuDNN's 7x7/s2 conv on the 3-channel image it replaces, bf16."""
+    """The stem kernel's device time against its plain version, cuDNN's
+    bf16 4x4 conv of the same function (one call: padding 2, the extra
+    last row and column not read) and cuDNN's 7x7/s2 conv on the 3-channel
+    image it replaces, bf16, with the kernel's bound; b8 and b1."""
     gen = torch.Generator().manual_seed(6)
     out = {}
     for batch in (8, 1):
@@ -616,19 +756,151 @@ def stem_timing(dev, card):
             .bfloat16()
         fns = {'plain': lambda: stem.stem_conv_s2d_plain(x, w2),
                'kernel': lambda: stem.stem_conv_s2d(x, w2),
-               'cudnn_s2d': lambda: F.conv2d(F.pad(x, (2, 1, 2, 1)), w2),
+               'cudnn_4x4': lambda: F.conv2d(x, w2, padding=2)[..., :275,
+                                                                :275],
                'cudnn_7x7': lambda: F.conv2d(x3, w7, stride=2, padding=3)}
-        dev_ms = {k: device_ms(fn) for k, fn in fns.items()}
+        dev_ms = {k: device_times(fn)[0] for k, fn in fns.items()}
+        dev_ms['kernel'] = device_times(fns['kernel'],
+                                        'stem_s2d_mma_kernel')[1]
         call = {k: time_ms(fns[k]) for k in ('plain', 'kernel')}
+        y = fns['kernel']()
+        b_ms, b_by = bound(nbytes(x, w2, y), 2 * y.numel() * 12 * 16,
+                           BF16_TENSOR_OPS_PER_S)
         print(f'stem b{batch} bf16 x[{batch},12,275,275] -> '
-              f'[{batch},64,275,275]: device ms per call (50 back to back, '
-              f'CUDA events) kernel {dev_ms["kernel"]!r}, plain (float32 '
+              f'[{batch},64,275,275]: device ms per call (torch.profiler '
+              f'kernel events, 20 calls) kernel {dev_ms["kernel"]!r} (bound {b_ms!r} by '
+              f'{b_by}: {b_ms / dev_ms["kernel"]!r} of it), plain (float32 '
               f'conv, rounded) {dev_ms["plain"]!r}, cuDNN bf16 4x4 '
-              f'{dev_ms["cudnn_s2d"]!r}, cuDNN bf16 7x7/s2 on '
+              f'{dev_ms["cudnn_4x4"]!r}, cuDNN bf16 7x7/s2 on '
               f'[{batch},3,550,550] {dev_ms["cudnn_7x7"]!r}; call median '
               f'(p90) ms kernel {call["kernel"][0]!r} ({call["kernel"][1]!r}), '
               f'plain {call["plain"][0]!r} ({call["plain"][1]!r}) [{card}]')
-        out[batch] = call
+        out[batch] = dict(dev_ms, bound=(b_ms, b_by))
+    return out
+
+
+def dcn_timing(dev, card, plus_pipe, frames8):
+    """yolact_plus_base's 11 DCN blocks at b8 bf16, each at its shape
+    (device time of all the call's kernels, torch.profiler kernel events
+    over 20 calls): the sampling kernel on a channels_last x and on an
+    NCHW one (the wrapper's NHWC copy), the GEMM
+    on its columns against the GEMM in the per-image [Cin*9, Ho*Wo]
+    layout and a cuDNN 3x3 conv of the same shape, and the block's tail
+    (BN, ReLU, the 1x1 conv) on the GEMM's channels_last output against an
+    NCHW copy of it.  Prints the sums per batch and the GEMM kernels'
+    names; returns the layers.2 blocks 3-21 times and bound for the kernels
+    line."""
+    formats = []
+    hooks = [m.register_forward_pre_hook(
+        lambda _, args: formats.append(
+            args[0].is_contiguous(memory_format=torch.channels_last)))
+             for m in plus_pipe.model.modules() if isinstance(m, DCNLayer)]
+    plus_pipe(frames8)
+    for h in hooks:
+        h.remove()
+    print(f'yolact_plus_base b8: {sum(formats)} of {len(formats)} DCN blocks '
+          f'take a channels_last x (the rest pay the wrapper\'s NHWC copy)')
+    gen = torch.Generator().manual_seed(7)
+    per_batch = collections.Counter()
+    line = {}
+    for name, count, cin, h, stride in DCN_SHAPES:
+        x, offset, mask = dcn_inputs(gen, dev, 8, cin, h, stride,
+                                     torch.bfloat16, finite=True)
+        x_cl = x.contiguous(memory_format=torch.channels_last)
+        ho = offset.shape[-1]
+        w = (torch.randn(cin, cin, 3, 3, generator=gen) * 0.02).to(dev)\
+            .bfloat16()
+        w_t = w.permute(0, 2, 3, 1).reshape(cin, -1).t()
+        cols = dcn.dcn_columns(x_cl, offset, mask, 3, stride)
+        w_per_image = w.reshape(cin, -1)
+        cols_per_image = cols.view(8, ho * ho, -1).transpose(1, 2).contiguous()
+        y = torch.matmul(cols, w_t).view(8, ho, ho, cin).permute(0, 3, 1, 2)
+        w3 = (torch.randn(4 * cin, cin, 1, 1, generator=gen) * 0.05).to(dev)\
+            .bfloat16()
+        bn = [torch.rand(cin, generator=gen).to(dev) + 0.5 for _ in range(4)]
+
+        def tail(t):
+            t = F.batch_norm(t, bn[0], bn[1], bn[2], bn[3], False, 0.0, 1e-5)
+            return F.conv2d(F.relu(t), w3)
+
+        fns = {'sampling': lambda: dcn.dcn_columns(x_cl, offset, mask, 3,
+                                                   stride),
+               'sampling_nchw_x': lambda: dcn.dcn_columns(x, offset, mask, 3,
+                                                          stride),
+               'gemm': lambda: torch.matmul(cols, w_t),
+               'gemm_per_image_cols': lambda: torch.matmul(w_per_image, cols_per_image),
+               'cudnn_3x3': lambda: F.conv2d(x, w, stride=stride, padding=1),
+               'tail_channels_last': lambda: tail(y),
+               'tail_nchw_copy': lambda: tail(y.contiguous())}
+        ms = {k: device_times(fn)[0] for k, fn in fns.items()}
+        for k, v in ms.items():
+            per_batch[k] += count * v
+        b_ms, b_by = bound(nbytes(x, offset, mask, cols), 8 * cols.numel(),
+                           FP32_OPS_PER_S)
+        per_batch['bound'] += count * b_ms
+        print(f'dcn {name} b8 bf16 x[8,{cin},{h},{h}] cols'
+              f'{list(cols.shape)} (x{count} per batch): device ms '
+              + ', '.join(f'{k} {v!r}' for k, v in ms.items())
+              + f'; sampling bound {b_ms!r} by {b_by} ({b_ms / ms["sampling"]!r}'
+              f' of it) [{card}]')
+        if count == 7:
+            kern_ms = device_times(fns['sampling'], 'dcn_im2col_kernel')[1]
+            plain_ms = device_times(lambda: dcn.dcn_columns_plain(
+                x_cl, offset, mask, 3, stride))[0]
+            print(f'dcn {name}: kernel {kern_ms!r} ms, plain {plain_ms!r} '
+                  f'ms (torch.profiler kernel events, 20 calls) [{card}]')
+            line = dict(ms=kern_ms, plain_ms=plain_ms,
+                        bound=(b_ms, b_by),
+                        shape=f'{name} x[8,{cin},{h},{h}] bf16 -> cols'
+                              f'{list(cols.shape)}')
+            for k in ('gemm', 'gemm_per_image_cols', 'cudnn_3x3'):
+                print(f'dcn {name}: {k} kernels {kernel_names(fns[k])}')
+        del x, x_cl, offset, mask, cols, cols_per_image, y
+    print('dcn per yolact_plus_base b8 batch (11 blocks), device ms: '
+          + ', '.join(f'{k} {v!r}' for k, v in per_batch.items())
+          + f' [{card}]')
+    return line
+
+
+def small_kernel_timing(dev, card):
+    """The IoU-max and mask-assembly kernels at the b8 main-path shapes:
+    device and call time against their plain versions, with their
+    bounds."""
+    gen = torch.Generator().manual_seed(1)
+    margs = mask_inputs(gen, dev, 8, 100)
+    boxes = iou_inputs(gen, dev, 8 * 80, 200)
+    n, k = boxes.shape[:2]
+    md = margs[0].shape[-1]
+    masks_out = 8 * 100 * 138 * 138
+    timed = {
+        # 13 float32 operations per IoU pair: 4 min/max, 2 subtractions and
+        # 2 clamps and a product for the intersection, 2 for the union, the
+        # divide, the running max (the per-box areas are O(k))
+        'fast_nms_iou_max': (
+            lambda: nms.nms_iou_max(boxes), lambda: nms.nms_iou_max_plain(boxes),
+            'fast_nms_iou_max_kernel', '[640,200,4]', bound(nbytes(boxes) + n * k * 4,
+                                 13 * n * k * (k - 1) // 2, FP32_OPS_PER_S)),
+        # the Md-term dot product (2 Md operations) and the sigmoid (3)
+        'mask_assembly': (
+            lambda: mask_assembly.assemble_masks(*margs),
+            lambda: mask_assembly.assemble_masks_plain(*margs),
+            'mask_assembly_kernel', 'B=8 D=100 138x138 Md=32',
+            bound(nbytes(*margs) + masks_out * 4, masks_out * (2 * md + 3),
+                  FP32_OPS_PER_S)),
+    }
+    out = {}
+    for name, (kern, plain, symbol, shape, (b_ms, b_by)) in timed.items():
+        dev_ms = device_times(kern, symbol)[1]
+        plain_dev = device_times(plain)[0]
+        plain_call, plain_p90 = time_ms(plain)
+        call, p90 = time_ms(kern)
+        print(f'kernel {name} {shape}: device {dev_ms!r} ms (bound {b_ms!r} '
+              f'by {b_by}: {b_ms / dev_ms!r} of it), plain device '
+              f'{plain_dev!r} ms (torch.profiler kernel events, 20 calls); '
+              f'call median {call!r} ms (p90 {p90!r}), '
+              f'plain {plain_call!r} ms (p90 {plain_p90!r}) ({RUNS} calls '
+              f'each; call time: wrapper, launch and device) [{card}]')
+        out[name] = dict(ms=dev_ms, plain_ms=plain_dev, bound=(b_ms, b_by))
     return out
 
 
@@ -686,48 +958,62 @@ def main():
     del sds
 
     # ---- phase 6: timing; the s2d A/B in the order plain, s2d, s2d, plain
+    order = ('yolact_base', 'yolact_base_s2d', 'yolact_base_s2d',
+             'yolact_base', 'yolact_plus_base')
     for batch in (1, 8):
         x = frames8[:batch]
-        for name in ('yolact_base', 'yolact_base_s2d', 'yolact_base_s2d',
-                     'yolact_base', 'yolact_plus_base'):
+        for name in order:
             ms, p90 = time_ms(lambda: pipes[name](x))
             print(f'e2e {name} 550 bf16 b{batch}: median {ms!r} ms/batch '
                   f'({batch * 1000.0 / ms!r} frames/s), p90 {p90!r} ms '
                   f'({RUNS} calls, CUDA events) [{card}]')
+    for batch in (8, 1):
+        x = frames8[:batch]
+        busy = collections.defaultdict(list)
+        for name in order:
+            prof = profile_kernels(lambda: pipes[name](x))
+            if prof is None:
+                print(f'device {name} b{batch}: not measured (the profiler '
+                      f'recorded no kernel)')
+                continue
+            busy[name].append(prof[0])
+            top = sorted(prof[2].items(), key=lambda kv: -kv[1])[:6]
+            print(f'device {name} 550 bf16 b{batch}: busy {prof[0]!r} ms per '
+                  f'batch, idle share {prof[1]!r} (torch.profiler kernel '
+                  f'events, 20 batches) [{card}]; top kernels ms per batch: '
+                  + '; '.join(f'{n[:60]} {t!r}' for n, t in top))
+            if name == 'yolact_plus_base':
+                gemm = {n: t for n, t in prof[2].items()
+                        if ('gemm' in n or 'nvjet' in n)
+                        and not any(c in n for c in ('fprop', 'conv',
+                                                     'implicit'))}
+                print(f'yolact_plus_base b{batch} per batch: DCN sampling '
+                      f'{sum(t for n, t in prof[2].items() if "dcn_im2col" in n)!r}'
+                      f' ms; GEMM kernels (not convs) ' + json.dumps(gemm))
+        if len(busy['yolact_base']) == 2 and len(busy['yolact_base_s2d']) == 2:
+            plain_ms = statistics.mean(busy['yolact_base'])
+            s2d_ms = statistics.mean(busy['yolact_base_s2d'])
+            print(f's2d A/B b{batch} device busy per batch: plain stem '
+                  f'{busy["yolact_base"]} (mean {plain_ms!r}), s2d '
+                  f'{busy["yolact_base_s2d"]} (mean {s2d_ms!r}); s2d - plain '
+                  f'{s2d_ms - plain_ms!r} ms [{card}]')
+    dcn_line = dcn_timing(dev, card, pipes['yolact_plus_base'], frames8)
     del pipes
-    stem_calls = stem_timing(dev, card)
-    gen = torch.Generator().manual_seed(1)
-    margs = mask_inputs(gen, dev, 8, 100)
-    boxes = iou_inputs(gen, dev, 8 * 80, 200)
-    dargs = dcn_inputs(gen, dev, 8, 256, 35, 1, torch.bfloat16, finite=True)
-    timed = {
-        'fast_nms_iou_max': (lambda: nms.nms_iou_max(boxes),
-                             lambda: nms.nms_iou_max_plain(boxes),
-                             '[640,200,4]'),
-        'mask_assembly': (lambda: mask_assembly.assemble_masks(*margs),
-                          lambda: mask_assembly.assemble_masks_plain(*margs),
-                          'B=8 D=100 138x138 Md=32'),
-        'dcn': (lambda: dcn.dcn_columns(*dargs),
-                lambda: dcn.dcn_columns_plain(*dargs),
-                'layers.2 x[8,256,35,35] bf16 -> cols[8,2304,1225]'),
-    }
-    calls = {'stem_s2d': (stem_calls[8]['kernel'][0],
-                          stem_calls[8]['plain'][0])}
-    for name, (kern, plain, shape) in timed.items():
-        plain_ms, plain_p90 = time_ms(plain)
-        ms, p90 = time_ms(kern)
-        print(f'kernel {name} {shape}: median {ms!r} ms (p90 {p90!r}), '
-              f'plain median {plain_ms!r} ms (p90 {plain_p90!r}) '
-              f'({RUNS} calls each; call time: wrapper, launch and device, '
-              f'CUDA events) [{card}]')
-        calls[name] = (ms, plain_ms)
+    stem_ms = stem_timing(dev, card)[8]
+    lines = dict(small_kernel_timing(dev, card), dcn=dcn_line,
+                 stem_s2d=dict(ms=stem_ms['kernel'], plain_ms=stem_ms['plain'],
+                               bound=stem_ms['bound'],
+                               library_ms=stem_ms['cudnn_4x4']))
     report = []
     for name, info in KERNELS.items():
+        t = lines[name]
         report.append({'name': name, 'route': 'cuda', 'source': info['source'],
                        'replaces': info['replaces'],
                        'launches': launches[info['path']][name],
-                       'max_abs_err': errs[name], 'ms': calls[name][0],
-                       'plain_ms': calls[name][1]})
+                       'max_abs_err': errs[name], 'ms': t['ms'],
+                       'plain_ms': t['plain_ms'], 'bound_ms': t['bound'][0],
+                       'bound_by': t['bound'][1],
+                       'library_ms': t.get('library_ms')})
     print(f'eval frames/s: {json.dumps(eval_rates)}')
 
     print(json.dumps({'kernels': report}))

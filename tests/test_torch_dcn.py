@@ -89,12 +89,11 @@ def test_bilinear_sample_plain_matches_jax_samplers(rng, jax_sampler):
     ys, xs = _coords(rng, b, n, h, w)
     want = np.asarray(getattr(jax_dcn, jax_sampler)(
         jnp.asarray(x), jnp.asarray(ys), jnp.asarray(xs)))      # [B, N, C]
-    got = dcn.bilinear_sample_plain(_nchw(x), torch.from_numpy(ys),
-                                    torch.from_numpy(xs))       # [B, C, N]
-    np.testing.assert_allclose(got.permute(0, 2, 1).numpy(), want, rtol=0,
-                               atol=1e-6)
+    got = dcn.bilinear_sample_plain(torch.from_numpy(x), torch.from_numpy(ys),
+                                    torch.from_numpy(xs))       # [B, N, C]
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
     # a sample fully outside the map is exactly 0
-    assert (got[:, :, 7] == 0).all() and (got[:, :, 3] == 0).all()
+    assert (got[:, 7] == 0).all() and (got[:, 3] == 0).all()
 
 
 def test_bilinear_sample_plain_bf16_matches_jax_block_sampler(rng):
@@ -107,10 +106,10 @@ def test_bilinear_sample_plain_bf16_matches_jax_block_sampler(rng):
     ys, xs = _coords(rng, b, n, h, w)
     want = jax_dcn._bilinear_gather_block(
         jnp.asarray(x, jnp.bfloat16), jnp.asarray(ys), jnp.asarray(xs))
-    got = dcn.bilinear_sample_plain(_nchw(x).bfloat16(), torch.from_numpy(ys),
-                                    torch.from_numpy(xs))
+    got = dcn.bilinear_sample_plain(torch.from_numpy(x).bfloat16(),
+                                    torch.from_numpy(ys), torch.from_numpy(xs))
     assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
-    np.testing.assert_array_equal(got.float().permute(0, 2, 1).numpy(),
+    np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(want.astype(jnp.float32)))
 
 
@@ -125,9 +124,8 @@ def test_nonfinite_offsets_match_jax(rng):
     xs[0, 10:16] = [2.5, 2.5, 2.5, np.inf, np.nan, -np.inf]
     want = np.asarray(jax_dcn._bilinear_gather_rows(
         jnp.asarray(x), jnp.asarray(ys), jnp.asarray(xs)))
-    got = dcn.bilinear_sample_plain(_nchw(x), torch.from_numpy(ys),
-                                    torch.from_numpy(xs)).permute(0, 2, 1)
-    got = got.numpy()
+    got = dcn.bilinear_sample_plain(torch.from_numpy(x), torch.from_numpy(ys),
+                                    torch.from_numpy(xs)).numpy()
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
     assert np.isnan(got[0, [10, 14]]).all()
     assert (got[0, [11, 12, 13, 15]] == 0).all()
@@ -148,19 +146,56 @@ def test_zero_offsets_are_a_half_conv(rng):
 
 
 def test_columns_layout_and_bf16(rng):
-    """Column row c*K*K + t holds channel c at tap t; in bfloat16 the plain
-    version rounds where the kernel does and stays within bf16 of f32."""
-    x, offset, mask, _, _ = _case(rng, 'fractional', 1, 1, 1, b=1, cin=3)
-    x, offset, mask = _nchw(x), _nchw(offset), _nchw(mask)
+    """Row b*Ho*Wo + p, column t*Cin + c holds channel c at tap t of pixel
+    p (JAX's layout); in bfloat16 the plain version rounds where the kernel
+    does and stays within bf16 of f32."""
+    x_hwc, offset, mask, _, _ = _case(rng, 'fractional', 1, 1, 1, b=1, cin=3)
+    x, offset, mask = _nchw(x_hwc), _nchw(offset), _nchw(mask)
     cols = dcn.dcn_columns_plain(x, offset, mask)
-    assert cols.shape == (1, 3 * 9, 9 * 11)
+    assert cols.shape == (9 * 11, 9 * 3)
     ys = (torch.arange(9.0)[:, None] - 1 + 1 + offset[0, 8]).reshape(1, -1)
     xs = (torch.arange(11.0)[None, :] - 1 + 1 + offset[0, 9]).reshape(1, -1)
-    centre = dcn.bilinear_sample_plain(x, ys, xs)[0] * mask[0, 4].reshape(-1)
-    assert torch.equal(cols[0, 4::9], centre)                 # tap t = 4
+    centre = dcn.bilinear_sample_plain(torch.from_numpy(x_hwc), ys, xs)[0] \
+        * mask[0, 4].reshape(-1, 1)
+    assert torch.equal(cols[:, 4 * 3:5 * 3], centre)          # tap t = 4
+    # a channels_last x is read as it lies and gives the same columns
+    assert torch.equal(dcn.dcn_columns_plain(
+        x.contiguous(memory_format=torch.channels_last), offset, mask), cols)
     low = dcn.dcn_columns_plain(x.bfloat16(), offset, mask)
     assert low.dtype == torch.bfloat16
     torch.testing.assert_close(low.float(), cols, rtol=2 ** -6, atol=2 ** -6)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('stride,dilation', [(1, 1), (2, 1), (1, 2)])
+def test_columns_match_jax_sampler_times_mask(rng, dtype, stride, dilation):
+    """The columns in JAX's own layout: deform_conv2d's sampler output
+    (taken through its gather_impl hook) times the mask, as the
+    [B*Ho*Wo, K*K*Cin] matrix its dot_general reads.  Bit-equal in
+    bfloat16 (the same roundings); within 1e-6 in float32 (XLA may pair
+    the four corner products differently)."""
+    x, offset, mask, weight, _ = _case(rng, 'fractional', stride, dilation,
+                                       dilation, cin=8)
+    jdt = jnp.dtype(dtype)
+    seen = []
+
+    def sampler(xj, ys, xs):
+        seen.append(jax_dcn._bilinear_gather_block(xj, ys, xs))
+        return seen[-1]
+
+    jax_dcn.deform_conv2d(jnp.asarray(x, jdt), jnp.asarray(offset),
+                          jnp.asarray(mask), jnp.asarray(weight, jdt),
+                          stride=stride, padding=dilation, dilation=dilation,
+                          gather_impl=sampler)
+    b, ho, wo, kk = mask.shape
+    want = (seen[0].reshape(b, ho * wo, kk, -1)
+            * jnp.asarray(mask, jdt).reshape(b, ho * wo, kk, 1))
+    want = np.asarray(want.reshape(b * ho * wo, -1).astype(jnp.float32))
+    got = dcn.dcn_columns(_nchw(x).to(getattr(torch, dtype)), _nchw(offset),
+                          _nchw(mask), 3, stride, dilation, dilation)
+    assert got.shape == want.shape == (b * ho * wo, kk * 8)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=0 if dtype == 'bfloat16' else 1e-6)
 
 
 def test_wrappers_take_plain_version_on_cpu(rng):
@@ -192,8 +227,8 @@ def test_columns_reject_bad_inputs(bad):
         offset = torch.zeros(1, 18, 5, 6)
     elif bad == 'mask_shape':
         mask = torch.zeros(1, 8, 6, 6)
-    elif bad == 'x_noncontiguous':
-        x = torch.zeros(1, 6, 6, 4).permute(0, 3, 1, 2)
+    elif bad == 'x_noncontiguous':      # neither NCHW nor channels_last
+        x = torch.zeros(1, 4, 6, 12)[..., ::2]
     else:
         x = x[0]
     with pytest.raises(ValueError, match='dcn'):

@@ -9,7 +9,9 @@ pixels (the port upsamples with F.interpolate, JAX with a separable matmul
 that imitates it; they differ in the last bits), and the all_maps dicts
 equal.  The traditional pipeline and forward_raw are held like the fast
 one (tests/test_torch_pipeline.py): classes and validity identical, scores
-and boxes within 1e-5, masks and mask_scores within 1e-4."""
+and boxes within 1e-5, masks and mask_scores within 1e-4.  Each side gets
+its own package's config (``P`` = ``config_from_jax``), and the CLI's tiny
+config is registered in both packages' registries."""
 
 import json
 import os
@@ -23,7 +25,7 @@ import torch
 
 from _tiny import tiny_plus_config, tiny_resnet_config
 from test_torch_inputs import SyntheticEvalSet, seed_offsets_jax
-from yolact_tpu.config import register_config
+from yolact_tpu.config import register_config as jax_register_config
 from yolact_tpu.data import rle as rle_codec
 from yolact_tpu.eval.evaluate import evaluate_dataset as jax_evaluate_dataset
 from yolact_tpu.eval.evaluator import calc_map
@@ -36,7 +38,9 @@ from yolact_tpu.models.yolact import Yolact as JaxYolact
 from yolact_tpu.ops.resize import resize_bilinear_torch_np
 from yolact_tpu.train.checkpoint import load_weights as jax_load_weights
 from yolact_tpu_torch.cli import eval as cli
-from yolact_tpu_torch.convert.from_jax import jax_variables_to_state_dict
+from yolact_tpu_torch.config import register_config
+from yolact_tpu_torch.convert.from_jax import (config_from_jax as P,
+                                               jax_variables_to_state_dict)
 from yolact_tpu_torch.detect.postprocess import (finish_masks,
                                                  upsample_masks_device)
 from yolact_tpu_torch.eval.evaluate import (evaluate_dataset,
@@ -88,7 +92,8 @@ def setup(tmp_path_factory):
         class_names=('thing', 'b', 'c', 'd'), label_map=None))
     v = jax.tree_util.tree_map(np.array, random_variables(cfg, seed=3))
     v = {'params': v['params'], 'batch_stats': v['batch_stats']}
-    return cfg, v, jax_variables_to_state_dict(cfg, v), make_eval_dataset(cfg)
+    return (cfg, v, jax_variables_to_state_dict(P(cfg), v),
+            make_eval_dataset(P(cfg)))
 
 
 def _read(path):
@@ -134,7 +139,8 @@ def test_evaluate_dataset_matches_jax(setup, tmp_path, fast_nms, stem_s2d):
     kw = dict(fast_nms=fast_nms, quiet=True)
     want = jax_evaluate_dataset(cfg, v, dataset, **kw)
     # the port in batches of 2: the last batch is padded
-    got = evaluate_dataset(cfg, sd, dataset, 'cpu', eval_batch_size=2, **kw)
+    got = evaluate_dataset(P(cfg), sd, dataset, 'cpu', eval_batch_size=2,
+                           **kw)
     assert got == want
     for side in ('jax', 'port'):
         os.makedirs(tmp_path / side)
@@ -143,7 +149,7 @@ def test_evaluate_dataset_matches_jax(setup, tmp_path, fast_nms, stem_s2d):
              for side in ('jax', 'port')}
     jax_evaluate_dataset(cfg, v, dataset, output_coco_json=True,
                          **files['jax'], **kw)
-    evaluate_dataset(cfg, sd, dataset, 'cpu', output_coco_json=True,
+    evaluate_dataset(P(cfg), sd, dataset, 'cpu', output_coco_json=True,
                      **files['port'], **kw)
     _assert_json_match(tmp_path / 'jax', tmp_path / 'port')
 
@@ -156,7 +162,7 @@ def _plus_setup():
     miou = jax.tree_util.tree_map(np.array, dict(MaskIoUHead(cfg).init(
         jax.random.PRNGKey(9), jnp.zeros((1, 32, 32, 1)))))
     return cfg, v, miou, jax_variables_to_state_dict(
-        cfg, dict(v, maskiou=miou))
+        P(cfg), dict(v, maskiou=miou))
 
 
 @pytest.mark.parametrize('case', ['plain', 's2d', 'plus'])
@@ -172,7 +178,7 @@ def test_traditional_pipeline_matches_jax(setup, case):
         0, 256, (2, 128, 128, 3)).astype(np.float32)
     want = JaxTraditionalPipeline(cfg, v, preprocess=True,
                                   maskiou_variables=miou)(frames)
-    got = TraditionalPipeline(cfg, sd, 'cpu', preprocess=True)(frames)
+    got = TraditionalPipeline(P(cfg), sd, 'cpu', preprocess=True)(frames)
     valid = np.asarray(want.valid)
     assert valid.any()
     np.testing.assert_array_equal(got.valid.numpy(), valid)
@@ -200,9 +206,9 @@ def test_forward_raw_matches_jax(setup, stem_s2d):
         0, 256, (2, 128, 128, 3)).astype(np.float32)
     want = jax.jit(lambda v, x: jax_forward_raw(cfg, JaxYolact(cfg), v, x))(
         v, jnp.asarray(frames))
-    model = load_model(cfg, sd, torch.device('cpu'), 'float32')
+    model = load_model(P(cfg), sd, torch.device('cpu'), 'float32')
     with torch.no_grad():
-        got = forward_raw(cfg, model, torch.from_numpy(frames))
+        got = forward_raw(P(cfg), model, torch.from_numpy(frames))
     for name, g, w, tol in zip(('boxes', 'scores', 'coeffs', 'proto'), got,
                                want, (1e-5, 1e-5, 1e-4, 1e-4)):
         assert tuple(g.shape) == w.shape, name
@@ -246,18 +252,19 @@ def _write_pth(cfg, sd, path, wrap):
 def test_load_weights_pth(setup, tmp_path, wrap):
     cfg, _, sd, _ = setup
     path = _write_pth(cfg, sd, str(tmp_path / 'w_1_2.pth'), wrap)
-    got = load_weights(cfg, path)
+    got = load_weights(P(cfg), path)
     assert got.keys() == sd.keys()
     assert all(torch.equal(got[k], sd[k]) for k in sd)
-    load_model(cfg, got, torch.device('cpu'))       # strict
+    load_model(P(cfg), got, torch.device('cpu'))       # strict
     with pytest.raises(NotImplementedError, match='A4'):
-        load_weights(cfg, str(tmp_path / 'w_1_2.ckpt'))
+        load_weights(P(cfg), str(tmp_path / 'w_1_2.ckpt'))
 
 
 @pytest.fixture(scope='module')
 def pth(setup, tmp_path_factory):
     cfg, _, sd, _ = setup
-    register_config(cfg)
+    jax_register_config(cfg)        # for JAX's evaluation of the same file
+    register_config(P(cfg))         # for the port's CLI
     path = tmp_path_factory.mktemp('weights') / f'{CFG_NAME}_1_100.pth'
     return _write_pth(cfg, sd, str(path), wrap=True)
 
@@ -341,7 +348,7 @@ def test_cli_cuda_without_a_card_raises(pth, tmp_path):
 def test_evaluate_unported_options_raise(setup, kw, match):
     cfg, _, sd, dataset = setup
     with pytest.raises(NotImplementedError, match=match):
-        evaluate_dataset(cfg, sd, dataset, 'cpu', quiet=True, **kw)
+        evaluate_dataset(P(cfg), sd, dataset, 'cpu', quiet=True, **kw)
 
 
 def test_evaluate_prefetch_error_propagates(setup):
@@ -356,7 +363,7 @@ def test_evaluate_prefetch_error_propagates(setup):
     dataset.pull_item = bad_pull
     try:
         with pytest.raises(RuntimeError, match='eval prefetch failed'):
-            evaluate_dataset(cfg, sd, dataset, 'cpu', quiet=True)
+            evaluate_dataset(P(cfg), sd, dataset, 'cpu', quiet=True)
     finally:
         dataset.pull_item = orig
 
@@ -367,6 +374,6 @@ def test_synthetic_eval_set_matches_jax(setup):
     cfg, v, sd, _ = setup
     data = SyntheticEvalSet(4, cfg.max_size, cfg.num_classes, seed=2)
     want = jax_evaluate_dataset(cfg, v, data, quiet=True)
-    got = evaluate_dataset(cfg, sd, data, 'cpu', eval_batch_size=4,
+    got = evaluate_dataset(P(cfg), sd, data, 'cpu', eval_batch_size=4,
                            quiet=True)
     assert got == want

@@ -12,17 +12,61 @@ to the smoke script's inputs does not move the unit tests.
 - :func:`dcn_inputs` gives one DCN block's input, offsets and mask with
   integer, fractional, far out-of-bounds and non-finite offsets.
 - :func:`ulp_distance` measures two bfloat16 tensors in units in the last
-  place.
+  place; :func:`bf16_ulp` is one bfloat16 ulp of each element's magnitude.
 - :class:`SyntheticEvalSet` is an in-memory eval dataset of seeded frames
   with boxes and masks, for ``evaluate_dataset`` where no image files or
   cv2 are at hand.
+- :func:`tiny_resnet_config` and :func:`tiny_plus_config` are
+  ``tests/_tiny.py``'s small configs built with the port's own config
+  module (``test_torch_config.py`` holds them equal to ``_tiny.py``'s), for
+  the tests that import nothing of the JAX package.
 """
 
 import numpy as np
 import torch
 
 from yolact_tpu_torch import MEANS, STD
+from yolact_tpu_torch import config as C
 from yolact_tpu_torch.kernels.dcn import out_size
+
+
+def tiny_resnet_config(**kw):
+    """yolact_base topology with a tiny ResNet and 128px input."""
+    cfg = C.get_config('yolact_base')
+    return cfg.copy(
+        max_size=128,
+        num_classes=5,
+        dataset=cfg.dataset.copy(class_names=('a', 'b', 'c', 'd')),
+        backbone=cfg.backbone.copy(
+            args=((1, 1, 1, 1),),
+            pred_scales=((6,), (12,), (24,), (48,), (96,))),
+        mask_proto_net=((8, 3, (('padding', 1),)),
+                        (None, -2, ()),
+                        (8, 1, ())),
+        extra_head_net=((16, 3, (('padding', 1),)),),
+        fpn=cfg.fpn.copy(num_features=16),
+        **kw)
+
+
+def tiny_plus_config(**kw):
+    """yolact_plus_resnet50 topology (DCN stages 2-4, maskiou,
+    rescore_mask) with a tiny ResNet and 128px input."""
+    cfg = C.get_config('yolact_plus_resnet50')
+    return cfg.copy(
+        max_size=128,
+        num_classes=5,
+        dataset=cfg.dataset.copy(class_names=('a', 'b', 'c', 'd')),
+        backbone=cfg.backbone.copy(
+            args=((1, 1, 1, 1), (0, 1, 1, 1)),
+            pred_scales=((6,), (12,), (24,), (48,), (96,))),
+        mask_proto_net=((8, 3, (('padding', 1),)),
+                        (None, -2, ()),
+                        (8, 1, ())),
+        extra_head_net=((16, 3, (('padding', 1),)),),
+        fpn=cfg.fpn.copy(num_features=16),
+        maskiou_net=((8, 3, (('stride', 2),)), (16, 3, (('stride', 2),)),
+                     (32, 3, (('stride', 2),))),
+        **kw)
 
 
 def seed_offsets_jax(variables, seed=0, w_scale=0.5, b_scale=4.0):
@@ -88,6 +132,14 @@ def ulp_distance(a, b):
         i = t.view(torch.int16).int()
         return torch.where(i < 0, -(i & 0x7fff), i)
     return int((ordered(a) - ordered(b)).abs().max())
+
+
+def bf16_ulp(t):
+    """One bfloat16 ulp of |t| (8 significant bits), elementwise, as
+    float32; 0 where t is 0."""
+    _, e = torch.frexp(t.float())
+    return torch.where(t == 0, 0.0,
+                       torch.ldexp(torch.ones_like(t.float()), e - 8))
 
 
 class SyntheticEvalSet:
@@ -182,6 +234,15 @@ def test_ulp_distance():
     assert ulp_distance(zeros[:1], zeros[1:]) == 0
     tiny = torch.tensor([2 ** -133], dtype=torch.bfloat16)  # smallest > 0
     assert ulp_distance(-tiny, tiny) == 2
+
+
+def test_bf16_ulp():
+    t = torch.tensor([1.0, 1.5, -3.0, 2 ** -10, 0.0, 255.0]).bfloat16()
+    want = torch.tensor([2 ** -7, 2 ** -7, 2 ** -6, 2 ** -17, 0.0, 1.0])
+    assert torch.equal(bf16_ulp(t), want)
+    # one ulp up is the next bfloat16 value
+    up = (t.float() + bf16_ulp(t)).bfloat16()
+    assert ulp_distance(up[:4], t[:4]) == 1
 
 
 def test_seeded_offsets_are_deterministic_and_nonzero():

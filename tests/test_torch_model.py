@@ -4,7 +4,7 @@ width, a lossless round trip through convert_state_dict, the tiny models'
 forward in float32 within rtol/atol 1e-4 (the same convolutions summed in
 another order by XLA and by PyTorch; the tiny-plus DCN offsets are seeded
 non-zero on both sides), and the YOLACT++ mask scorer and re-scoring
-within 1e-5."""
+within 1e-5.  The port gets its own config (``P`` = ``config_from_jax``)."""
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +23,7 @@ from yolact_tpu.infer import random_variables
 from yolact_tpu.models import resnet as jax_resnet
 from yolact_tpu.models.yolact import MaskIoUHead
 from yolact_tpu.models.yolact import Yolact as JaxYolact
+from yolact_tpu_torch.convert.from_jax import config_from_jax as P
 from yolact_tpu_torch.convert.from_jax import jax_variables_to_state_dict
 from yolact_tpu_torch.detect.detection import Detections
 from yolact_tpu_torch.detect.postprocess import rescore_with_maskiou
@@ -55,8 +56,8 @@ def _variables(cfg, seed=0):
 def test_weights_round_trip_and_strict_load():
     cfg = tiny_resnet_config()
     v = _variables(cfg)
-    sd = jax_variables_to_state_dict(cfg, v)
-    Yolact(cfg).load_state_dict(sd, strict=True)
+    sd = jax_variables_to_state_dict(P(cfg), v)
+    Yolact(P(cfg)).load_state_dict(sd, strict=True)
     back, unhandled = convert_state_dict(
         cfg, {k: t.numpy() for k, t in sd.items()})
     assert unhandled == []
@@ -79,9 +80,9 @@ def test_full_width_names_and_shapes_match_jax():
         lambda s: np.broadcast_to(np.float32(0), s.shape),
         {'params': shapes['params'], 'batch_stats': shapes['batch_stats']})
     want = {k: tuple(t.shape)
-            for k, t in jax_variables_to_state_dict(cfg, zeros).items()}
+            for k, t in jax_variables_to_state_dict(P(cfg), zeros).items()}
     with torch.device('meta'):
-        model = Yolact(cfg)
+        model = Yolact(P(cfg))
     got = {k: tuple(t.shape) for k, t in model.state_dict().items()}
     assert got == want
     assert 'backbone.layers.2.22.conv2.weight' in got
@@ -110,10 +111,10 @@ def test_tiny_forward_matches_jax(make_cfg, overrides):
     from yolact_tpu.infer import preprocess_device as jax_preprocess
     want = JaxYolact(cfg).apply(v, jax_preprocess(cfg, jnp.asarray(frames)),
                                 train=False)
-    model = Yolact(cfg).eval()
-    model.load_state_dict(jax_variables_to_state_dict(cfg, v))
+    model = Yolact(P(cfg)).eval()
+    model.load_state_dict(jax_variables_to_state_dict(P(cfg), v))
     with torch.no_grad():
-        got = model(preprocess_device(cfg, torch.from_numpy(frames)))
+        got = model(preprocess_device(P(cfg), torch.from_numpy(frames)))
     assert set(got) == set(want)
     assert ('proto' in got) == cfg.eval_mask_branch
     for k in want:
@@ -138,8 +139,8 @@ def test_plus_weights_round_trip_and_strict_load():
     """tiny-plus, DCN layers and the separate maskiou tree included."""
     cfg = tiny_plus_config()
     v = _variables(cfg)
-    sd = jax_variables_to_state_dict(cfg, v)
-    Yolact(cfg).load_state_dict(sd, strict=True)
+    sd = jax_variables_to_state_dict(P(cfg), v)
+    Yolact(P(cfg)).load_state_dict(sd, strict=True)
     assert sd['backbone.layers.1.0.conv2.weight'].shape == (128, 128, 3, 3)
     back, unhandled = convert_state_dict(
         cfg, {k: t.numpy() for k, t in sd.items()})
@@ -169,9 +170,9 @@ def test_plus_full_width_names_and_shapes_match_jax():
         {'params': shapes['params'], 'batch_stats': shapes['batch_stats'],
          'maskiou': dict(miou)})
     want = {k: tuple(t.shape)
-            for k, t in jax_variables_to_state_dict(cfg, zeros).items()}
+            for k, t in jax_variables_to_state_dict(P(cfg), zeros).items()}
     with torch.device('meta'):
-        model = Yolact(cfg)
+        model = Yolact(P(cfg))
     got = {k: tuple(t.shape) for k, t in model.state_dict().items()}
     assert got == want
     dcn_blocks = sorted(k[:-len('.conv2.conv_offset_mask.weight')]
@@ -201,10 +202,10 @@ def test_maskiou_net_and_rescore_match_jax(rng, make_cfg, hw):
     classes[0, 0] = cfg.num_classes + 3               # clamped like JAX
     scores = rng.rand(B, D).astype(np.float32)
 
-    net = FastMaskIoUNet(cfg).eval()
+    net = FastMaskIoUNet(P(cfg)).eval()
     net.load_state_dict({k[len('maskiou_net.'):]: t for k, t in
                          jax_variables_to_state_dict(
-                             cfg, {'maskiou': mv}).items()})
+                             P(cfg), {'maskiou': mv}).items()})
     head = MaskIoUHead(cfg)
     flat = masks.reshape(B * D, hw, hw, 1)
     want_iou = np.asarray(head.apply(mv, jnp.asarray(flat)))

@@ -1,6 +1,7 @@
 """The port's anchors and box ops (yolact_tpu_torch.ops) against the JAX
 package's on the same seeded inputs.  Anchors must be equal exactly; box
-ops within 1e-6 (the same float32 operations in the same order)."""
+ops within 1e-6 (the same float32 operations in the same order).  The
+port gets its own config (``P`` = ``config_from_jax``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +13,7 @@ from yolact_tpu import config as C
 from yolact_tpu.ops import anchors as jax_anchors
 from yolact_tpu.ops import boxes as jax_boxes
 from yolact_tpu.detect.detection import eval_scores as jax_eval_scores
+from yolact_tpu_torch.convert.from_jax import config_from_jax as P
 from yolact_tpu_torch.detect.detection import eval_scores
 from yolact_tpu_torch.ops import anchors, boxes
 
@@ -27,31 +29,31 @@ torch.set_num_threads(2)
 def test_priors_equal_jax_exactly(make_cfg, img_size):
     cfg = make_cfg()
     want = jax_anchors.generate_priors(cfg, img_size)
-    got = anchors.generate_priors(cfg, img_size)
+    got = anchors.generate_priors(P(cfg), img_size)
     assert got.dtype == want.dtype == np.float32
     np.testing.assert_array_equal(got, want)
-    assert anchors.feature_map_sizes(cfg, img_size) == \
+    assert anchors.feature_map_sizes(P(cfg), img_size) == \
         jax_anchors.feature_map_sizes(cfg, img_size)
-    assert anchors.proto_size(cfg, img_size) == \
+    assert anchors.proto_size(P(cfg), img_size) == \
         jax_anchors.proto_size(cfg, img_size)
 
 
 def test_yolact_plus_base_priors_equal_jax_exactly():
     """9 anchors per position (3 scales x 3 ratios) over 5 levels."""
     cfg = C.get_config('yolact_plus_base')
-    got = anchors.generate_priors(cfg)
+    got = anchors.generate_priors(P(cfg))
     np.testing.assert_array_equal(got, jax_anchors.generate_priors(cfg))
     assert got.shape == (57744, 4)
-    assert anchors.proto_size(cfg) == (138, 138)
+    assert anchors.proto_size(P(cfg)) == (138, 138)
 
 
 def test_yolact_base_prior_count_and_square_anchors():
     cfg = C.get_config('yolact_base')
-    priors = anchors.generate_priors(cfg)
+    priors = anchors.generate_priors(P(cfg))
     assert priors.shape == (19248, 4)
     # use_square_anchors bug-compat: h == w for every prior
     np.testing.assert_array_equal(priors[:, 2], priors[:, 3])
-    assert anchors.proto_size(cfg) == (138, 138)
+    assert anchors.proto_size(P(cfg)) == (138, 138)
 
 
 def test_other_backbones_not_ported():
@@ -135,6 +137,7 @@ def test_eval_scores_matches_jax(rng, overrides):
     cfg = C.get_config('yolact_base').copy(num_classes=6, **overrides)
     preds = {'conf': (rng.randn(2, 30, 6) * 2).astype(np.float32),
              'score': rng.randn(2, 30, 1).astype(np.float32)}
-    got = eval_scores(cfg, {k: torch.from_numpy(v) for k, v in preds.items()})
+    got = eval_scores(P(cfg),
+                      {k: torch.from_numpy(v) for k, v in preds.items()})
     want = jax_eval_scores(cfg, {k: jnp.asarray(v) for k, v in preds.items()})
     _close(got, want)

@@ -3,10 +3,13 @@ package's, on the tiny ResNet config, in float32 on the CPU.
 
 The same seeded weights (JAX init, carried over by
 convert.from_jax.jax_variables_to_state_dict) and the same seeded frames
-go through both.  Tolerances: classes and validity identical, scores and
+go through both, each package with its own config (``P`` =
+``config_from_jax``).  Tolerances: classes and validity identical, scores and
 boxes within 1e-5, masks within 1e-4 (float32 convolutions summed in
 another order by XLA and by PyTorch)."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -29,10 +32,12 @@ from yolact_tpu.infer import forward_and_detect as jax_forward_and_detect
 from yolact_tpu.infer import random_variables
 from yolact_tpu.models.yolact import MaskIoUHead
 from yolact_tpu.models.yolact import Yolact as JaxYolact
+from yolact_tpu_torch.convert.from_jax import config_from_jax as P
 from yolact_tpu_torch.convert.from_jax import jax_variables_to_state_dict
 from yolact_tpu_torch.detect import detection as torch_detection
 from yolact_tpu_torch.detect.postprocess import postprocess_device
-from yolact_tpu_torch.infer import Pipeline, random_state_dict
+from yolact_tpu_torch.infer import (Pipeline, forward_and_detect, load_model,
+                                    random_state_dict)
 
 torch.set_num_threads(2)
 
@@ -63,6 +68,14 @@ def _frames(cfg, batch=2):
                        ).astype(np.float32)
 
 
+def _plain_stem(cfg, sd, frames, **kw):
+    """The port's forward_and_detect with the stem the config names (the
+    Pipeline takes the s2d stem for raw frames), float32 on the CPU."""
+    model = load_model(cfg, sd, torch.device('cpu'), 'float32')
+    with torch.inference_mode():
+        return forward_and_detect(cfg, model, torch.from_numpy(frames), **kw)
+
+
 def _assert_outputs_match(jax_out, torch_out):
     np.testing.assert_array_equal(np.asarray(jax_out.valid),
                                   torch_out.valid.numpy())
@@ -86,16 +99,16 @@ def test_forward_and_detect_matches_jax(sparse, branch, stem_s2d):
     cfg = tiny_resnet_config(nms_candidates=256)
     variables = _variables(cfg, sparse)
     frames = _frames(cfg)
+    sd = jax_variables_to_state_dict(P(cfg), variables)
+    before = dict(torch_detection.branch_counts)
     if stem_s2d:
-        # the JAX Pipeline's default: the space-to-depth stem
+        # both Pipelines' default: the space-to-depth stem
         want = JaxPipeline(cfg, variables)(frames)
+        got = Pipeline(P(cfg), sd, 'cpu')(frames)
     else:
         want = jax.jit(lambda v, x: jax_forward_and_detect(
             cfg, JaxYolact(cfg), v, x))(variables, jnp.asarray(frames))
-
-    pipe = Pipeline(cfg, jax_variables_to_state_dict(cfg, variables), 'cpu')
-    before = dict(torch_detection.branch_counts)
-    got = pipe(frames)
+        got = _plain_stem(P(cfg), sd, frames)
     assert torch_detection.branch_counts[branch] == before[branch] + 1
     assert bool(got.valid.any())
     _assert_outputs_match(want, got)
@@ -116,10 +129,9 @@ def test_plus_forward_and_detect_matches_jax(sparse, branch):
         cfg, JaxYolact(cfg), v, x, maskiou_variables=m))(
             variables, miou, jnp.asarray(frames))
 
-    sd = jax_variables_to_state_dict(cfg, dict(variables, maskiou=miou))
-    pipe = Pipeline(cfg, sd, 'cpu')
+    sd = jax_variables_to_state_dict(P(cfg), dict(variables, maskiou=miou))
     before = dict(torch_detection.branch_counts)
-    got = pipe(frames)
+    got = _plain_stem(P(cfg), sd, frames)
     assert torch_detection.branch_counts[branch] == before[branch] + 1
     assert bool(got.valid.any())
     _assert_outputs_match(want, got)
@@ -139,9 +151,9 @@ def test_uncropped_masks_match_jax():
     want = jax.jit(lambda v, x: jax_forward_and_detect(
         cfg, JaxYolact(cfg), v, x, crop_masks=False))(
             variables, jnp.asarray(frames))
-    pipe = Pipeline(cfg, jax_variables_to_state_dict(cfg, variables), 'cpu',
-                    crop_masks=False)
-    _assert_outputs_match(want, pipe(frames))
+    _assert_outputs_match(want, _plain_stem(
+        P(cfg), jax_variables_to_state_dict(P(cfg), variables), frames,
+        crop_masks=False))
 
 
 @pytest.mark.parametrize('name,cfg_kw,call_kw,hw', [
@@ -158,9 +170,8 @@ def test_forward_and_detect_variants_match_jax(name, cfg_kw, call_kw, hw):
     frames = rng.randint(0, 256, (2,) + hw + (3,)).astype(np.float32)
     want = jax.jit(lambda v, x: jax_forward_and_detect(
         cfg, JaxYolact(cfg), v, x, **call_kw))(variables, jnp.asarray(frames))
-    pipe = Pipeline(cfg, jax_variables_to_state_dict(cfg, variables), 'cpu',
-                    **call_kw)
-    got = pipe(frames)
+    got = _plain_stem(P(cfg), jax_variables_to_state_dict(P(cfg), variables),
+                      frames, **call_kw)
     assert bool(got.valid.any())
     _assert_outputs_match(want, got)
 
@@ -192,7 +203,7 @@ def test_detect_matches_jax(rng, n_cand, cross_class, second):
     want = jax_detect(cfg, {k: jnp.asarray(v) for k, v in preds.items()},
                       use_cross_class_nms=cross_class, second_threshold=second)
     got = torch_detection.detect(
-        cfg, {k: torch.from_numpy(v) for k, v in preds.items()},
+        P(cfg), {k: torch.from_numpy(v) for k, v in preds.items()},
         use_cross_class_nms=cross_class, second_threshold=second)
     for name in ('valid', 'classes', 'scores', 'boxes', 'masks'):
         np.testing.assert_allclose(getattr(got, name).numpy(),
@@ -220,7 +231,7 @@ def test_postprocess_branches_match_jax(rng, cfg_kw, score_threshold):
         cfg, JaxDetections(**{k: jnp.asarray(v) for k, v in arrays.items()}),
         score_threshold=score_threshold)
     got_m, got_d = postprocess_device(
-        cfg, torch_detection.Detections(
+        P(cfg), torch_detection.Detections(
             **{k: torch.from_numpy(v) for k, v in arrays.items()}),
         score_threshold=score_threshold)
     np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m), rtol=0,
@@ -233,10 +244,10 @@ def test_pruned_and_full_tails_agree():
     """The pruned tail and the unpruned fallback give the same detections
     on the same inputs (the fallback is what makes the prune exact)."""
     cfg = tiny_resnet_config()
-    sd = jax_variables_to_state_dict(cfg, _variables(cfg, sparse=True))
+    sd = jax_variables_to_state_dict(P(cfg), _variables(cfg, sparse=True))
     frames = _frames(cfg)
-    pruned = Pipeline(cfg.copy(nms_candidates=256), sd, 'cpu')(frames)
-    full = Pipeline(cfg.copy(nms_candidates=0), sd, 'cpu')(frames)
+    pruned = Pipeline(P(cfg).copy(nms_candidates=256), sd, 'cpu')(frames)
+    full = Pipeline(P(cfg).copy(nms_candidates=0), sd, 'cpu')(frames)
     np.testing.assert_array_equal(pruned.valid.numpy(), full.valid.numpy())
     v = full.valid
     for name in ('classes', 'scores', 'boxes', 'masks'):
@@ -245,14 +256,15 @@ def test_pruned_and_full_tails_agree():
 
 def test_random_state_dict_is_seeded_and_loads():
     cfg = tiny_resnet_config()
-    a = random_state_dict(cfg, torch.Generator().manual_seed(0))
-    b = random_state_dict(cfg, torch.Generator().manual_seed(0))
-    c = random_state_dict(cfg, torch.Generator().manual_seed(1))
+    a = random_state_dict(P(cfg), torch.Generator().manual_seed(0))
+    b = random_state_dict(P(cfg), torch.Generator().manual_seed(0))
+    c = random_state_dict(P(cfg), torch.Generator().manual_seed(1))
     assert a.keys() == b.keys()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a['backbone.conv1.weight'],
                            c['backbone.conv1.weight'])
-    out = Pipeline(cfg, a, 'cpu', compute_dtype='bfloat16')(_frames(cfg, 1))
+    out = Pipeline(P(cfg), a, 'cpu',
+                   compute_dtype='bfloat16')(_frames(cfg, 1))
     assert out.masks.shape == (1, cfg.max_num_detections, 32, 32)
     assert out.masks.dtype == torch.float32
     assert all(bool(torch.isfinite(t).all())
@@ -264,8 +276,8 @@ def test_bf16_pipeline_keeps_maskiou_net_float32():
     scorer's: JAX runs MaskIoUHead in float32, so its weights must equal
     the state dict bit for bit."""
     cfg = tiny_plus_config()
-    sd = random_state_dict(cfg, torch.Generator().manual_seed(0))
-    model = Pipeline(cfg, sd, 'cpu', 'bfloat16').model
+    sd = random_state_dict(P(cfg), torch.Generator().manual_seed(0))
+    model = Pipeline(P(cfg), sd, 'cpu', 'bfloat16').model
     params = dict(model.named_parameters())
     scorer = [k for k in params if k.startswith('maskiou_net.')]
     assert scorer
@@ -281,27 +293,51 @@ def test_pipeline_cuda_raises_without_gpu():
     if torch.cuda.is_available():
         pytest.skip('a GPU is present; this checks the no-GPU error')
     cfg = tiny_resnet_config()
-    sd = random_state_dict(cfg, torch.Generator().manual_seed(0))
+    sd = random_state_dict(P(cfg), torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match='cuda'):
-        Pipeline(cfg, sd, 'cuda')
+        Pipeline(P(cfg), sd, 'cuda')
 
 
 def test_port_imports_no_jax_flax_or_cv2():
-    code = ('import sys, yolact_tpu_torch.infer, yolact_tpu_torch.kernels.nms, '
-            'yolact_tpu_torch.kernels.mask_assembly, '
-            'yolact_tpu_torch.kernels.dcn, yolact_tpu_torch.models.resnet, '
-            'yolact_tpu_torch.models.heads, '
-            'yolact_tpu_torch.detect.postprocess, '
-            'yolact_tpu_torch.convert.from_jax, '
-            'yolact_tpu_torch.kernels.stem, yolact_tpu_torch.cli.eval, '
-            'yolact_tpu_torch.eval.evaluate, '
-            'yolact_tpu_torch.eval.traditional, '
-            'yolact_tpu_torch.train.checkpoint\n'
-            'bad = sorted(m for m in sys.modules\n'
-            '             if m.split(".")[0] in ("jax", "flax", "cv2"))\n'
-            'print(bad)\n'
-            'sys.exit(1 if bad else 0)\n')
+    """Every module of the port, and chip_smoke.py (its imports; main()
+    does not run on import), in a fresh interpreter: no module of JAX,
+    flax, cv2 or the JAX package (``yolact_tpu``) is loaded."""
+    code = ('import importlib, pkgutil, sys\n'
+            'import yolact_tpu_torch\n'
+            'for m in pkgutil.walk_packages(yolact_tpu_torch.__path__,\n'
+            '                               "yolact_tpu_torch."):\n'
+            '    importlib.import_module(m.name)\n'
+            'import chip_smoke\n'
+            'bad = sorted(m for m in sys.modules if m.split(".")[0] in\n'
+            '             ("jax", "flax", "cv2", "yolact_tpu"))\n'
+            'n = sum(m.startswith("yolact_tpu_torch.") for m in sys.modules)\n'
+            'print(bad, n)\n'
+            'sys.exit(1 if bad or n < 30 else 0)\n')
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+PORT_SOURCES = sorted(
+    os.path.relpath(path, REPO) for path in
+    glob.glob(os.path.join(REPO, 'yolact_tpu_torch', '**', '*.py'),
+              recursive=True)) + ['chip_smoke.py', 'probe_dcn.py']
+
+
+@pytest.mark.parametrize('path', PORT_SOURCES)
+def test_port_source_imports_nothing_of_jax(path):
+    """No import statement of the port or of its scripts on the card
+    (chip_smoke.py, probe_dcn.py) names JAX, flax or the JAX package, at
+    any depth of the file (lazy imports inside functions included)."""
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    bad = [n for n in names
+           if n.split('.')[0] in ('jax', 'flax', 'yolact_tpu')]
+    assert not bad, bad

@@ -9,7 +9,8 @@ conv, the port divides after subtracting); the plain stem conv within
 inputs scaled by 0.1, tests/test_stem_kernel.py); the tiny s2d forward
 within 1e-4 (float32 convolutions summed in another order); pipelines as
 tests/test_torch_pipeline.py (classes and validity identical, scores and
-boxes within 1e-5, masks within 1e-4)."""
+boxes within 1e-5, masks within 1e-4).  The port gets its own config
+(``P`` = ``config_from_jax``)."""
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +28,7 @@ from yolact_tpu.infer import random_variables
 from yolact_tpu.kernels.stem import _conv_xla, stem_conv_s2d_pallas
 from yolact_tpu.models import layers as jax_layers
 from yolact_tpu.models.yolact import Yolact as JaxYolact
+from yolact_tpu_torch.convert.from_jax import config_from_jax as P
 from yolact_tpu_torch.convert.from_jax import jax_variables_to_state_dict
 from yolact_tpu_torch.infer import (Pipeline, maybe_enable_stem_s2d,
                                     preprocess_device, preprocess_device_s2d,
@@ -101,7 +103,7 @@ def test_preprocess_device_s2d_matches_jax(transform):
         transform=TransformConfig(**transform)))
     frames = _frames()
     want = jax_preprocess_s2d(cfg, jnp.asarray(frames))
-    got = preprocess_device_s2d(cfg, torch.from_numpy(frames))
+    got = preprocess_device_s2d(P(cfg), torch.from_numpy(frames))
     assert tuple(got.shape) == (2, 12, 64, 64)
     np.testing.assert_allclose(got.numpy(), _nchw(want), rtol=0, atol=1e-5)
 
@@ -115,7 +117,7 @@ def test_preprocess_device_s2d_rejects_like_jax(overrides):
     with pytest.raises(ValueError):
         jax_preprocess_s2d(cfg, jnp.asarray(frames))
     with pytest.raises(ValueError):
-        preprocess_device_s2d(cfg, torch.from_numpy(frames))
+        preprocess_device_s2d(P(cfg), torch.from_numpy(frames))
 
 
 def test_non_resnet_stem_s2d_raises_like_jax():
@@ -124,7 +126,7 @@ def test_non_resnet_stem_s2d_raises_like_jax():
         jax.eval_shape(lambda: JaxYolact(cfg).init(
             jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 12))))
     with pytest.raises(ValueError, match='ResNet'):
-        Yolact(cfg)
+        Yolact(P(cfg))
 
 
 def test_s2d_without_protonet_source_raises_like_jax():
@@ -133,7 +135,7 @@ def test_s2d_without_protonet_source_raises_like_jax():
         jax.eval_shape(lambda: JaxYolact(cfg).init(
             jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 12))))
     with pytest.raises(ValueError, match='mask_proto_src'):
-        Yolact(cfg)
+        Yolact(P(cfg))
 
 
 @pytest.mark.parametrize('overrides', [
@@ -141,9 +143,9 @@ def test_s2d_without_protonet_source_raises_like_jax():
     {'mask_proto_src': None}])
 def test_maybe_enable_stem_s2d_matches_jax(overrides):
     cfg = tiny_resnet_config().copy(**overrides)
-    assert maybe_enable_stem_s2d(cfg).stem_s2d == \
+    assert maybe_enable_stem_s2d(P(cfg)).stem_s2d == \
         jax_maybe_enable(cfg).stem_s2d
-    assert maybe_enable_stem_s2d(cfg).stem_s2d == (not overrides)
+    assert maybe_enable_stem_s2d(P(cfg)).stem_s2d == (not overrides)
 
 
 @pytest.mark.parametrize('shape,cout', [
@@ -197,14 +199,14 @@ def test_tiny_s2d_forward_matches_jax_and_plain_stem(jax_vars):
     same weights, priors at the logical image size included."""
     cfg = tiny_resnet_config(stem_s2d=True)
     v = jax_vars
-    sd = jax_variables_to_state_dict(cfg, v)
+    sd = jax_variables_to_state_dict(P(cfg), v)
     frames = _frames()
     want = jax.jit(lambda v, x: JaxYolact(cfg).apply(v, x, train=False))(
         v, jax_preprocess_s2d(cfg, jnp.asarray(frames)))
-    model = Yolact(cfg).eval()
+    model = Yolact(P(cfg)).eval()
     model.load_state_dict(sd)
     assert model.backbone.stem_s2d
-    x = preprocess_device_s2d(cfg, torch.from_numpy(frames))
+    x = preprocess_device_s2d(P(cfg), torch.from_numpy(frames))
     with torch.no_grad():
         got = model(x)
     assert x.shape[1:] == (12, 64, 64)
@@ -214,10 +216,10 @@ def test_tiny_s2d_forward_matches_jax_and_plain_stem(jax_vars):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=1e-4, atol=1e-4, err_msg=k)
 
-    plain = Yolact(cfg.copy(stem_s2d=False)).eval()
+    plain = Yolact(P(cfg).copy(stem_s2d=False)).eval()
     plain.load_state_dict(sd)
     with torch.no_grad():
-        ref = plain(preprocess_device(cfg, torch.from_numpy(frames)))
+        ref = plain(preprocess_device(P(cfg), torch.from_numpy(frames)))
     for k in ref:
         np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(),
                                    rtol=1e-4, atol=1e-4, err_msg=k)
@@ -243,8 +245,8 @@ def test_s2d_weight_follows_reloads_and_casts():
 
 @pytest.mark.parametrize('sparse', [True, False])
 def test_s2d_pipeline_matches_jax_pipeline(jax_vars, sparse):
-    """Raw frames: the JAX Pipeline turns the s2d stem on by itself; the
-    port's runs it when the config asks."""
+    """Raw frames: both Pipelines turn the s2d stem on by themselves (a
+    config that asks for it gets the same)."""
     cfg = tiny_resnet_config(nms_candidates=256)
     v = _copy(jax_vars)
     if sparse:
@@ -255,14 +257,17 @@ def test_s2d_pipeline_matches_jax_pipeline(jax_vars, sparse):
     frames = _frames(seed=7)
     want = JaxPipeline(cfg, v)(frames)
     assert JaxPipeline(cfg, v).cfg.stem_s2d
-    sd = jax_variables_to_state_dict(cfg, v)
-    assert not Pipeline(cfg, sd, 'cpu').model.backbone.stem_s2d
-    pipe = Pipeline(cfg.copy(stem_s2d=True), sd, 'cpu')
+    sd = jax_variables_to_state_dict(P(cfg), v)
+    pipe = Pipeline(P(cfg), sd, 'cpu')
+    assert pipe.cfg.stem_s2d and pipe.model.backbone.stem_s2d
     n0 = stem.launches
     got = pipe(frames)
     assert stem.launches == n0            # CPU tensors: the plain version
     assert bool(got.valid.any())
     _assert_match(want, got)
+    asked = Pipeline(P(cfg).copy(stem_s2d=True), sd, 'cpu')(frames)
+    for name in ('valid', 'classes', 'scores', 'boxes', 'masks'):
+        assert torch.equal(getattr(asked, name), getattr(got, name))
 
 
 @pytest.mark.parametrize('stem_s2d', [False, True])
@@ -276,15 +281,15 @@ def test_pipeline_normalized_input_matches_jax(jax_vars, stem_s2d):
     assert jax_prepare_input(cfg, jnp.asarray(imgs), False).shape == (
         (2, 64, 64, 12) if stem_s2d else (2, 128, 128, 3))
     want = JaxPipeline(cfg, v, preprocess=False)(imgs)
-    got = Pipeline(cfg, jax_variables_to_state_dict(cfg, v), 'cpu',
+    got = Pipeline(P(cfg), jax_variables_to_state_dict(P(cfg), v), 'cpu',
                    preprocess=False)(imgs)
     _assert_match(want, got)
 
 
 def test_s2d_pipeline_bf16_runs_on_random_weights():
     cfg = tiny_resnet_config(stem_s2d=True)
-    sd = random_state_dict(cfg, torch.Generator().manual_seed(0))
-    out = Pipeline(cfg, sd, 'cpu', 'bfloat16')(_frames(1))
+    sd = random_state_dict(P(cfg), torch.Generator().manual_seed(0))
+    out = Pipeline(P(cfg), sd, 'cpu', 'bfloat16')(_frames(1))
     assert out.masks.shape == (1, cfg.max_num_detections, 32, 32)
     assert all(bool(torch.isfinite(t).all())
                for t in (out.boxes, out.scores, out.masks))

@@ -7,10 +7,13 @@ At the public functions it keeps the JAX layouts: images in as
 ``[B, H, W, 3]`` BGR float, prototypes ``[B, Hp, Wp, Md]``, masks out as
 ``[B, D, Hp, Wp]`` and relative point-form boxes ``[B, D, 4]``.
 
-The configuration system is shared with the JAX package: ``yolact_tpu.config``
-imports only the standard library, so it is re-exported here rather than
-copied.  Nothing else under ``yolact_tpu`` is imported at run time.
+The port imports nothing of the JAX package.  Where it needs a module of
+it that is free of JAX (the configuration, the COCO dataset, the evaluator,
+the host NMS and RLE codec), it keeps its own copy at the same relative
+path: ``yolact_tpu_torch/config.py`` is ``yolact_tpu/config.py``, and so
+on.  ``convert/from_jax.py:config_from_jax`` turns a JAX config object into
+the port's.
 """
 
-from yolact_tpu.config import (  # noqa: F401
+from yolact_tpu_torch.config import (  # noqa: F401
     MEANS, STD, MaskType, YolactConfig, get_config)

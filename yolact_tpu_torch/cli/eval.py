@@ -7,11 +7,13 @@ python -m yolact_tpu_torch.cli.eval --trained_model=... --image=in.jpg:out.png
 
 Weights are reference ``.pth`` state dicts (``train/checkpoint.py``).  The
 model runs on ``cuda:0`` (``--cuda=False``: on the CPU, with the kernels'
-plain PyTorch versions); a CUDA request without a card raises.  The stem is
-the plain 7x7/s2 conv unless ``--stem_s2d`` asks for the space-to-depth
-stem kernel.  ``--video`` and ``--eval_devices`` other than 1 are not
-ported yet (ROADMAP A9).  cv2 is imported only where images are read,
-drawn or written.
+plain PyTorch versions); a CUDA request without a card raises.  Raw frames
+through the fast-NMS pipeline (``--image``, ``--images``) take the
+space-to-depth stem kernel where the config supports it, as JAX's
+``Pipeline`` does; otherwise the stem is the plain 7x7/s2 conv unless
+``--stem_s2d`` asks for the s2d one.  ``--video`` and ``--eval_devices``
+other than 1 are not ported yet (ROADMAP A9).  cv2 is imported only where
+images are read, drawn or written.
 """
 
 from __future__ import annotations
@@ -96,7 +98,7 @@ def parse_args(argv=None):
 
 def load_model(args):
     """(cfg, state dict, device) from the flags."""
-    from yolact_tpu.config import (config_from_model_path, get_config,
+    from yolact_tpu_torch.config import (config_from_model_path, get_config,
                                    get_dataset)
     from yolact_tpu_torch.infer import check_device
     from yolact_tpu_torch.train.checkpoint import load_weights
@@ -137,7 +139,7 @@ def evalimage(cfg, args, pipeline, path: str, save_path=None):
     import cv2
     import numpy as np
     import torch
-    from yolact_tpu.eval.display import draw_detections
+    from yolact_tpu_torch.eval.display import draw_detections
     from yolact_tpu_torch.detect.postprocess import finish_masks
     from yolact_tpu_torch.eval.evaluate import sanitize_boxes_np
 
@@ -150,14 +152,15 @@ def evalimage(cfg, args, pipeline, path: str, save_path=None):
 
     if args.display_lincomb:
         # prototype-combination debug view (output_utils.py:147-189)
-        from yolact_tpu.eval.display import display_lincomb
+        from yolact_tpu_torch.eval.display import display_lincomb
         from yolact_tpu_torch.detect.detection import detect
         from yolact_tpu_torch.infer import _prepare_input
+        # the pipeline's config: its stem may be the s2d one
         with torch.inference_mode():
-            x = _prepare_input(cfg, torch.as_tensor(frame,
-                                                    device=pipeline.device),
+            x = _prepare_input(pipeline.cfg,
+                               torch.as_tensor(frame, device=pipeline.device),
                                preprocess=True)
-            d = detect(cfg, pipeline.model(x))
+            d = detect(pipeline.cfg, pipeline.model(x))
         display_lincomb(d.proto[0].cpu().numpy(), d.masks[0].cpu().numpy(),
                         out_path=os.path.splitext(path)[0] + '_lincomb.png')
     n = int(out.valid[0].sum())

@@ -1,7 +1,8 @@
-"""JAX variables -> the port's state dict.
+"""JAX variables -> the port's state dict, and a JAX config -> the port's.
 
-The inverse of ``yolact_tpu/convert/torch_import.py:convert_state_dict``
-for the modules the port has: flax paths become the reference's torch
+:func:`jax_variables_to_state_dict` is the inverse of
+``yolact_tpu/convert/torch_import.py:convert_state_dict`` for the modules
+the port has: flax paths become the reference's torch
 ``state_dict`` keys, conv kernels (and a DCN layer's 4-D ``weight``) go
 HWIO -> OIHW, and batch norm ``scale`` / ``bias`` / ``mean`` / ``var``
 become ``weight`` / ``bias`` / ``running_mean`` / ``running_var``.  The
@@ -10,17 +11,24 @@ YOLACT++ mask scorer, a separate ``MaskIoUHead`` tree in JAX
 ``'maskiou'`` entry, where ``convert_state_dict`` puts it, and becomes
 ``maskiou_net.maskiou_net.{i}``.  Inputs are nested dicts of numpy arrays,
 so this module needs no JAX.
+
+:func:`config_from_jax` rebuilds the port's config dataclasses field by
+field from a ``yolact_tpu.config`` object (the port keeps its own copy of
+that module, so the two packages' classes differ); it reads the object's
+dataclass fields and imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
-from typing import Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
-from yolact_tpu.config import YolactConfig
+from yolact_tpu_torch import config as port_config
+from yolact_tpu_torch.config import YolactConfig
 
 _LEAF = {'kernel': 'weight', 'weight': 'weight', 'bias': 'bias',
          'scale': 'weight', 'mean': 'running_mean', 'var': 'running_var'}
@@ -86,3 +94,25 @@ def jax_variables_to_state_dict(cfg: YolactConfig, variables: Dict
              variables.get('maskiou', {}).get('params', {})]
     return {_torch_key(path): _to_torch(path, value)
             for tree in trees for path, value in _walk(tree)}
+
+
+def _rebuild(value: Any) -> Any:
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        cls = getattr(port_config, type(value).__name__)
+        return cls(**{f.name: _rebuild(getattr(value, f.name))
+                      for f in dataclasses.fields(value)})
+    if isinstance(value, tuple):
+        return tuple(_rebuild(v) for v in value)
+    return value
+
+
+def config_from_jax(cfg: Any) -> YolactConfig:
+    """The port's :class:`YolactConfig` equal to a JAX ``YolactConfig``:
+    every nested config dataclass becomes the port's class of the same
+    name, field by field; other values (numbers, strings, tuples, the
+    ``MaskType`` integers) are kept."""
+    out = _rebuild(cfg)
+    if not isinstance(out, YolactConfig):
+        raise TypeError(f'config_from_jax: not a YolactConfig: '
+                        f'{type(cfg).__name__}')
+    return out

@@ -20,7 +20,7 @@ from typing import Dict, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from yolact_tpu.config import YolactConfig
+from yolact_tpu_torch.config import YolactConfig
 from yolact_tpu_torch.kernels.nms import nms_iou_max, nms_iou_max_plain
 from yolact_tpu_torch.ops.boxes import decode
 

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from yolact_tpu.config import MaskType, YolactConfig
+from yolact_tpu_torch.config import MaskType, YolactConfig
 from yolact_tpu_torch.detect.detection import Detections
 from yolact_tpu_torch.kernels.mask_assembly import (assemble_masks,
                                                     assemble_masks_plain)

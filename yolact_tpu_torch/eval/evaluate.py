@@ -8,9 +8,9 @@ prefetches and transforms images, fixed-size device batches
 through one pipeline (fast NMS on the card, or the traditional host NMS),
 then per image the greedy AP matching into ``APDataObject``s and the final
 ``calc_map`` table, or COCO / web JSON, or ``--benchmark`` timings.  The
-host-side pieces are reused from the JAX package as they are, since none
-imports JAX: the evaluator, the JSON writer, the COCO dataset, the progress
-bar and the timer.  The mask upsample to image size runs on the device
+host-side pieces are the port's copies of the JAX package's (the
+evaluator, the JSON writer, the COCO dataset, the progress bar and the
+timer).  The mask upsample to image size runs on the device
 (``detect/postprocess.py:finish_masks``); mask IoU runs on the host.
 ``eval/device_metrics.py`` and multi-device evaluation are not ported yet
 (ROADMAP A5, A9).
@@ -30,16 +30,16 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
-from yolact_tpu.config import YolactConfig
-from yolact_tpu.data.coco import COCODetection
-from yolact_tpu.eval.coco_json import DetectionsWriter
-from yolact_tpu.eval.evaluator import (badhash, calc_map, make_ap_data,
-                                       prep_metrics)
-from yolact_tpu.utils import timer
-from yolact_tpu.utils.functions import MovingAverage, ProgressBar
+from yolact_tpu_torch.config import YolactConfig
+from yolact_tpu_torch.data.coco import COCODetection
 from yolact_tpu_torch.detect.postprocess import finish_masks
+from yolact_tpu_torch.eval.coco_json import DetectionsWriter
+from yolact_tpu_torch.eval.evaluator import (badhash, calc_map,
+                                             make_ap_data, prep_metrics)
 from yolact_tpu_torch.eval.traditional import TraditionalPipeline
 from yolact_tpu_torch.infer import Pipeline, _prepare_input
+from yolact_tpu_torch.utils import timer
+from yolact_tpu_torch.utils.functions import MovingAverage, ProgressBar
 
 
 def sanitize_boxes_np(boxes: np.ndarray, w: int, h: int) -> np.ndarray:
@@ -252,7 +252,7 @@ def evaluate_dataset(cfg: YolactConfig, state_dict: Dict[str, torch.Tensor],
                     # original image to display_dir (the reference pops a
                     # matplotlib window, eval.py:945-961)
                     import cv2
-                    from yolact_tpu.eval.display import draw_detections
+                    from yolact_tpu_torch.eval.display import draw_detections
                     os.makedirs(display_dir, exist_ok=True)
                     raw = dataset.pull_image(image_idx)
                     # prep_display forces rescore_bbox=True (eval.py:147-149)
@@ -334,8 +334,8 @@ def calc_map_from_file(cfg: YolactConfig, ap_data_file: str) -> Dict:
 
 
 def make_eval_dataset(cfg: YolactConfig) -> COCODetection:
-    # BaseTransform resizes with cv2, which the module does not import
-    from yolact_tpu.data.augmentations import BaseTransform
+    # BaseTransform resizes with cv2, imported only where it resizes
+    from yolact_tpu_torch.data.augmentations import BaseTransform
     return COCODetection(cfg.dataset.valid_images, cfg.dataset.valid_info,
                          transform=BaseTransform(cfg),
                          dataset_cfg=cfg.dataset,

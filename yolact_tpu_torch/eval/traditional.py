@@ -1,26 +1,122 @@
 """Traditional (greedy, per-class) NMS: the model on the device, the NMS on
-the host.  Port of ``yolact_tpu/eval/traditional.py:TraditionalPipeline``.
+the host.  Port of ``yolact_tpu/eval/traditional.py``.
 
-The host half is the JAX package's own and is reused as it is
-(``traditional_nms``, ``host_assemble_masks`` and the native
-``_greedy_nms``; that module imports only numpy and ``yolact_tpu.native``).
-:func:`infer.forward_raw` runs on the card; the kept detections are
-assembled into masks on the host, padded to ``max_num_detections`` and,
-for YOLACT++ configs, re-scored by the mask scorer on the card.
+The host half is a copy of the JAX package's (``traditional_nms``,
+``host_assemble_masks``, ``_greedy_nms``), with semantics of
+``Detect.traditional_nms`` (``detection.py:182-228``): per-class confidence
+filter, greedy suppression with +1-convention pixel areas (boxes scaled by
+max_size), global score sort capped at ``max_num_detections``.  The O(n^2)
+suppression loop runs in the native helper (``yolact_tpu_torch/native``)
+where it builds, else in numpy.  :func:`infer.forward_raw` runs on the
+card; the kept detections are assembled into masks on the host, padded to
+``max_num_detections`` and, for YOLACT++ configs, re-scored by the mask
+scorer on the card.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from yolact_tpu.config import YolactConfig
-from yolact_tpu.eval.traditional import host_assemble_masks, traditional_nms
+from yolact_tpu_torch.config import YolactConfig
 from yolact_tpu_torch.detect.postprocess import select_class_maskiou
 from yolact_tpu_torch.infer import (InferenceOutput, check_device,
                                     forward_raw, load_model)
+from yolact_tpu_torch.native import get_native
+
+
+def _greedy_nms(dets: np.ndarray, thresh: float) -> np.ndarray:
+    native = get_native()
+    if native is not None:
+        keep = native.greedy_nms(dets, thresh)
+        return np.sort(keep)  # reference returns original-order indices
+    # numpy version, for a host without g++
+    x1, y1, x2, y2, sc = dets.T
+    areas = (x2 - x1 + 1) * (y2 - y1 + 1)
+    order = sc.argsort()[::-1]
+    suppressed = np.zeros(len(dets), bool)
+    keep = []
+    for _i in range(len(order)):
+        i = order[_i]
+        if suppressed[i]:
+            continue
+        keep.append(i)
+        for _j in range(_i + 1, len(order)):
+            j = order[_j]
+            if suppressed[j]:
+                continue
+            w = max(0.0, min(x2[i], x2[j]) - max(x1[i], x1[j]) + 1)
+            h = max(0.0, min(y2[i], y2[j]) - max(y1[i], y1[j]) + 1)
+            inter = w * h
+            if inter / (areas[i] + areas[j] - inter) >= thresh:
+                suppressed[j] = True
+    return np.array(sorted(keep), np.int64)
+
+
+def host_assemble_masks(proto: np.ndarray, coeffs: np.ndarray,
+                        boxes: np.ndarray, padding: int = 1,
+                        crop: bool = True) -> np.ndarray:
+    """Host mask assembly for the traditional-NMS path: sigmoid(proto @
+    coeffs.T) cropped by boxes (output_utils.py:69-74), numpy."""
+    hp, wp, _ = proto.shape
+    n = coeffs.shape[0]
+    m = proto.reshape(-1, proto.shape[-1]) @ coeffs.T          # [hp*wp, n]
+    m = 1.0 / (1.0 + np.exp(-m))
+    m = m.reshape(hp, wp, n)
+    if n and crop:
+        x1 = np.clip(np.minimum(boxes[:, 0], boxes[:, 2]) * wp - padding,
+                     0, None)
+        x2 = np.clip(np.maximum(boxes[:, 0], boxes[:, 2]) * wp + padding,
+                     None, wp)
+        y1 = np.clip(np.minimum(boxes[:, 1], boxes[:, 3]) * hp - padding,
+                     0, None)
+        y2 = np.clip(np.maximum(boxes[:, 1], boxes[:, 3]) * hp + padding,
+                     None, hp)
+        cols = np.arange(wp)[None, :, None]
+        rows = np.arange(hp)[:, None, None]
+        keep = ((cols >= x1) & (cols < x2) & (rows >= y1) & (rows < y2))
+        m = m * keep
+    return np.transpose(m, (2, 0, 1))                          # [n, hp, wp]
+
+
+def traditional_nms(cfg: YolactConfig, boxes: np.ndarray, coeffs: np.ndarray,
+                    scores: np.ndarray
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """boxes [P,4] relative point form; coeffs [P,Md]; scores [C-1,P].
+    Returns (boxes, coeffs, classes, scores) of the kept detections."""
+    num_classes = scores.shape[0]
+    boxes_px = boxes * cfg.max_size
+
+    idx_lst, cls_lst, scr_lst = [], [], []
+    for _cls in range(num_classes):
+        cls_scores = scores[_cls]
+        conf_mask = cls_scores > cfg.nms_conf_thresh
+        idx = np.arange(len(cls_scores))[conf_mask]
+        cls_scores = cls_scores[conf_mask]
+        if len(cls_scores) == 0:
+            continue
+        preds = np.concatenate(
+            [boxes_px[conf_mask], cls_scores[:, None]], axis=1
+        ).astype(np.float32)
+        keep = _greedy_nms(preds, cfg.nms_thresh)
+        idx_lst.append(idx[keep])
+        cls_lst.append(np.full(len(keep), _cls, np.int64))
+        scr_lst.append(cls_scores[keep])
+
+    if not idx_lst:
+        e = np.zeros(0)
+        return e.reshape(0, 4), e.reshape(0, coeffs.shape[1]), \
+            e.astype(np.int64), e
+
+    idx = np.concatenate(idx_lst)
+    classes = np.concatenate(cls_lst)
+    out_scores = np.concatenate(scr_lst)
+
+    order = np.argsort(-out_scores, kind='stable')[:cfg.max_num_detections]
+    idx = idx[order]
+    return boxes[idx], coeffs[idx], classes[order], out_scores[order]
 
 
 class TraditionalPipeline:

@@ -2,16 +2,14 @@
 
 Port of ``yolact_tpu/infer.py`` (``preprocess_device``,
 ``preprocess_device_s2d``, ``maybe_enable_stem_s2d``, ``forward_and_detect``,
-``forward_raw``, ``Pipeline``).  Differences from the JAX package, both
-deliberate:
+``forward_raw``, ``Pipeline``).  As in JAX, ``Pipeline`` switches to the
+space-to-depth stem by itself for raw frames (``maybe_enable_stem_s2d``):
+the same math on the same parameters, run by the stem kernel of
+``kernels/stem.py``, which takes less device time on an H100 than cuDNN's
+7x7/s2 conv and its layout transposes.  :func:`load_model` with
+:func:`forward_and_detect` runs the stem the config names.  One difference
+from the JAX package is deliberate:
 
-* ``Pipeline`` keeps the plain 7x7/s2 stem unless the config asks for the
-  space-to-depth one (``cfg.stem_s2d``).  The JAX ``Pipeline`` switches to
-  it by itself for raw frames (``maybe_enable_stem_s2d``): the same math on
-  the same parameters, arranged for the TPU's lanes.  Here it runs the
-  stem kernel of ``kernels/stem.py``; ``maybe_enable_stem_s2d`` is ported
-  but ``Pipeline`` does not call it, until a measurement on the card shows
-  the s2d stem is faster there.
 * Frames are resized with ``F.interpolate`` (bilinear,
   ``align_corners=False``, no antialiasing), as the reference
   ``FastBaseTransform`` does.  ``jax.image.resize`` antialiases when it
@@ -28,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolact_tpu.config import MEANS, STD, MaskType, YolactConfig
+from yolact_tpu_torch.config import MEANS, STD, MaskType, YolactConfig
 from yolact_tpu_torch.detect.detection import detect, eval_scores
 from yolact_tpu_torch.detect.postprocess import (postprocess_device,
                                                  rescore_with_maskiou)
@@ -206,11 +204,12 @@ class Pipeline:
     ``compute_dtype`` ('float32' or 'bfloat16', default ``cfg.compute_dtype``)
     is the convolution dtype; the state dict stays float32.  A CUDA device
     that is not there raises; there is no CPU fallback.  ``preprocess``:
-    True takes raw [B, H, W, 3] BGR frames, False the host-normalized
-    frames of the eval loop (see :func:`_prepare_input`).  The stem is the
-    one the config names (``cfg.stem_s2d``).  ``use_kernels`` exists for
-    comparisons: False runs the plain PyTorch versions of the kernels on
-    the card."""
+    True takes raw [B, H, W, 3] BGR frames, and the space-to-depth stem
+    where the config supports it (``maybe_enable_stem_s2d``, as JAX's
+    ``Pipeline``); False the host-normalized frames of the eval loop (see
+    :func:`_prepare_input`) and the stem the config names.  ``use_kernels``
+    exists for comparisons: False runs the plain PyTorch versions of the
+    kernels on the card."""
 
     def __init__(self, cfg: YolactConfig, state_dict: Dict[str, torch.Tensor],
                  device: Union[str, torch.device],
@@ -220,6 +219,8 @@ class Pipeline:
                  crop_masks: bool = True,
                  use_kernels: bool = True,
                  preprocess: bool = True):
+        if preprocess:
+            cfg = maybe_enable_stem_s2d(cfg)
         self.cfg = cfg
         self.device = check_device(device)
         self.model = load_model(cfg, state_dict, self.device, compute_dtype)

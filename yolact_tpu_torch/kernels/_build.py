@@ -49,9 +49,9 @@ SIGNATURES = {
     # [b, d, hp*wp] (all f32), b, d, hp, wp, md, padding, stream
     'yolact_mask_assembly': (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                              ctypes.c_float, _P),
-    # x [b, c, h, w], offset [b, 2k^2, ho, wo] f32, mask [b, k^2, ho, wo],
-    # cols [b, c*k^2, ho*wo], dtype (0 f32, 1 bf16), b, c, h, w, ho, wo, k,
-    # stride, pad, dil, stream
+    # x [b, h, w, c] (NHWC), offset [b, 2k^2, ho, wo] f32, mask [b, k^2,
+    # ho, wo], cols [b*ho*wo, k^2*c], dtype (0 f32, 1 bf16), b, c, h, w, ho,
+    # wo, k, stride, pad, dil, stream
     'yolact_dcn_im2col': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _P),
     # x [b, 12, h, w], w2 [64, 12, 4, 4], out [b, 64, h, w], dtype (0 f32,

@@ -7,15 +7,19 @@ with four Pallas kernels (``scripts/bench_gather2.py:pallas_kernel``,
 ``taa_kernel``, ``taa4_kernel``, ``scripts/probe_sameshape_gather.py:
 kernel``) and ships it as an XLA gather; here it is one CUDA kernel,
 ``csrc/dcn_im2col.cu``, that writes the modulated im2col columns.  The
-GEMM ``weight [Cout, Cin*K*K] @ cols`` stays ``torch.matmul``, as JAX
-leaves it to an XLA ``dot_general``.
+GEMM stays ``torch.matmul``, as JAX leaves it to an XLA ``dot_general``.
 
-Layouts are NCHW: ``x [B, Cin, H, W]``, ``offset [B, 2*K*K, Ho, Wo]``
-float32 with channels ``2t`` (dy) and ``2t+1`` (dx) for tap ``t = i*K + j``,
-``mask [B, K*K, Ho, Wo]`` (after the sigmoid), ``weight [Cout, Cin, K, K]``.
-The columns are the reference extension's per-image layout
-``[B, Cin*K*K, Ho*Wo]`` (row ``c*K*K + t``), so ``weight.view(Cout, -1)
-@ cols`` lands in NCHW with no permute.
+Layouts at the public functions are the port's NCHW: ``x [B, Cin, H, W]``
+(contiguous, or ``channels_last``, which the sampler reads without a
+copy), ``offset [B, 2*K*K, Ho, Wo]`` float32 with channels ``2t`` (dy) and
+``2t+1`` (dx) for tap ``t = i*K + j``, ``mask [B, K*K, Ho, Wo]`` (after
+the sigmoid), ``weight [Cout, Cin, K, K]``.  The sampler reads x as NHWC
+and the columns are JAX's layout ``[B*Ho*Wo, K*K*Cin]`` (column
+``t*Cin + c``), so the GEMM ``cols @ weight[Cout, K*K*Cin]^T`` has leading
+dimensions ``K*K*Cin`` and ``Cout`` (multiples of 8 at yolact_plus_base,
+which cuBLAS's aligned kernels need) and lands in NHWC:
+:func:`deform_conv2d` returns it as a ``channels_last`` view of
+``[B, Cout, Ho, Wo]``.
 
 Rounding follows the JAX sampler (``_bilinear_gather_block``): the corner
 weights ``wy * wx * valid`` are float32 and cast to the input dtype, each
@@ -57,8 +61,7 @@ def out_size(size: int, k: int, stride: int, padding: int,
 
 def _check(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
            k: int, stride: int, padding: int, dilation: int):
-    """Shapes, dtypes and contiguity both versions take; returns
-    (ho, wo)."""
+    """Shapes, dtypes and layouts both versions take; returns (ho, wo)."""
     if x.dim() != 4:
         raise ValueError(f'dcn: x must be [B, Cin, H, W], got '
                          f'{tuple(x.shape)}')
@@ -79,12 +82,20 @@ def _check(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     if tuple(mask.shape) != (b, k * k, ho, wo):
         raise ValueError(f'dcn: mask must be {(b, k * k, ho, wo)}, got '
                          f'{tuple(mask.shape)}')
-    if not (x.is_contiguous() and offset.is_contiguous()
-            and mask.is_contiguous()):
-        raise ValueError('dcn: x, offset and mask must be contiguous')
+    if not ((x.is_contiguous()
+             or x.is_contiguous(memory_format=torch.channels_last))
+            and offset.is_contiguous() and mask.is_contiguous()):
+        raise ValueError('dcn: x must be contiguous or channels_last, '
+                         'offset and mask contiguous')
     if not (x.device == offset.device == mask.device):
         raise ValueError('dcn: inputs on different devices')
     return ho, wo
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, H, W] -> [B, H, W, C] contiguous: a view of a channels_last
+    tensor, one copy of a contiguous one."""
+    return x.permute(0, 2, 3, 1).contiguous()
 
 
 def _corner_index(f: torch.Tensor, n: int) -> torch.Tensor:
@@ -96,9 +107,10 @@ def _corner_index(f: torch.Tensor, n: int) -> torch.Tensor:
 
 def bilinear_sample_plain(x: torch.Tensor, ys: torch.Tensor,
                           xs: torch.Tensor) -> torch.Tensor:
-    """x [B, C, H, W]; ys, xs [B, N] float32 pixel coordinates ->
-    [B, C, N] in x's dtype: per-corner zero-outside bilinear samples."""
-    b, c, h, w = x.shape
+    """x [B, H, W, C]; ys, xs [B, N] float32 pixel coordinates ->
+    [B, N, C] in x's dtype: per-corner zero-outside bilinear samples (the
+    signature of JAX's samplers)."""
+    b, h, w, c = x.shape
     y0 = torch.floor(ys)
     x0 = torch.floor(xs)
     wy1 = ys - y0
@@ -107,7 +119,7 @@ def bilinear_sample_plain(x: torch.Tensor, ys: torch.Tensor,
     wx0 = 1.0 - wx1
     y0i = _corner_index(y0, h)
     x0i = _corner_index(x0, w)
-    flat = x.reshape(b, c, h * w)
+    flat = x.reshape(b, h * w, c)
     out = None
     for dy, wy in ((0, wy0), (1, wy1)):
         for dx, wx in ((0, wx0), (1, wx1)):
@@ -115,9 +127,9 @@ def bilinear_sample_plain(x: torch.Tensor, ys: torch.Tensor,
             xi = x0i + dx
             valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
             idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
-            g = torch.gather(flat, 2, idx[:, None, :].expand(b, c, -1))
+            g = torch.gather(flat, 1, idx[:, :, None].expand(b, -1, c))
             weight = torch.where(valid, wy * wx, 0.0).to(x.dtype)
-            term = (g * weight[:, None, :]).float()
+            term = (g * weight[:, :, None]).float()
             out = term if out is None else out + term
     return out.to(x.dtype)
 
@@ -125,22 +137,24 @@ def bilinear_sample_plain(x: torch.Tensor, ys: torch.Tensor,
 def dcn_columns_plain(x: torch.Tensor, offset: torch.Tensor,
                       mask: torch.Tensor, k: int = 3, stride: int = 1,
                       padding: int = 1, dilation: int = 1) -> torch.Tensor:
-    """Modulated im2col columns [B, Cin*K*K, Ho*Wo] in x's dtype."""
+    """Modulated im2col columns [B*Ho*Wo, K*K*Cin] in x's dtype, column
+    t*Cin + c."""
     ho, wo = _check(x, offset, mask, k, stride, padding, dilation)
     b, cin = x.shape[:2]
     kk = k * k
     dev = x.device
     tap = torch.arange(kk, device=dev)
-    base_y = ((torch.arange(ho, device=dev) * stride - padding)[None, :, None]
-              + (tap // k * dilation)[:, None, None]).float()  # [KK, Ho, 1]
-    base_x = ((torch.arange(wo, device=dev) * stride - padding)[None, None, :]
-              + (tap % k * dilation)[:, None, None]).float()  # [KK, 1, Wo]
-    off = offset.view(b, kk, 2, ho, wo)
-    ys = (base_y + off[:, :, 0]).reshape(b, kk * ho * wo)
-    xs = (base_x + off[:, :, 1]).reshape(b, kk * ho * wo)
-    cols = bilinear_sample_plain(x, ys, xs).view(b, cin, kk, ho * wo)
-    cols = cols * mask.to(x.dtype).view(b, 1, kk, ho * wo)
-    return cols.view(b, cin * kk, ho * wo)
+    base_y = ((torch.arange(ho, device=dev) * stride - padding)[:, None, None]
+              + (tap // k * dilation)[None, None, :]).float()  # [Ho, 1, KK]
+    base_x = ((torch.arange(wo, device=dev) * stride - padding)[None, :, None]
+              + (tap % k * dilation)[None, None, :]).float()  # [1, Wo, KK]
+    off = offset.view(b, kk, 2, ho, wo).permute(0, 3, 4, 1, 2)
+    ys = (base_y + off[..., 0]).reshape(b, ho * wo * kk)
+    xs = (base_x + off[..., 1]).reshape(b, ho * wo * kk)
+    cols = bilinear_sample_plain(_nhwc(x), ys, xs).view(b, ho * wo, kk, cin)
+    m = mask.to(x.dtype).view(b, kk, ho * wo).transpose(1, 2)
+    cols = cols * m[:, :, :, None]
+    return cols.view(b * ho * wo, kk * cin)
 
 
 def dcn_columns(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
@@ -155,15 +169,16 @@ def dcn_columns(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f'dcn_columns: unsupported device {x.device}')
     ho, wo = _check(x, offset, mask, k, stride, padding, dilation)
     b, cin, h, w = x.shape
+    xh = _nhwc(x)
     mask = mask.to(x.dtype).contiguous()
-    cols = torch.empty((b, cin * k * k, ho * wo), dtype=x.dtype,
+    cols = torch.empty((b * ho * wo, k * k * cin), dtype=x.dtype,
                        device=x.device)
     if cols.numel() == 0:
         return cols
     lib = _build.load()
     global launches
     _build.check(lib.yolact_dcn_im2col(
-        x.data_ptr(), offset.data_ptr(), mask.data_ptr(), cols.data_ptr(),
+        xh.data_ptr(), offset.data_ptr(), mask.data_ptr(), cols.data_ptr(),
         _DTYPE_CODES[x.dtype], b, cin, h, w, ho, wo, k, stride, padding,
         dilation, _build.stream_ptr(x.device)), 'yolact_dcn_im2col')
     launches += 1
@@ -171,25 +186,28 @@ def dcn_columns(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
 
 
 def _gemm(cols: torch.Tensor, weight: torch.Tensor,
-          bias: Optional[torch.Tensor], ho: int, wo: int) -> torch.Tensor:
-    """weight [Cout, Cin, K, K] @ cols [B, Cin*K*K, P] -> [B, Cout, Ho, Wo]
-    in the columns' dtype (float32 accumulation), plus the bias."""
+          bias: Optional[torch.Tensor], b: int, ho: int,
+          wo: int) -> torch.Tensor:
+    """cols [B*Ho*Wo, K*K*Cin] @ weight [Cout, K*K*Cin]^T (float32
+    accumulation, rounded to the columns' dtype), plus the bias: JAX's
+    ``dot_general``.  Returns [B, Cout, Ho, Wo] as a channels_last view."""
     cout = weight.shape[0]
-    out = torch.matmul(weight.reshape(cout, -1).to(cols.dtype), cols)
-    out = out.view(cols.shape[0], cout, ho, wo)
+    w = weight.permute(0, 2, 3, 1).reshape(cout, -1).to(cols.dtype)
+    out = torch.matmul(cols, w.t())
     if bias is not None:
-        out = out + bias.to(out.dtype).view(1, cout, 1, 1)
-    return out
+        out = out + bias.to(out.dtype)
+    return out.view(b, ho, wo, cout).permute(0, 3, 1, 2)
 
 
 def deform_conv2d_plain(x: torch.Tensor, offset: torch.Tensor,
                         mask: torch.Tensor, weight: torch.Tensor,
                         bias: Optional[torch.Tensor] = None, stride: int = 1,
                         padding: int = 1, dilation: int = 1) -> torch.Tensor:
-    """DCNv2 forward -> [B, Cout, Ho, Wo] in x's dtype, all plain PyTorch."""
+    """DCNv2 forward -> [B, Cout, Ho, Wo] (channels_last) in x's dtype, all
+    plain PyTorch."""
     k = weight.shape[-1]
     cols = dcn_columns_plain(x, offset, mask, k, stride, padding, dilation)
-    return _gemm(cols, weight, bias, *offset.shape[-2:])
+    return _gemm(cols, weight, bias, x.shape[0], *offset.shape[-2:])
 
 
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
@@ -200,4 +218,4 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     the CUDA kernel for CUDA tensors."""
     k = weight.shape[-1]
     cols = dcn_columns(x, offset, mask, k, stride, padding, dilation)
-    return _gemm(cols, weight, bias, *offset.shape[-2:])
+    return _gemm(cols, weight, bias, x.shape[0], *offset.shape[-2:])

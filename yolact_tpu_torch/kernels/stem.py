@@ -8,13 +8,14 @@ ResNet's 7x7/s2/p3 stem.  Layouts are the port's NCHW: ``x [B, 12, H, W]``,
 ``w2 [64, 12, 4, 4]`` -> ``[B, 64, H, W]``, summed in float32 and returned
 in the input dtype (float32 or bfloat16).
 
-The kernel (``csrc/stem_s2d.cu``) is a plain-FMA direct convolution: one
-block per tile of 8 rows x 32 columns of output pixels and all 64 output
-channels, with the input halo tile and the whole weight in shared memory.
-At yolact_base 550 b8 the conv is 14.9 GFLOP against 92 MB of traffic, so
-without tensor cores it is bound by float32 FMAs; cuDNN's convs reach the
-tensor cores.  Only the stem's shape is taken: 12 input and 64 output
-channels.
+The kernel (``csrc/stem_s2d.cu``) takes one block per tile of 8 rows x 32
+columns of output pixels and all 64 output channels, with the input halo
+tile and the whole weight in shared memory.  In bfloat16 it is an implicit
+GEMM on the tensor cores (``mma.sync`` m16n8k16, float32 sums): at
+yolact_base 550 b8 the conv is 14.9 GFLOP against 92 MB of traffic, so it
+is bound by its 77.4 MB output write.  In float32 it keeps plain FMAs, as
+TF32 tensor cores would round the inputs.  Only the stem's shape is taken:
+12 input and 64 output channels.
 
 :func:`stem_conv_s2d` takes the plain version only for a tensor on the CPU.
 For a CUDA tensor it launches the kernel or raises.
@@ -57,6 +58,9 @@ def _check(x: torch.Tensor, w2: torch.Tensor) -> None:
         raise ValueError('stem_conv_s2d: x and w2 must be contiguous')
     if x.device != w2.device:
         raise ValueError('stem_conv_s2d: x and w2 on different devices')
+    if x.dtype == torch.bfloat16 and w2.data_ptr() % 16:
+        raise ValueError('stem_conv_s2d: a bfloat16 w2 must be 16-byte '
+                         'aligned (the kernel copies it in 16-byte pieces)')
 
 
 def stem_conv_s2d(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolact_tpu.config import FPNConfig
+from yolact_tpu_torch.config import FPNConfig
 
 
 class FPN(nn.Module):

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolact_tpu.config import YolactConfig
+from yolact_tpu_torch.config import YolactConfig
 from yolact_tpu_torch.models.layers import make_net
 
 

@@ -29,7 +29,9 @@ class DCNLayer(nn.Module):
     ``resnet.py:DCNLayer`` with the reference's parameter names
     (``conv_offset_mask.{weight,bias}``, ``weight``, ``bias``).  Offsets
     (the first 2*K*K channels, (dy, dx) per tap) go to float32 before
-    sampling; the mask is the sigmoid of the last K*K channels."""
+    sampling; the mask is the sigmoid of the last K*K channels.  x may be
+    contiguous or channels_last; the output is channels_last (see
+    ``kernels/dcn.py``)."""
 
     def __init__(self, inplanes: int, planes: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 1, dilation: int = 1):
@@ -49,7 +51,7 @@ class DCNLayer(nn.Module):
         offset = om[:, :2 * kk].float().contiguous()
         mask = torch.sigmoid(om[:, 2 * kk:]).contiguous()
         fn = dcn.deform_conv2d if use_kernels else dcn.deform_conv2d_plain
-        return fn(x.contiguous(), offset, mask, self.weight, self.bias,
+        return fn(x, offset, mask, self.weight, self.bias,
                   self.stride, self.padding, self.dilation)
 
 

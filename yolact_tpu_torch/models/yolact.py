@@ -27,7 +27,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from yolact_tpu.config import MaskType, YolactConfig, backbone_channels
+from yolact_tpu_torch.config import MaskType, YolactConfig, backbone_channels
 from yolact_tpu_torch.models.fpn import FPN
 from yolact_tpu_torch.models.heads import (FastMaskIoUNet, PredictionHead,
                                            ProtoNet)

@@ -18,7 +18,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from yolact_tpu.config import YolactConfig
+from yolact_tpu_torch.config import YolactConfig
 
 
 def _conv_out(size: int, k: int, s: int, p: int, d: int = 1) -> int:

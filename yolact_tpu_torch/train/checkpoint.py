@@ -17,7 +17,7 @@ from typing import Dict
 
 import torch
 
-from yolact_tpu.config import YolactConfig
+from yolact_tpu_torch.config import YolactConfig
 
 
 def clean_state_dict(cfg: YolactConfig, sd: Dict[str, torch.Tensor]
