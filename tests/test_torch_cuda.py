@@ -7,9 +7,11 @@ GPU machine, which has no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: mask assembly 1e-5 (a K-term float32 dot product summed in
-another order, then a sigmoid), IoU max exact (the same float operations,
-built with --fmad=false), DCN columns exact in float32 and bfloat16 (the
+Tolerances: mask assembly 1e-5 with the same zero pattern and NaNs (the
+kernel sums the K products on the tensor cores in split TF32, ~2^-21
+relative per product, in another order than the float32 plain version,
+then an approximate sigmoid), IoU max bit for bit (the same IoU operands,
+built with --fmad=false, compared as exact fractions and divided once), DCN columns exact in float32 and bfloat16 (the
 same float operations, rounded at the same points, NaN where the plain
 version has NaN); the tiny pipelines' kernel and plain paths agree like
 chip_smoke.py's main paths (identical classes and validity, scores and
@@ -24,8 +26,9 @@ import pytest
 import torch
 
 from test_torch_inputs import (SyntheticEvalSet, bf16_ulp, dcn_inputs,
-                               seed_offsets_state_dict, tiny_plus_config,
-                               tiny_resnet_config, ulp_distance)
+                               near_tie_boxes, seed_offsets_state_dict,
+                               tiny_plus_config, tiny_resnet_config,
+                               ulp_distance)
 from yolact_tpu_torch.eval.evaluate import evaluate_dataset
 from yolact_tpu_torch.infer import (Pipeline, forward_and_detect, load_model,
                                     random_state_dict)
@@ -44,16 +47,27 @@ def cuda():
 
 
 def _mask_inputs(gen, dev, b, d, hw, md):
+    n = max(d, 4)
     proto = torch.rand(b, hw, hw, md, generator=gen)
-    coeffs = torch.tanh(torch.randn(b, d, md, generator=gen))
-    xy1 = torch.rand(b, d, 2, generator=gen) * 0.6
-    wh = torch.rand(b, d, 2, generator=gen) * 0.4 + 0.02
+    coeffs = torch.tanh(torch.randn(b, n, md, generator=gen))
+    xy1 = torch.rand(b, n, 2, generator=gen) * 0.6
+    wh = torch.rand(b, n, 2, generator=gen) * 0.4 + 0.02
     boxes = torch.cat([xy1, xy1 + wh], -1)
     boxes[:, 0] = boxes[:, 0, [2, 3, 0, 1]]               # inverted
     boxes[:, 1] = torch.tensor([-0.3, -0.2, 1.4, 1.1])    # outside [0, 1]
     boxes[:, 2] = 0.5                                     # zero area
     boxes[:, 3] = torch.tensor([2, 3, 9, 7]) / hw          # on pixel edges
-    return [t.to(dev) for t in (proto, coeffs, boxes)]
+    # D = 1 keeps the inverted box; D < 4 drops some special rows
+    return [proto.to(dev), coeffs[:, :d].contiguous().to(dev),
+            boxes[:, :d].contiguous().to(dev)]
+
+
+def _assert_masks_match(got, want):
+    """Within 1e-5, zeros where the plain version has zeros (the crop),
+    NaN where it has NaN."""
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5, equal_nan=True)
+    assert torch.equal(got == 0, want == 0)
+    assert torch.equal(got.isnan(), want.isnan())
 
 
 def _iou_inputs(gen, dev, n, k):
@@ -70,8 +84,12 @@ def _iou_inputs(gen, dev, n, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('b,d,hw,md', [(2, 37, 16, 8), (2, 100, 138, 32),
-                                       (1, 5, 7, 3)])
+@pytest.mark.parametrize('b,d,hw,md', [
+    (2, 37, 16, 8), (2, 100, 138, 32), (1, 5, 7, 3),
+    (8, 100, 138, 32), (1, 100, 138, 32),         # yolact_base b8, b1
+    (2, 1, 16, 8), (2, 113, 16, 40),              # D = 1; two D passes
+    (1, 37, 69, 8), (2, 37, 7, 40),               # Hp*Wp % 4 != 0
+])
 def test_mask_assembly_kernel_matches_plain(cuda, b, d, hw, md):
     args = _mask_inputs(torch.Generator().manual_seed(d), cuda, b, d, hw, md)
     n0 = mask_assembly.launches
@@ -79,12 +97,39 @@ def test_mask_assembly_kernel_matches_plain(cuda, b, d, hw, md):
     torch.cuda.synchronize()
     assert mask_assembly.launches == n0 + 1
     want = mask_assembly.assemble_masks_plain(*args)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
-    assert torch.equal(got == 0, want == 0)
+    _assert_masks_match(got, want)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n,k', [(6, 37), (640, 200), (3, 1), (2, 1100)])
+@pytest.mark.parametrize('md', [3, 32])
+def test_mask_assembly_kernel_nan_coefficients(cuda, md):
+    """A NaN coefficient makes its whole mask NaN (the plain version's
+    NaN * 0 outside the crop); the other masks are untouched."""
+    proto, coeffs, boxes = _mask_inputs(torch.Generator().manual_seed(md),
+                                        cuda, 2, 70, 138, md)
+    coeffs[1, 66, md // 2] = float('nan')
+    got = mask_assembly.assemble_masks(proto, coeffs, boxes)
+    want = mask_assembly.assemble_masks_plain(proto, coeffs, boxes)
+    assert bool(want[1, 66].isnan().all())
+    _assert_masks_match(got, want)
+
+
+@pytest.mark.cuda
+def test_mask_assembly_rejects_what_it_cannot_take(cuda):
+    n0 = mask_assembly.launches
+    for d, md in ((4, mask_assembly.MAX_MD + 1), (400, 64)):
+        assert (md > mask_assembly.MAX_MD
+                or mask_assembly.smem_bytes(d, md) > mask_assembly.MAX_SMEM)
+        with pytest.raises(ValueError):
+            mask_assembly.assemble_masks(torch.zeros(1, 4, 4, md, device=cuda),
+                                         torch.zeros(1, d, md, device=cuda),
+                                         torch.zeros(1, d, 4, device=cuda))
+    assert mask_assembly.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,k', [(6, 37), (640, 200), (3, 1), (2, 1100),
+                                 (80, 200)])
 def test_iou_max_kernel_matches_plain(cuda, n, k):
     boxes = _iou_inputs(torch.Generator().manual_seed(k), cuda, n, max(k, 6))
     boxes = boxes[:, :k].contiguous()
@@ -93,6 +138,29 @@ def test_iou_max_kernel_matches_plain(cuda, n, k):
     torch.cuda.synchronize()
     assert nms.launches == n0 + 1
     assert torch.equal(got, nms.nms_iou_max_plain(boxes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rows', ['near_ties', 'identical', 'nonfinite'])
+def test_iou_max_kernel_is_bit_equal_on_adversarial_rows(cuda, rows):
+    """IoUs equal from different fractions, one ulp apart or with equal
+    float32 cross products (the kernel's exact tie test); rows of one
+    repeated box; infinite and NaN coordinates."""
+    if rows == 'near_ties':
+        boxes = torch.from_numpy(near_tie_boxes(80, 200))
+    elif rows == 'identical':
+        boxes = torch.tensor([0.1, 0.2, 0.4, 0.7]).expand(16, 200, 4)
+    else:
+        inf, nan = float('inf'), float('nan')
+        boxes = _iou_inputs(torch.Generator().manual_seed(5), 'cpu', 80, 200)
+        boxes[:, 7:9] = torch.tensor([[0.0, 0.0, inf, inf],
+                                      [nan, nan, nan, nan]])
+    boxes = boxes.contiguous().to(cuda)
+    got = nms.nms_iou_max(boxes)
+    want = nms.nms_iou_max_plain(boxes)
+    assert torch.equal(got, want)
+    if rows == 'near_ties':
+        assert bool((want[:, -1] > 0).all())
 
 
 @pytest.mark.cuda

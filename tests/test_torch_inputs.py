@@ -13,6 +13,9 @@ to the smoke script's inputs does not move the unit tests.
   integer, fractional, far out-of-bounds and non-finite offsets.
 - :func:`ulp_distance` measures two bfloat16 tensors in units in the last
   place; :func:`bf16_ulp` is one bfloat16 ulp of each element's magnitude.
+- :func:`near_tie_boxes` gives rows of boxes whose last column's IoU max
+  is decided between two IoUs that are equal from different fractions,
+  one float32 ulp apart, or equal in their float32 cross products.
 - :class:`SyntheticEvalSet` is an in-memory eval dataset of seeded frames
   with boxes and masks, for ``evaluate_dataset`` where no image files or
   cv2 are at hand.
@@ -140,6 +143,60 @@ def bf16_ulp(t):
     _, e = torch.frexp(t.float())
     return torch.where(t == 0, 0.0,
                        torch.ldexp(torch.ones_like(t.float()), e - 8))
+
+
+def _iou_fractions(boxes, col):
+    """float32 (inter, union) of each box with `col`, by the operations of
+    ops/boxes.py:jaccard in its order."""
+    f32 = np.float32
+    ix = np.minimum(boxes[:, 2], col[2]) - np.maximum(boxes[:, 0], col[0])
+    iy = np.minimum(boxes[:, 3], col[3]) - np.maximum(boxes[:, 1], col[1])
+    inter = np.maximum(ix, f32(0)) * np.maximum(iy, f32(0))
+    area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    return inter, (area + (col[2] - col[0]) * (col[3] - col[1])) - inter
+
+
+def tie_kinds(inter, uni):
+    """Per consecutive pair of fractions (a, b): (equal float32 IoUs from
+    different fractions, IoUs one float32 ulp apart, equal float32 cross
+    products inter_a * union_b == inter_b * union_a of unequal exact
+    ones)."""
+    q = inter / uni
+    exact = (inter[1:].astype(np.float64) * uni[:-1]
+             - inter[:-1].astype(np.float64) * uni[1:])
+    return ((q[1:] == q[:-1]) & (inter[1:] != inter[:-1]),
+            q[1:] == np.nextafter(q[:-1], np.float32(np.inf)),
+            (inter[1:] * uni[:-1] == inter[:-1] * uni[1:]) & (exact != 0))
+
+
+NEAR_TIE_COLUMN = np.array([0.25, 0.25, 0.75, 0.625], np.float32)
+
+
+def near_tie_boxes(n, k, seed=0):
+    """[n, k, 4] float32 boxes (k >= 3) whose last column (the box
+    NEAR_TIE_COLUMN) has its IoU max decided between the boxes at k - 3 and
+    k - 2 (both orders, in turn): a pair of :func:`tie_kinds`, found by a
+    seeded search over 200,000 boxes on a 1/1024 grid and spread over the
+    IoU range.  The other boxes lie right of the column box, apart from
+    it."""
+    rng = np.random.RandomState(seed)
+    col = NEAR_TIE_COLUMN
+    xy = rng.randint(0, 1024, (200000, 2))
+    cand = (np.concatenate([xy, xy + rng.randint(1, 512, (200000, 2))], 1)
+            / 1024).astype(np.float32)
+    inter, uni = _iou_fractions(cand, col)
+    ok = (inter > 0) & (uni > 0)
+    order = np.argsort(inter[ok] / uni[ok], kind='stable')
+    cand, inter, uni = cand[ok][order], inter[ok][order], uni[ok][order]
+    equal, ulp, cross = tie_kinds(inter, uni)
+    pick = np.flatnonzero(equal | ulp | cross)
+    boxes = np.sort(rng.rand(n, k, 4).astype(np.float32) * np.float32(0.1),
+                    -1) + np.float32(0.85)
+    for r in range(n):
+        a = pick[(r // 2) * len(pick) // ((n + 1) // 2)]
+        boxes[r, k - 3:k - 1] = cand[[a, a + 1]] if r % 2 else cand[[a + 1, a]]
+        boxes[r, k - 1] = col
+    return boxes
 
 
 class SyntheticEvalSet:
@@ -274,3 +331,21 @@ def test_seeded_offsets_are_deterministic_and_nonzero():
     assert torch.equal(s1['backbone.layers.1.0.conv2.weight'],
                        sd['backbone.layers.1.0.conv2.weight'])
     assert not sd['backbone.layers.1.0.conv2.conv_offset_mask.bias'].any()
+
+
+def test_near_tie_boxes_hold_every_kind_of_tie():
+    boxes = near_tie_boxes(40, 6)
+    assert boxes.shape == (40, 6, 4) and boxes.dtype == np.float32
+    assert np.array_equal(boxes, near_tie_boxes(40, 6))
+    assert (boxes[:, -1] == NEAR_TIE_COLUMN).all()
+    # each row's pair, in IoU order, is a tie of one of the three kinds
+    kinds = np.zeros(3, int)
+    for row in boxes:
+        inter, uni = _iou_fractions(row[-3:-1], NEAR_TIE_COLUMN)
+        order = np.argsort(inter / uni, kind='stable')
+        hit = [bool(kind[0]) for kind in tie_kinds(inter[order], uni[order])]
+        assert any(hit)
+        kinds += hit
+        # the filler boxes do not touch the column box
+        assert (_iou_fractions(row[:-3], NEAR_TIE_COLUMN)[0] == 0).all()
+    assert (kinds > 0).all(), kinds

@@ -322,13 +322,14 @@ def test_port_imports_no_jax_flax_or_cv2():
 PORT_SOURCES = sorted(
     os.path.relpath(path, REPO) for path in
     glob.glob(os.path.join(REPO, 'yolact_tpu_torch', '**', '*.py'),
-              recursive=True)) + ['chip_smoke.py', 'probe_dcn.py']
+              recursive=True)) + ['chip_smoke.py', 'probe_dcn.py',
+                                  'probe_small_kernels.py']
 
 
 @pytest.mark.parametrize('path', PORT_SOURCES)
 def test_port_source_imports_nothing_of_jax(path):
     """No import statement of the port or of its scripts on the card
-    (chip_smoke.py, probe_dcn.py) names JAX, flax or the JAX package, at
+    (chip_smoke.py and the probes) names JAX, flax or the JAX package, at
     any depth of the file (lazy imports inside functions included)."""
     with open(os.path.join(REPO, path)) as f:
         tree = ast.parse(f.read(), path)

@@ -43,8 +43,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the entry points: name -> argtypes
 SIGNATURES = {
-    # boxes [n, k, 4] f32, out [n, k] f32, n, k, stream
-    'yolact_fast_nms_iou_max': (_P, _P, _I, _I, _P),
+    # boxes [n, k, 4] f32, out [n, k] f32, n, k, the host int array of
+    # kernels/nms.py:iou_plan (splits, column bounds, row bounds), stream
+    'yolact_fast_nms_iou_max': (_P, _P, _I, _I, _P, _P),
     # proto [b, hp*wp, md], coeffs [b, d, md], boxes [b, d, 4], out
     # [b, d, hp*wp] (all f32), b, d, hp, wp, md, padding, stream
     'yolact_mask_assembly': (_P, _P, _P, _P, _I, _I, _I, _I, _I,
