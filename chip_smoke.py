@@ -8,7 +8,7 @@ PyTorch built for CUDA.  It imports nothing of JAX or of the JAX package.
 Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (nvidia-smi); exit 1 without CUDA
-2. build: the four kernels compiled from yolact_tpu_torch/csrc/*.cu
+2. build: the five kernels compiled from yolact_tpu_torch/csrc/*.cu
 3. kernels vs their plain PyTorch versions on the card at main-path shapes:
    mask assembly at b8 and b1 (B x 100, 138x138, Md 32), a ragged D and a
    NaN coefficient row, within 1e-5 with the same zeros and NaNs (its max
@@ -18,7 +18,12 @@ Phases, each of which raises on failure:
    far out-of-bounds and non-finite offsets, bit for bit, from NCHW and
    channels_last inputs; the s2d stem conv at the yolact_base shapes (bf16
    b8, f32 b1) and an odd one: f32 within 1e-5 of max|out|, bf16 within
-   one bf16 ulp of |plain| plus 1e-5 of max|plain|
+   one bf16 ulp of |plain| plus 1e-5 of max|plain|; the DCN backward
+   (dcn_col2im) against autograd through the plain columns at the same six
+   shapes and offsets, in bf16 at b8 and in f32 at b1 and at b8 (the train
+   step's call): f32 within 1e-5 of each gradient's largest entry with the
+   same zeros, bf16 within one bf16 ulp plus 1e-2 of it; the stem's
+   gradients at [8,12,275,275] f32 against autograd through the plain stem
 4. the three paths, each at 550x550 with seeded random weights, b1 and b8
    in bf16 and b1 in f32 (TF32 off), with the kernels and with the plain
    versions, for (a) a dense conf head (most priors pass conf_thresh: the
@@ -41,7 +46,24 @@ Phases, each of which raises on failure:
    bf16: fast NMS with the s2d stem (kernels, then plain versions: the same
    mAP table) and traditional NMS; launch counts checked, tables and
    frames/s printed
-6. timing: median and p90 ms per batch at b1 / b8 bf16 for every path
+6. train: three steps of train/step.py:train_step at 550x550, b8, float32
+   (TF32 off) on a seeded synthetic batch (boxes, labels with one crowd per
+   image and padding, rectangular masks), for yolact_base with the s2d stem
+   and for yolact_plus_base (seeded offset convs, train_remat='dcn'), once
+   with the kernels and once with their plain versions from the same
+   weights (every bottleneck's last batch norm scaled to 0.1, which brings
+   the random network's gradients from 1e6 to order 1) and draws, under
+   PyTorch's deterministic algorithms and at a tenth of the config's
+   learning rate warmed up from 1e-7 (so that the atomics' last bits stay
+   last bits for three steps): every loss finite and equal within 1e-4 relative per
+   step, the gradients of conv1 and of the first DCN block non-zero and
+   within 1e-3 of their largest entry, the launch counts per step (stem 1;
+   DCN sampling 22 and backward 11 under 'dcn', 11 and 11 under 'none'), and
+   a step on a NaN image, which must leave weights, momentum and batch-norm
+   statistics bit-equal and advance the count; then ms per step, peak
+   memory, device busy and idle share, the matcher's and the loss's time,
+   and dcn_col2im per block against its bound and its plain version
+7. timing: median and p90 ms per batch at b1 / b8 bf16 for every path
    (CUDA events over 100 calls; the s2d A/B in the order plain, s2d, s2d,
    plain), device busy and idle share per batch (torch.profiler kernel
    events) with the top kernels, yolact_plus_base's DCN sampling and GEMM
@@ -64,6 +86,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -75,8 +98,14 @@ from yolact_tpu_torch.eval.evaluate import evaluate_dataset
 from yolact_tpu_torch.infer import (Pipeline, forward_and_detect, load_model,
                                     maybe_enable_stem_s2d, random_state_dict)
 from yolact_tpu_torch.kernels import _build, dcn, mask_assembly, nms, stem
+from yolact_tpu_torch.models.layers import drop_batch_stats
 from yolact_tpu_torch.models.resnet import DCNLayer
 from yolact_tpu_torch.ops.anchors import proto_size
+from yolact_tpu_torch.train.loss import multibox_loss
+from yolact_tpu_torch.train.matcher import match as match_priors
+from yolact_tpu_torch.train.step import (batch_to_device, create_train_state,
+                                         draw_priorities, loss_and_grads,
+                                         train_step)
 
 # Each kernel with the path whose launches the kernels line reports.
 KERNELS = {
@@ -108,6 +137,17 @@ KERNELS = {
         source='yolact_tpu_torch/csrc/stem_s2d.cu', module=stem,
         replaces='yolact_tpu/kernels/stem.py:52', tol=1e-5,
         path='yolact_base_s2d'),
+    # float32: the three gradients within 1e-5 of each one's largest entry
+    # (float32 sums over the channels, atomics in another order from run to
+    # run); bfloat16: within one bf16 ulp + 1e-2 of it (the plain version
+    # multiplies, sums and scatters in bfloat16)
+    'dcn_col2im': dict(
+        source='yolact_tpu_torch/csrc/dcn_col2im.cu', module=dcn,
+        counter='col2im_launches',
+        replaces='yolact_tpu/kernels/dcn.py:176 (_bilinear_gather_bwd and '
+                 'the mask product\'s VJP: the JAX package\'s hand-written '
+                 'XLA backward, not a Pallas kernel)',
+        tol=1e-5, path='train_yolact_plus_base'),
 }
 # The paths driven, each with its config, its conf-head cells (name,
 # scale, background bias, the NMS tail it must take; see shape_conf) and
@@ -331,6 +371,101 @@ def dcn_vs_plain(dev):
     return worst
 
 
+def col2im_vs_plain(dev):
+    """The DCN backward kernel against autograd through the plain columns
+    at the five yolact_plus_base shapes and one with Cin % 8 != 0, with
+    integer, fractional, far out-of-bounds and non-finite offsets; returns
+    the largest float32 abs error at the yolact_plus_base shapes.  Float32
+    at b8 is the train step's own call."""
+    gen = torch.Generator().manual_seed(8)
+    tol = KERNELS['dcn_col2im']['tol']
+    worst = 0.0
+    for dtype, batch in ((torch.bfloat16, 8), (torch.float32, 1),
+                         (torch.float32, 8)):
+        for name, count, cin, h, stride in DCN_SHAPES + (DCN_ODD_SHAPE,):
+            x, offset, mask = dcn_inputs(gen, dev, batch, cin, h, stride,
+                                         dtype)
+            x = x.contiguous(memory_format=torch.channels_last)
+            ho = offset.shape[-1]
+            g_cols = torch.randn(batch * ho * ho, 9 * cin, generator=gen)\
+                .to(dtype).to(dev)
+            got = dcn.dcn_col2im(g_cols, x, offset, mask, 3, stride)
+            want = dcn.dcn_col2im_plain(g_cols, x, offset, mask, 3, stride)
+            torch.cuda.synchronize()
+            tag = (f'dcn_col2im {name} {str(dtype)[6:]} b{batch} '
+                   f'x{list(x.shape)} g_cols{list(g_cols.shape)}')
+            report = []
+            for gname, g, w in zip(('grad_x', 'grad_offset', 'grad_mask'),
+                                   got, want):
+                check(g.shape == w.shape and g.dtype == w.dtype,
+                      f'{tag}: {gname} has another shape or dtype')
+                check(bool(torch.equal(g.isnan(), w.isnan())),
+                      f'{tag}: {gname} has other NaNs')
+                ok = ~w.isnan()
+                gf, wf = g[ok].float(), w[ok].float()
+                top = float(wf.abs().max())
+                err = float((gf - wf).abs().max())
+                limit = tol * top
+                if dtype == torch.bfloat16:
+                    # one rounding of the float32 sum against bfloat16
+                    # products, sums and (grad_x) scatter-adds
+                    limit = bf16_ulp(wf) + 1e-2 * top
+                    over = int(((gf - wf).abs() > limit).sum())
+                else:
+                    over = int(err > limit)
+                    check(bool(torch.equal(gf == 0, wf == 0)),
+                          f'{tag}: {gname} has other zeros')
+                report.append(f'{gname} max_abs_err={err!r} '
+                              f'rel_to_max={err / top!r} nans='
+                              f'{int((~ok).sum())}')
+                check(over == 0, f'{tag}: {gname} disagrees with the plain '
+                      f'version ({report[-1]})')
+                if dtype == torch.float32 and count:
+                    worst = max(worst, err)
+            print(f'{tag}: ' + '; '.join(report))
+            if dtype == torch.bfloat16:
+                # which of the two is nearer the float32 gradients of the
+                # same bfloat16 inputs
+                ref = dcn.dcn_col2im_plain(g_cols.float(), x.float(), offset,
+                                           mask.float(), 3, stride)
+                ok = ~ref[0].isnan()
+                top = float(ref[0][ok].abs().max())
+                print(f'{tag}: grad_x against float32 autograd on the same '
+                      f'inputs, of its max: kernel '
+                      f'{float((got[0].float() - ref[0])[ok].abs().max()) / top!r}'
+                      f', plain version '
+                      f'{float((want[0].float() - ref[0])[ok].abs().max()) / top!r}')
+                del ref
+            del x, offset, mask, g_cols, got, want
+    return worst
+
+
+def stem_grads_vs_plain(dev):
+    """The stem's autograd.Function (kernel forward, conv-gradient
+    backward) against autograd through the plain stem at the yolact_base b8
+    shape in float32: within 1e-5 of each gradient's largest entry."""
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(8, 12, 275, 275, generator=gen).to(dev)
+    w2 = (torch.randn(64, 12, 4, 4, generator=gen) * 0.1).to(dev)
+    g = torch.randn(8, 64, 275, 275, generator=gen).to(dev)
+    grads = {}
+    for name, fn in (('kernel', stem.stem_conv_s2d),
+                     ('plain', stem.stem_conv_s2d_plain)):
+        a, b = x.clone().requires_grad_(), w2.clone().requires_grad_()
+        out = fn(a, b)
+        check(out.requires_grad, f'stem {name}: the output is detached')
+        (out * g).sum().backward()
+        grads[name] = (a.grad, b.grad)
+    torch.cuda.synchronize()
+    for gname, got, want in zip(('grad_x', 'grad_w2'), *grads.values()):
+        top = float(want.abs().max())
+        err = float((got - want).abs().max())
+        print(f'stem_s2d autograd x[8,12,275,275] f32 {gname}: '
+              f'max_abs_err={err!r} rel_to_max={err / top!r}')
+        check(err <= 1e-5 * top, f'stem {gname} disagrees with autograd '
+              f'through the plain stem')
+
+
 def stem_vs_plain(dev):
     """The s2d stem kernel against its plain version (float32 conv by cuDNN,
     TF32 off, rounded once) at STEM_SHAPES; also prints both against a
@@ -419,6 +554,8 @@ def kernel_vs_plain(dev):
                                        err)
     errs['dcn'] = dcn_vs_plain(dev)
     errs['stem_s2d'] = stem_vs_plain(dev)
+    errs['dcn_col2im'] = col2im_vs_plain(dev)
+    stem_grads_vs_plain(dev)
     return errs
 
 
@@ -456,11 +593,13 @@ def seed_offsets_state_dict(sd, gen, w_scale=0.05, b_scale=2.0):
 
 def reset_launches():
     for info in KERNELS.values():
-        info['module'].launches = 0
+        setattr(info['module'], info.get('counter', 'launches'), 0)
 
 
 def read_launches(names):
-    return {name: KERNELS[name]['module'].launches for name in names}
+    return {name: getattr(KERNELS[name]['module'],
+                          KERNELS[name].get('counter', 'launches'))
+            for name in names}
 
 
 def check_output(tag, out, cfg, batch):
@@ -945,12 +1084,23 @@ def small_kernel_bounds(margs, boxes):
     }
 
 
+def clocks():
+    """The card's SM and memory clocks and power draw now, as nvidia-smi
+    reads them: an isolated short kernel's time follows the power state
+    that the work before it left the card in."""
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.sm,clocks.mem,power.draw',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
 def small_kernel_timing(dev, card):
     """The IoU-max and mask-assembly kernels at the b8 and b1 main-path
     shapes: device and call time against their plain versions, with their
     bounds.  Returns the b8 numbers."""
     gen = torch.Generator().manual_seed(1)
     out = {}
+    print(f'clocks before the isolated kernel timings: {clocks()}')
     for batch in (8, 1):
         margs = mask_inputs(gen, dev, batch, 100)
         boxes = iou_inputs(gen, dev, batch * 80, 200)
@@ -984,6 +1134,324 @@ def small_kernel_timing(dev, card):
         del margs, boxes
     return out
 
+# ---- phase 6: the train step ---------------------------------------------
+
+# The train paths: config overrides, the kernels' launches per step, and
+# the gradients held against the plain run (non-zero, within 1e-3 of their
+# largest entry)
+DCN0 = 'backbone.layers.1.0.conv2.'
+TRAIN_PATHS = {
+    'train_yolact_base_s2d': dict(
+        config='yolact_base', overrides=dict(stem_s2d=True),
+        per_step=dict(stem_s2d=1, dcn=0, dcn_col2im=0),
+        grads=('backbone.conv1.weight',)),
+    'train_yolact_plus_base': dict(
+        config='yolact_plus_base', overrides=dict(train_remat='dcn'),
+        per_step=dict(stem_s2d=0, dcn=22, dcn_col2im=11),
+        grads=('backbone.conv1.weight', DCN0 + 'conv_offset_mask.weight',
+               DCN0 + 'weight')),
+}
+TRAIN_KERNELS = ('stem_s2d', 'dcn', 'dcn_col2im')
+TRAIN_STEPS = 3
+TRAIN_TIMED_STEPS = 10
+
+
+def make_train_batch(cfg, batch=8, max_gt=16, n=5, seed=0):
+    """A seeded batch in the contract of data/coco.py:pad_batch: `n` boxes
+    per image with rectangular masks, the last a crowd (-1), the other rows
+    padding (-2); a normalized-looking RGB image."""
+    rng = np.random.RandomState(seed)
+    size = cfg.max_size
+    boxes = np.zeros((batch, max_gt, 4), np.float32)
+    labels = np.full((batch, max_gt), -2, np.int32)
+    masks = np.zeros((batch, max_gt, size, size), np.uint8)
+    for b in range(batch):
+        for g in range(n):
+            x1, y1 = rng.rand(2) * 0.5
+            w, h = rng.rand(2) * 0.4 + 0.1
+            boxes[b, g] = [x1, y1, min(x1 + w, 1), min(y1 + h, 1)]
+            labels[b, g] = rng.randint(0, cfg.num_classes - 1)
+            masks[b, g, int(y1 * size):int(min(y1 + h, 1) * size),
+                  int(x1 * size):int(min(x1 + w, 1) * size)] = 1
+        labels[b, n - 1] = -1
+    return dict(image=rng.randn(batch, size, size, 3).astype(np.float32),
+                gt_boxes=boxes, gt_labels=labels, gt_masks=masks,
+                num_gts=np.full(batch, n, np.int32),
+                num_crowds=np.ones(batch, np.int32))
+
+
+@contextlib.contextmanager
+def deterministic_library():
+    """PyTorch's deterministic algorithms where it has them (warnings for
+    the rest silenced).  From random weights the first gradients are in the
+    thousands, and the run-to-run noise of the library's atomics (bilinear
+    upsample, gather and pooling backwards) grows a thousandfold a step:
+    without this two runs of the SAME path differ by 10% in a loss at the
+    third step, as much as a kernel run from a plain one."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled(),
+              torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore')
+            yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        torch.backends.cudnn.deterministic = before[2]
+
+
+def tame_residuals(sd, scale=0.1):
+    """Scale the last batch norm of every bottleneck.  Xavier-random
+    weights through 33 bottlenecks give a first gradient of 8e6 at conv1 of
+    yolact_plus_base (3e3 at yolact_base): one step at any learning rate
+    wrecks the network, and what follows is chaos, not training.  With
+    residual branches at 0.1 the gradients are of order 1, as from a
+    pretrained backbone, and the config's schedule lowers the loss."""
+    return {k: v * scale if k.endswith('bn3.weight') else v
+            for k, v in sd.items()}
+
+
+def run_train_steps(cfg, sd, batch, dev, use_kernels, grad_names):
+    """TRAIN_STEPS steps from `sd` with seeded draws: (state, the losses of
+    each step, the named gradients of the first step, the kernels' launches
+    of each step)."""
+    state = create_train_state(cfg, device=dev, state_dict=sd)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    params = dict(state.model.named_parameters())
+    losses, launches, grads = [], [], None
+    for _ in range(TRAIN_STEPS):
+        reset_launches()
+        out = train_step(state, batch, gen, use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        launches.append(read_launches(TRAIN_KERNELS))
+        losses.append({k: float(v) for k, v in out.items()})
+        if grads is None:
+            grads = {k: params[k].grad.clone() for k in grad_names}
+    return state, losses, grads, launches
+
+
+def train_path(name, sd, dev, card):
+    """One train path (see the module docstring, phase 6).  Returns the
+    kernel run's summed launches and its timing numbers."""
+    path = TRAIN_PATHS[name]
+    # The schedule is the config's at a tenth of its learning rate, warmed
+    # up from 1e-7: the backward kernel's atomics make the kernel run
+    # differ from the plain one (and from itself) by 3e-6 of a gradient,
+    # and the config's own first steps grow that to 4e-4 of the maskiou
+    # loss by the third step; at these rates it stays under 1e-5 while
+    # each step still moves the losses by several 1e-4.  Both runs take the
+    # same steps.
+    cfg = get_config(path['config']).copy(lr=1e-4, lr_warmup_init=1e-7,
+                                          **path['overrides'])
+    batch = make_train_batch(cfg)
+    tag = f'{name} 550 b8 f32'
+    untamed = create_train_state(cfg, device=dev, state_dict=sd)
+    loss_and_grads(untamed, batch, *draw_priorities(
+        cfg, 8, untamed.model.priors(cfg.max_size, cfg.max_size,
+                                     dev).shape[0],
+        torch.Generator(device=dev).manual_seed(11), dev))
+    print(f'{tag}: with the Xavier-random weights as they are the first '
+          f'gradient of backbone.conv1.weight has max '
+          f'{float(untamed.model.backbone.conv1.weight.grad.abs().max())!r}'
+          f'; the train phase scales every bottleneck\'s last batch norm '
+          f'to 0.1 (tame_residuals)')
+    del untamed
+    sd = tame_residuals(sd)
+
+    with deterministic_library():
+        _, plain_losses, plain_grads, plain_launches = run_train_steps(
+            cfg, sd, batch, dev, False, path['grads'])
+        check(not any(n for step in plain_launches for n in step.values()),
+              f'{tag}: the plain path launched a kernel')
+        # the path's run: counts from 0 before each step, read right after
+        state, losses, grads, launches = run_train_steps(
+            cfg, sd, batch, dev, True, path['grads'])
+    total = {k: sum(step[k] for step in launches) for k in TRAIN_KERNELS}
+    print(f'{tag} launches per step: {json.dumps(launches)}')
+    for step in launches:
+        check(step == path['per_step'], f'{tag}: launches per step {step}, '
+              f'expected {path["per_step"]}')
+    for i, (got, want) in enumerate(zip(losses, plain_losses)):
+        print(f'{tag} step {i}: kernels {json.dumps(got)}; plain versions '
+              f'{json.dumps(want)}')
+        check(got['finite'] and want['finite'], f'{tag}: step {i} skipped')
+        for k in got:
+            check(np.isfinite(got[k]) and
+                  abs(got[k] - want[k]) <= 1e-4 * abs(want[k]),
+                  f'{tag}: step {i} loss {k} {got[k]!r} against the plain '
+                  f'versions\' {want[k]!r}')
+    check(state.step == TRAIN_STEPS, f'{tag}: step count {state.step}')
+    for k in path['grads']:
+        top = float(plain_grads[k].abs().max())
+        err = float((grads[k] - plain_grads[k]).abs().max())
+        print(f'{tag} first-step gradient of {k}: max {top!r}, '
+              f'max_abs_err against the plain versions {err!r} '
+              f'({err / top!r} of max)')
+        check(top > 0 and float(grads[k].abs().max()) > 0,
+              f'{tag}: {k} has no gradient')
+        check(err <= 1e-3 * top, f'{tag}: the gradient of {k} differs')
+    del plain_grads, grads
+
+    # a non-finite step: nothing moves but the count
+    gen = torch.Generator(device=dev).manual_seed(12)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    momentum = {k: state.optimizer.state[p]['momentum_buffer'].clone()
+                for k, p in state.model.named_parameters()
+                if p in state.optimizer.state}
+    bad = dict(batch, image=batch['image'].copy())
+    bad['image'][0, 7, 7, 0] = np.nan
+    out = train_step(state, bad, gen)
+    after = state.model.state_dict()
+    check(not out['finite'] and not np.isfinite(float(out['total'])),
+          f'{tag}: the NaN image gave a finite step')
+    check(all(torch.equal(after[k], before[k]) for k in before),
+          f'{tag}: the skipped step moved weights or batch-norm statistics')
+    check(all(torch.equal(state.optimizer.state[p]['momentum_buffer'],
+                          momentum[k])
+              for k, p in state.model.named_parameters() if k in momentum),
+          f'{tag}: the skipped step moved the momentum')
+    check(state.step == TRAIN_STEPS + 1, f'{tag}: the skipped step did not '
+          f'advance the count')
+    print(f'{tag}: a step on a NaN image was skipped (total '
+          f'{float(out["total"])!r}); weights, momentum and batch-norm '
+          f'statistics bit-equal, step {state.step}')
+    del before, momentum
+
+    # timing: ms per step, peak memory, device busy and idle
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TRAIN_TIMED_STEPS + 2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        train_step(state, batch, gen)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times = times[2:]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_kernels(lambda: train_step(state, batch, gen), calls=3,
+                           warmup=0)
+    busy = ('not measured (the profiler recorded no kernel)' if prof is None
+            else f'device busy {prof[0]!r} ms per step, idle share '
+                 f'{prof[1]!r} (torch.profiler kernel events, 3 steps)')
+    print(f'{tag} step: median {statistics.median(times)!r} ms, min '
+          f'{min(times)!r}, max {max(times)!r} ({TRAIN_TIMED_STEPS} steps, '
+          f'CUDA events; {8000.0 / statistics.median(times)!r} images/s); '
+          f'peak memory allocated {peak!r} GiB; {busy} [{card}]')
+    if prof is not None:
+        top = sorted(prof[2].items(), key=lambda kv: -kv[1])[:8]
+        print(f'{tag} top kernels ms per step: '
+              + '; '.join(f'{n[:60]} {t!r}' for n, t in top))
+        ours = {k: sum(t for n, t in prof[2].items() if sym in n)
+                for k, sym in (('stem_s2d', 'stem_s2d'),
+                               ('dcn', 'dcn_im2col_kernel'),
+                               ('dcn_col2im', 'dcn_col2im_kernel'))}
+        print(f'{tag} hand-written kernels ms per step: {json.dumps(ours)}')
+
+    # the matcher and the loss (forward and backward) on the step's shapes
+    tensors = batch_to_device(batch, dev)
+    with torch.no_grad():
+        preds = state.model(
+            torch.randn(8, 12, 275, 275, device=dev) if cfg.stem_s2d
+            else torch.randn(8, 3, 550, 550, device=dev), train=True)
+    drop_batch_stats(state.model)
+    preds = {k: v.detach().requires_grad_(k != 'priors')
+             for k, v in preds.items()}
+    pri = torch.rand(8, preds['priors'].shape[0], device=dev)
+    mpri = torch.rand(8 * cfg.masks_to_train, device=dev)
+
+    def loss_call():
+        out, _ = multibox_loss(cfg, preds, tensors, pri, mpri,
+                               maskiou_net=state.model.maskiou_net,
+                               num_gts=batch['num_gts'])
+        sum(out.values()).backward()
+
+    full = dict(tensors)
+    full['gt_boxes'] = tensors['gt_boxes'][:, :5].repeat(1, 20, 1)
+    full['gt_labels'] = tensors['gt_labels'][:, :5].clamp(min=0).repeat(1, 20)
+    timed = {
+        f'matcher, {int(batch["num_gts"].max())} gts per image': (
+            lambda: match_priors(cfg, tensors['gt_boxes'],
+                                 tensors['gt_labels'], preds['priors'],
+                                 num_gts=batch['num_gts'])),
+        'matcher, 100 gts per image (the whole greedy loop)': (
+            lambda: match_priors(cfg, full['gt_boxes'], full['gt_labels'],
+                                 preds['priors'])),
+        'loss forward and backward (matcher included)': loss_call}
+    for what, fn in timed.items():
+        ms, p90 = time_ms(fn, runs=10, warmup=2)
+        print(f'{tag} {what}: median {ms!r} ms (p90 {p90!r}; 10 calls, CUDA '
+              f'events, host-paced) [{card}]')
+    return total
+
+
+def train_remat_none_counts(sd, dev):
+    """One yolact_plus_base step without checkpointing: 11 sampling and 11
+    backward launches."""
+    cfg = get_config('yolact_plus_base').copy(train_remat='none')
+    state = create_train_state(cfg, device=dev,
+                               state_dict=tame_residuals(sd))
+    reset_launches()
+    out = train_step(state, make_train_batch(cfg),
+                     torch.Generator(device=dev).manual_seed(11))
+    torch.cuda.synchronize()
+    got = read_launches(TRAIN_KERNELS)
+    print(f"train_yolact_plus_base train_remat='none' launches per step: "
+          f'{json.dumps(got)}')
+    check(out['finite'] and got == dict(stem_s2d=0, dcn=11, dcn_col2im=11),
+          f"train_remat='none': launches {got}")
+
+
+def col2im_timing(dev, card):
+    """dcn_col2im at the five yolact_plus_base shapes, b8, in float32 (the
+    train step's dtype) and bfloat16: device time of the kernel, of the
+    whole wrapper call (the zero fill and the rounding of grad_x included)
+    and of the plain version (autograd through the plain columns, their
+    forward included), with the bound: the bytes of g_cols, x, offsets and
+    mask read once and the three gradients written once.  Returns the
+    float32 layers.2 blocks 3-21 numbers for the kernels line."""
+    gen = torch.Generator().manual_seed(13)
+    line = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        per_step = collections.Counter()
+        for name, count, cin, h, stride in DCN_SHAPES:
+            x, offset, mask = dcn_inputs(gen, dev, 8, cin, h, stride, dtype,
+                                         finite=True)
+            x = x.contiguous(memory_format=torch.channels_last)
+            ho = offset.shape[-1]
+            g_cols = torch.randn(8 * ho * ho, 9 * cin, generator=gen)\
+                .to(dtype).to(dev)
+            call = lambda: dcn.dcn_col2im(g_cols, x, offset, mask, 3, stride)
+            all_ms, kern_ms = device_times(call, 'dcn_col2im_kernel')
+            plain_ms = device_times(lambda: dcn.dcn_col2im_plain(
+                g_cols, x, offset, mask, 3, stride))[0]
+            # 4 multiply-adds for the corner sums and 4 products for
+            # grad_x per (sample, channel)
+            b_ms, b_by = bound(nbytes(g_cols, x, offset, mask) +
+                               nbytes(x, offset, mask), 16 * g_cols.numel(),
+                               FP32_OPS_PER_S)
+            for k, v in (('kernel', kern_ms), ('call', all_ms),
+                         ('plain', plain_ms), ('bound', b_ms)):
+                per_step[k] += count * v
+            print(f'dcn_col2im {name} b8 {str(dtype)[6:]} x[8,{cin},{h},{h}] '
+                  f'g_cols{list(g_cols.shape)} (x{count} per step): device '
+                  f'ms kernel {kern_ms!r}, whole call {all_ms!r}, plain '
+                  f'version {plain_ms!r}; bound {b_ms!r} by {b_by} '
+                  f'({b_ms / kern_ms!r} of it) (torch.profiler kernel '
+                  f'events, 20 calls) [{card}]')
+            if count == 7 and dtype == torch.float32:
+                line = dict(ms=kern_ms, plain_ms=plain_ms,
+                            bound=(b_ms, b_by))
+            del x, offset, mask, g_cols
+        print(f'dcn_col2im per yolact_plus_base b8 step (11 blocks) '
+              f'{str(dtype)[6:]}, device ms: '
+              + ', '.join(f'{k} {v!r}' for k, v in per_step.items())
+              + f' [{card}]')
+    return line
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1003,7 +1471,7 @@ def main():
 
     t0 = time.perf_counter()
     _build.load()
-    print(f'build (nvcc, {len(_build._sources())} kernels in parallel) and '
+    print(f'build (nvcc, {len(_build._sources())} sources in parallel) and '
           f'load: {time.perf_counter() - t0:.2f} s')
 
     errs = kernel_vs_plain(dev)
@@ -1036,9 +1504,15 @@ def main():
 
     # ---- phase 5: eval ----
     eval_rates = eval_phase(sds['yolact_base'], dev, card)
-    del sds
 
-    # ---- phase 6: timing; the s2d A/B in the order plain, s2d, s2d, plain
+    # ---- phase 6: the train step ----
+    for name, path in TRAIN_PATHS.items():
+        launches[name] = train_path(name, sds[path['config']], dev, card)
+    train_remat_none_counts(sds['yolact_plus_base'], dev)
+    del sds
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: timing; the s2d A/B in the order plain, s2d, s2d, plain
     order = ('yolact_base', 'yolact_base_s2d', 'yolact_base_s2d',
              'yolact_base', 'yolact_plus_base')
     for batch in (1, 8):
@@ -1082,6 +1556,7 @@ def main():
     del pipes
     stem_ms = stem_timing(dev, card)[8]
     lines = dict(small_kernel_timing(dev, card), dcn=dcn_line,
+                 dcn_col2im=col2im_timing(dev, card),
                  stem_s2d=dict(ms=stem_ms['kernel'], plain_ms=stem_ms['plain'],
                                bound=stem_ms['bound'],
                                library_ms=stem_ms['cudnn_4x4']))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Layout variants of the DCN sampling kernel on one NVIDIA GPU.
 
-    python3 probe_dcn.py
+    python3 probe_dcn.py [--backward]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Each variant is ``yolact_tpu_torch/csrc/dcn_im2col.cu`` with one change
@@ -18,8 +18,15 @@ unrolled by 3), ``taps`` (one thread per pixel, tap and 8 channels, the tap
 on blockIdx.y), ``rows`` (one thread per pixel, kernel row and 8 channels,
 the row on blockIdx.y, looping over the row's taps), ``threads128``
 (128-thread blocks) and ``regs32`` (``__launch_bounds__(256, 8)``).
+
+``--backward`` probes the backward kernel instead
+(``yolact_tpu_torch/csrc/dcn_col2im.cu``): its registers and spills
+(``nvcc -Xptxas -v``), chip_smoke.py's check against autograd through the
+plain columns, and its device time at the five shapes at b8 in float32 and
+bfloat16 beside its bound and the plain version.
 """
 
+import argparse
 import ctypes
 import os
 import re
@@ -32,6 +39,7 @@ import chip_smoke as cs
 from yolact_tpu_torch.kernels import _build, dcn
 
 SOURCE = 'yolact_tpu_torch/csrc/dcn_im2col.cu'
+BACKWARD_SOURCE = 'yolact_tpu_torch/csrc/dcn_col2im.cu'
 LOOP = re.compile(r'#pragma unroll \d+[^\n]*\n  for \(int t = 0; t < kk; \+\+t\) \{\n'
                   r'    const int i = t / k, j = t % k;\n')
 GRID = 'const dim3 grid((n_threads + kThreads - 1) / kThreads);'
@@ -96,13 +104,34 @@ def build(sources, out_dir):
     return fns
 
 
+def backward(dev, card):
+    """The --backward mode (see the module docstring)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run(
+            [_build._find_nvcc(), *_build.NVCC_FLAGS, '-Xptxas', '-v', '-c',
+             '-o', os.path.join(tmp, 'col2im.o'), BACKWARD_SOURCE],
+            capture_output=True, text=True, check=True).stderr
+    for line in out.splitlines():
+        if 'registers' in line or 'spill' in line:
+            print(f'dcn_col2im: {line.strip()}')
+    cs.col2im_vs_plain(dev)
+    cs.col2im_timing(dev, card)
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--backward', action='store_true',
+                        help='probe csrc/dcn_col2im.cu instead')
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('probe_dcn: needs a CUDA device')
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card)
+    if args.backward:
+        backward(torch.device('cuda', 0), card)
+        return
     with open(SOURCE) as f:
         sources = variants(f.read())
     dev = torch.device('cuda', 0)

@@ -20,15 +20,27 @@ against its plain version (cuDNN's float32 conv, TF32 off, rounded once):
 within 1e-5 of max|out| in float32 (cuDNN may sum the 192 products in
 another order), and in bfloat16 within one bf16 ulp of |plain| plus 1e-5 of
 max|plain| (the tensor cores sum the exact products in another order; the
-absolute term covers outputs near zero after cancellation)."""
+absolute term covers outputs near zero after cancellation).  The DCN
+backward kernel against autograd through the plain columns: the offset and
+mask gradients and, in float32, grad_x within 1e-5 of each one's largest
+entry (float32 sums over the channels and atomics in another order), NaN
+where the plain version has NaN; in bfloat16 all three within one bf16 ulp
+plus 1e-2 of the largest entry (the plain version rounds every product and
+sum to bfloat16 and scatters in bfloat16, the kernel sums in float32 and
+rounds once).  The stem's autograd.Function
+against autograd through the plain stem within 1e-5 of the largest entry.
+Tiny train steps with the kernels against the plain versions: losses
+within 1e-4 relative, updated weights within 1e-6."""
 
 import pytest
 import torch
 
+import numpy as np
+
 from test_torch_inputs import (SyntheticEvalSet, bf16_ulp, dcn_inputs,
-                               near_tie_boxes, seed_offsets_state_dict,
-                               tiny_plus_config, tiny_resnet_config,
-                               ulp_distance)
+                               make_train_batch, near_tie_boxes,
+                               seed_offsets_state_dict, tiny_plus_config,
+                               tiny_resnet_config, ulp_distance)
 from yolact_tpu_torch.eval.evaluate import evaluate_dataset
 from yolact_tpu_torch.infer import (Pipeline, forward_and_detect, load_model,
                                     random_state_dict)
@@ -360,3 +372,190 @@ def test_evaluate_dataset_on_cuda(cuda, fast_nms, stem_s2d):
     ran = [now > before for now, before in zip(
         (stem.launches, nms.launches, mask_assembly.launches), counts)]
     assert ran == [stem_s2d, fast_nms, fast_nms]
+
+
+def _assert_grads_match(got, want, dtype):
+    """(grad_x, grad_offset, grad_mask) of the backward kernel against the
+    plain version's; see the module docstring for the tolerances."""
+    for name, g, w in zip(('x', 'offset', 'mask'), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.equal(g.isnan(), w.isnan()), name
+        ok = ~w.isnan()
+        g, w = g[ok].float(), w[ok].float()
+        top = float(w.abs().max())
+        tol = 1e-5 * top
+        if dtype == torch.bfloat16:
+            tol = bf16_ulp(w) + 1e-2 * top
+        assert bool(((g - w).abs() <= tol).all()), (
+            name, float((g - w).abs().max()), top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('b,cin,h,stride', [(2, 16, 23, 1), (2, 60, 12, 2),
+                                            (1, 5, 9, 1), (2, 128, 35, 2)])
+def test_dcn_col2im_kernel_matches_plain(cuda, dtype, b, cin, h, stride):
+    gen = torch.Generator().manual_seed(cin + h)
+    x, offset, mask = dcn_inputs(gen, cuda, b, cin, h, stride, dtype)
+    ho = offset.shape[-1]
+    g_cols = torch.randn(b * ho * ho, 9 * cin, generator=gen).to(dtype)\
+        .to(cuda)
+    n0 = dcn.col2im_launches
+    got = dcn.dcn_col2im(g_cols, x, offset, mask, 3, stride)
+    torch.cuda.synchronize()
+    assert dcn.col2im_launches == n0 + 1
+    want = dcn.dcn_col2im_plain(g_cols, x, offset, mask, 3, stride)
+    assert bool(want[1].isnan().any())           # the NaN offsets' samples
+    _assert_grads_match(got, want, dtype)
+    # a channels_last x is read as it lies
+    again = dcn.dcn_col2im(
+        g_cols, x.contiguous(memory_format=torch.channels_last), offset,
+        mask, 3, stride)
+    _assert_grads_match(again, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('stride', [1, 2])
+def test_deform_conv2d_gradients_on_the_card(cuda, stride):
+    """deform_conv2d on CUDA tensors records its two kernels for autograd:
+    the gradients of x, offset, mask, weight and bias equal autograd through
+    the plain version within 1e-5 of each one's largest entry."""
+    gen = torch.Generator().manual_seed(stride)
+    x, offset, mask = dcn_inputs(gen, cuda, 2, 16, 17, stride, torch.float32,
+                                 finite=True)
+    weight = (torch.randn(8, 16, 3, 3, generator=gen) * 0.1).to(cuda)
+    bias = torch.randn(8, generator=gen).to(cuda)
+    grads = {}
+    n0, m0 = dcn.launches, dcn.col2im_launches
+    for name, fn in (('kernel', dcn.deform_conv2d),
+                     ('plain', dcn.deform_conv2d_plain)):
+        leaves = [t.clone().requires_grad_()
+                  for t in (x, offset, mask, weight, bias)]
+        out = fn(*leaves, stride, 1, 1)
+        assert out.requires_grad
+        (out ** 2).sum().backward()
+        grads[name] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    assert (dcn.launches, dcn.col2im_launches) == (n0 + 1, m0 + 1)
+    for g, w in zip(grads['kernel'], grads['plain']):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))
+    # what needs no gradient gets none, and no backward launch either
+    out = dcn.deform_conv2d(x, offset, mask, weight.requires_grad_(), bias,
+                            stride, 1, 1)
+    out.sum().backward()
+    assert dcn.col2im_launches == m0 + 1
+    # with no graph to record, the same kernel is launched directly
+    n1 = dcn.launches
+    with torch.no_grad():
+        direct = dcn.deform_conv2d(x, offset, mask, weight, bias, stride, 1,
+                                   1)
+    assert dcn.launches == n1 + 1 and direct.grad_fn is None
+    assert torch.equal(direct, out.detach())
+
+
+@pytest.mark.cuda
+def test_stem_gradients_on_the_card(cuda):
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 12, 37, 41, generator=gen).to(cuda)
+    w2 = (torch.randn(64, 12, 4, 4, generator=gen) * 0.1).to(cuda)
+    grads = {}
+    for name, fn in (('kernel', stem.stem_conv_s2d),
+                     ('plain', stem.stem_conv_s2d_plain)):
+        a, b = x.clone().requires_grad_(), w2.clone().requires_grad_()
+        (fn(a, b) ** 2).sum().backward()
+        grads[name] = (a.grad, b.grad)
+    for g, w in zip(grads['kernel'], grads['plain']):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()))
+    # the image needs no gradient: none is computed
+    b = w2.clone().requires_grad_()
+    out = stem.stem_conv_s2d(x, b)
+    out.sum().backward()
+    assert b.grad is not None
+    # with no graph to record, the same kernel is launched directly
+    n0 = stem.launches
+    with torch.no_grad():
+        direct = stem.stem_conv_s2d(x, b)
+    assert stem.launches == n0 + 1 and direct.grad_fn is None
+    assert torch.equal(direct, out.detach())
+
+
+@pytest.mark.cuda
+def test_wrappers_without_a_gradient_raise_on_the_card(cuda):
+    proto = torch.rand(1, 8, 8, 4, device=cuda)
+    coeffs = torch.randn(1, 3, 4, device=cuda, requires_grad=True)
+    boxes = torch.tensor([[[0.1, 0.1, 0.6, 0.7]] * 3], device=cuda)
+    n0 = mask_assembly.launches
+    with pytest.raises(RuntimeError, match='no gradient'):
+        mask_assembly.assemble_masks(proto, coeffs, boxes)
+    with pytest.raises(RuntimeError, match='no gradient'):
+        nms.nms_iou_max(boxes.clone().requires_grad_())
+    assert mask_assembly.launches == n0
+
+
+@pytest.mark.cuda
+def test_device_guard_switches_only_for_another_device(cuda):
+    from yolact_tpu_torch.kernels import _build
+    dev = torch.zeros(1, device=cuda).device         # a tensor's: indexed
+    assert dev.index == torch.cuda.current_device()
+    assert _build.device_guard(dev) is _build._NO_GUARD
+    other = _build.device_guard(torch.device('cuda', dev.index + 1))
+    assert isinstance(other, torch.cuda.device)      # built, not entered
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['base_s2d', 'plus', 'plus_no_remat'])
+def test_tiny_train_steps_kernels_match_plain(cuda, name):
+    """Two train steps of a tiny model on the card with the kernels and with
+    their plain versions, from the same weights and draws: the same losses
+    and weights, the kernels launched as often as the blocks say.  Under
+    PyTorch's deterministic algorithms: the atomics of the library's own
+    backward kernels (bilinear upsample, gathers, pooling) otherwise make
+    two runs of the same path differ by more than the tolerance."""
+    from yolact_tpu_torch.train.step import create_train_state, train_step
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        _tiny_train_steps(cuda, name, create_train_state, train_step)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def _tiny_train_steps(cuda, name, create_train_state, train_step):
+    if name == 'base_s2d':
+        cfg, n_dcn = tiny_resnet_config(stem_s2d=True), 0
+    else:
+        # frozen batch norm: the tiny DCN config's last stage would
+        # normalise over 8 values per channel, which amplifies the order
+        # of the float32 atomics until the two runs part
+        cfg = tiny_plus_config(
+            train_remat='dcn' if name == 'plus' else 'none', freeze_bn=True)
+        n_dcn = 3
+    sd = seed_offsets_state_dict(
+        random_state_dict(cfg, torch.Generator().manual_seed(0)),
+        torch.Generator().manual_seed(1))
+    batch = make_train_batch(np.random.RandomState(0), cfg)
+    results = {}
+    for kernels in (True, False):
+        state = create_train_state(cfg, device=cuda, state_dict=sd)
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        counts = (stem.launches, dcn.launches, dcn.col2im_launches)
+        losses = [train_step(state, batch, gen, use_kernels=kernels)
+                  for _ in range(2)]
+        torch.cuda.synchronize()
+        counts = [b - a for a, b in zip(counts, (
+            stem.launches, dcn.launches, dcn.col2im_launches))]
+        fwd = n_dcn * (2 if cfg.train_remat == 'dcn' else 1)
+        assert counts == ([2 * cfg.stem_s2d, 2 * fwd, 2 * n_dcn]
+                          if kernels else [0, 0, 0])
+        assert all(step['finite'] for step in losses)
+        results[kernels] = (losses, state.model.state_dict())
+    (lk, wk), (lp, wp) = results[True], results[False]
+    for a, b in zip(lk, lp):
+        for k in a:
+            assert float(a[k]) == pytest.approx(float(b[k]), rel=1e-4), k
+    for k in wk:
+        torch.testing.assert_close(wk[k], wp[k], rtol=0, atol=1e-6)

@@ -233,3 +233,125 @@ def test_columns_reject_bad_inputs(bad):
         x = x[0]
     with pytest.raises(ValueError, match='dcn'):
         dcn.dcn_columns(x, offset, mask)
+
+
+# ---- gradients ------------------------------------------------------------
+
+@pytest.mark.parametrize('kind', ['zero', 'integer', 'fractional', 'far_oob'])
+@pytest.mark.parametrize('stride,padding,dilation',
+                         [(1, 1, 1), (2, 1, 1), (1, 2, 2)],
+                         ids=['plain', 'stride2', 'atrous'])
+def test_deform_conv2d_grads_match_jax(rng, stride, padding, dilation, kind):
+    """Gradients of sum(out * g) in x, offset, mask, weight and bias against
+    jax.grad through JAX's deform_conv2d (its hand-written VJP), within 1e-5
+    of each gradient's largest entry.  On the CPU the port differentiates
+    its plain version; at integer coordinates both sides take floor's
+    one-sided weights."""
+    import jax
+    x, offset, mask, weight, bias = _case(rng, kind, stride, padding,
+                                          dilation)
+    ho, wo = offset.shape[1:3]
+    g = rng.randn(x.shape[0], ho, wo, weight.shape[-1]).astype(np.float32)
+
+    def total(*args):
+        return jnp.sum(jax_dcn.deform_conv2d(
+            *args, stride=stride, padding=padding, dilation=dilation)
+            * jnp.asarray(g))
+
+    want = jax.grad(total, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in (x, offset, mask, weight, bias)))
+    tensors = [_nchw(x), _nchw(offset), _nchw(mask),
+               torch.from_numpy(weight.transpose(3, 2, 0, 1).copy()),
+               torch.from_numpy(bias)]
+    for t in tensors:
+        t.requires_grad_()
+    out = dcn.deform_conv2d(*tensors, stride, padding, dilation)
+    (out * _nchw(g)).sum().backward()
+    got = [tensors[0].grad.permute(0, 2, 3, 1), tensors[1].grad.permute(
+        0, 2, 3, 1), tensors[2].grad.permute(0, 2, 3, 1),
+        tensors[3].grad.permute(2, 3, 1, 0), tensors[4].grad]
+    for name, a, b in zip(('x', 'offset', 'mask', 'weight', 'bias'), got,
+                          want):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0, err_msg=name,
+                                   atol=1e-5 * max(np.abs(b).max(), 1e-3))
+    if kind != 'zero':
+        assert float(tensors[1].grad.abs().max()) > 0
+
+
+def test_dcn_columns_plain_gradcheck():
+    """float64 gradcheck of the plain columns in x, offset and mask, on
+    samples kept away from integer coordinates (where the bilinear weights
+    have a kink) and partly outside the map."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 3, 6, 5, dtype=torch.float64, generator=gen)
+    frac = torch.rand(2, 18, 3, 3, dtype=torch.float64, generator=gen) \
+        * 0.6 + 0.2
+    whole = torch.randint(-3, 4, (2, 18, 3, 3), generator=gen)
+    offset = whole + frac
+    mask = torch.rand(2, 9, 3, 3, dtype=torch.float64, generator=gen)
+    for t in (x, offset, mask):
+        t.requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: dcn.dcn_columns_plain(a, b, c, 3, 2, 1, 1),
+        (x, offset, mask), eps=1e-6, atol=1e-6)
+
+
+def test_dcn_col2im_is_the_columns_gradient(rng):
+    """dcn_col2im (on the CPU its plain version) returns what autograd gives
+    through dcn_columns, in the inputs' shapes and dtypes, and needs no
+    graph of its own."""
+    x, offset, mask, _, _ = _case(rng, 'fractional', 2, 1, 1)
+    tx, to, tm = _nchw(x), _nchw(offset), _nchw(mask)
+    g_cols = torch.from_numpy(rng.randn(
+        x.shape[0] * offset.shape[1] * offset.shape[2], 9 * x.shape[-1])
+        .astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (tx, to, tm)]
+    (dcn.dcn_columns(*leaves, 3, 2, 1, 1) * g_cols).sum().backward()
+    with torch.no_grad():
+        got = dcn.dcn_col2im(g_cols, tx, to, tm, 3, 2, 1, 1)
+    for leaf, grad in zip(leaves, got):
+        assert grad.shape == leaf.shape and grad.dtype == leaf.dtype
+        assert not grad.requires_grad
+        np.testing.assert_allclose(grad.numpy(), leaf.grad.numpy(), rtol=0,
+                                   atol=1e-6)
+    # bfloat16 inputs keep their dtypes
+    gb = dcn.dcn_col2im(g_cols.bfloat16(), tx.bfloat16(), to, tm.bfloat16(),
+                        3, 2, 1, 1)
+    assert [t.dtype for t in gb] == [torch.bfloat16, torch.float32,
+                                     torch.bfloat16]
+
+
+def test_dcn_gradients_of_non_finite_and_far_offsets():
+    """A sample whose corners all lie outside the map (a far or an infinite
+    offset) adds exactly nothing to any gradient; a NaN offset, whose
+    columns are NaN, has NaN gradients and poisons only the four pixels at
+    the origin that its corners clamp to."""
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(1, 4, 6, 6, generator=gen)
+    offset = torch.rand(1, 18, 6, 6, generator=gen) - 0.5
+    mask = torch.rand(1, 9, 6, 6, generator=gen)
+    g_cols = torch.randn(36, 36, generator=gen)
+    offset[0, 0, 2, 3] = float('inf')            # tap 0 of pixel (2, 3): dy
+    offset[0, 5, 4, 1] = 1e4                     # tap 2 of pixel (4, 1): dx
+    gx, go, gm = dcn.dcn_col2im(g_cols, x, offset, mask)
+    assert bool(gx.isfinite().all() and go.isfinite().all()
+                and gm.isfinite().all())
+    assert go[0, 0:2, 2, 3].eq(0).all() and gm[0, 0, 2, 3] == 0
+    assert go[0, 4:6, 4, 1].eq(0).all() and gm[0, 2, 4, 1] == 0
+    # the same gradients as without those two samples' columns
+    g_zeroed = g_cols.clone().view(6, 6, 9, 4)
+    g_zeroed[2, 3, 0] = 0
+    g_zeroed[4, 1, 2] = 0
+    clean = offset.clone()
+    clean[0, 0, 2, 3] = clean[0, 5, 4, 1] = 0.25
+    want = dcn.dcn_col2im(g_zeroed.view(36, 36), x, clean, mask)[0]
+    np.testing.assert_allclose(gx.numpy(), want.numpy(), rtol=0, atol=1e-6)
+
+    offset[0, 2:4, 5, 5] = float('nan')          # tap 1 of pixel (5, 5)
+    gx, go, gm = dcn.dcn_col2im(g_cols, x, offset, mask)
+    assert bool(gm[0, 1, 5, 5].isnan()) and bool(go[0, 2:4, 5, 5].isnan()
+                                                 .all())
+    assert int(gm.isnan().sum()) == 1 and int(go.isnan().sum()) == 2
+    nan_pixels = gx.isnan().any(dim=1)[0]
+    assert nan_pixels[:2, :2].all() and int(nan_pixels.sum()) == 4

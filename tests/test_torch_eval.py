@@ -234,11 +234,29 @@ def test_finish_masks_matches_jax(rng):
     assert finish_masks(torch.zeros(0, 32, 32), 7, 5).shape == (0, 5, 7)
 
 
+def _train_heads(cfg):
+    """Seeded weights of the heads a reference model holds for training."""
+    gen = torch.Generator().manual_seed(12)
+    nf, n = cfg.fpn.num_features, cfg.num_classes - 1
+    heads = {}
+    if cfg.use_semantic_segmentation_loss:
+        heads['semantic_seg_conv.weight'] = torch.randn(n, nf, 1, 1,
+                                                        generator=gen)
+        heads['semantic_seg_conv.bias'] = torch.randn(n, generator=gen)
+    if cfg.use_class_existence_loss:
+        heads['class_existence_fc.weight'] = torch.randn(n, nf,
+                                                         generator=gen)
+        heads['class_existence_fc.bias'] = torch.randn(n, generator=gen)
+    return heads
+
+
 def _write_pth(cfg, sd, path, wrap):
     """The port's weights as a reference-style .pth, with what real files
-    carry and the port drops: num_batches_tracked, a legacy backbone.layer
-    key and FPN downsample layers beyond num_downsample."""
-    sd = dict(sd)
+    carry: the training-only heads (semantic_seg_conv, which yolact_base
+    trains with, and class_existence_fc where the config has it), and what
+    the port drops: num_batches_tracked, a legacy backbone.layer key and FPN
+    downsample layers beyond num_downsample."""
+    sd = dict(sd, **_train_heads(cfg))
     sd['backbone.bn1.num_batches_tracked'] = torch.tensor(7)
     sd['backbone.layer1.0.conv1.weight'] = torch.zeros(1)
     n = cfg.fpn.num_downsample
@@ -253,9 +271,32 @@ def test_load_weights_pth(setup, tmp_path, wrap):
     cfg, _, sd, _ = setup
     path = _write_pth(cfg, sd, str(tmp_path / 'w_1_2.pth'), wrap)
     got = load_weights(P(cfg), path)
-    assert got.keys() == sd.keys()
-    assert all(torch.equal(got[k], sd[k]) for k in sd)
-    load_model(P(cfg), got, torch.device('cpu'))       # strict
+    heads = _train_heads(cfg)
+    assert set(heads) == {'semantic_seg_conv.weight',
+                          'semantic_seg_conv.bias'}
+    assert got.keys() == sd.keys() | heads.keys()
+    assert all(torch.equal(got[k], sd[k]) for k in sd if k not in heads)
+    model = load_model(P(cfg), got, torch.device('cpu'))      # strict
+    assert torch.equal(model.semantic_seg_conv.weight,
+                       heads['semantic_seg_conv.weight'])
+    # a JAX eval tree has no training-only heads: the converter gave `sd`
+    # initial ones, so it loads; any missing or unknown key raises
+    assert heads.keys() <= sd.keys()
+    load_model(P(cfg), sd, torch.device('cpu'))
+    for gone in ('fpn.lat_layers.0.bias', 'semantic_seg_conv.weight'):
+        with pytest.raises(RuntimeError, match='Missing key'):
+            load_model(P(cfg), {k: v for k, v in got.items() if k != gone},
+                       torch.device('cpu'))
+    with pytest.raises(RuntimeError, match='Unexpected key'):
+        load_model(P(cfg), dict(got, extra=torch.zeros(1)),
+                   torch.device('cpu'))
+    # a config with the class-existence head carries it too
+    cfg_e = cfg.copy(use_class_existence_loss=True)
+    path_e = _write_pth(cfg_e, sd, str(tmp_path / 'e_1_2.pth'), wrap)
+    model = load_model(P(cfg_e), load_weights(P(cfg_e), path_e),
+                       torch.device('cpu'))
+    assert torch.equal(model.class_existence_fc.bias,
+                       _train_heads(cfg_e)['class_existence_fc.bias'])
     with pytest.raises(NotImplementedError, match='A4'):
         load_weights(P(cfg), str(tmp_path / 'w_1_2.ckpt'))
 

@@ -19,6 +19,10 @@ to the smoke script's inputs does not move the unit tests.
 - :class:`SyntheticEvalSet` is an in-memory eval dataset of seeded frames
   with boxes and masks, for ``evaluate_dataset`` where no image files or
   cv2 are at hand.
+- :func:`make_train_batch` is a seeded training batch in the contract of
+  ``data/coco.py:pad_batch`` (boxes, labels with one crowd per image and
+  padding, rectangular masks), as ``tests/test_train.py:make_batch`` builds
+  one for the JAX package.
 - :func:`tiny_resnet_config` and :func:`tiny_plus_config` are
   ``tests/_tiny.py``'s small configs built with the port's own config
   module (``test_torch_config.py`` holds them equal to ``_tiny.py``'s), for
@@ -70,6 +74,29 @@ def tiny_plus_config(**kw):
         maskiou_net=((8, 3, (('stride', 2),)), (16, 3, (('stride', 2),)),
                      (32, 3, (('stride', 2),))),
         **kw)
+
+
+def make_train_batch(rng, cfg, B=2, G=6, n=3):
+    """`n` gts per image, the last a crowd (-1), the rest of the G rows
+    padding (-2); `rng` is a numpy RandomState."""
+    S = cfg.max_size
+    boxes = np.zeros((B, G, 4), np.float32)
+    labels = np.full((B, G), -2, np.int32)
+    masks = np.zeros((B, G, S, S), np.uint8)
+    for b in range(B):
+        for g in range(n):
+            x1, y1 = rng.rand(2) * 0.5
+            w, h = rng.rand(2) * 0.4 + 0.1
+            boxes[b, g] = [x1, y1, min(x1 + w, 1), min(y1 + h, 1)]
+            labels[b, g] = rng.randint(0, cfg.num_classes - 1)
+            xs = slice(int(x1 * S), int(min(x1 + w, 1) * S))
+            ys = slice(int(y1 * S), int(min(y1 + h, 1) * S))
+            masks[b, g, ys, xs] = 1
+        labels[b, n - 1] = -1  # one crowd
+    return dict(image=rng.rand(B, S, S, 3).astype(np.float32),
+                gt_boxes=boxes, gt_labels=labels, gt_masks=masks,
+                num_gts=np.full(B, n, np.int32),
+                num_crowds=np.ones(B, np.int32))
 
 
 def seed_offsets_jax(variables, seed=0, w_scale=0.5, b_scale=4.0):
@@ -349,3 +376,17 @@ def test_near_tie_boxes_hold_every_kind_of_tie():
         # the filler boxes do not touch the column box
         assert (_iou_fractions(row[:-3], NEAR_TIE_COLUMN)[0] == 0).all()
     assert (kinds > 0).all(), kinds
+
+
+def test_make_train_batch_contract():
+    cfg = tiny_resnet_config()
+    a = make_train_batch(np.random.RandomState(3), cfg, B=2, G=5)
+    b = make_train_batch(np.random.RandomState(3), cfg, B=2, G=5)
+    assert all(np.array_equal(a[k], b[k]) for k in a)
+    assert a['image'].shape == (2, 128, 128, 3)
+    assert a['gt_masks'].shape == (2, 5, 128, 128)
+    assert (a['gt_labels'][:, 2] == -1).all()
+    assert (a['gt_labels'][:, 3:] == -2).all()
+    assert (a['gt_labels'][:, :2] >= 0).all()
+    assert a['gt_masks'][:, :3].any(axis=(2, 3)).all()
+    assert not a['gt_masks'][:, 3:].any()

@@ -262,3 +262,51 @@ def test_build_key_follows_source_content(tmp_path):
     assert _build._digest([str(src)]) == before
     src.write_text('__global__ void k() { }\n')
     assert _build._digest([str(src)]) != before
+
+
+def test_wrappers_without_a_gradient_raise_under_grad_mode(rng):
+    """Mask assembly and the IoU max have no gradient (the JAX kernels have
+    none): under grad mode an input that requires grad raises instead of
+    coming back detached; the check sits before the device branch.  Under
+    no_grad, or on detached inputs, they run."""
+    proto = torch.rand(1, 8, 8, 4)
+    coeffs = torch.randn(1, 3, 4, requires_grad=True)
+    boxes = torch.tensor([[[0.1, 0.1, 0.6, 0.7]] * 3])
+    with pytest.raises(RuntimeError, match='no gradient'):
+        mask_assembly.assemble_masks(proto, coeffs, boxes)
+    with pytest.raises(RuntimeError, match='no gradient'):
+        nms.nms_iou_max(boxes.clone().requires_grad_())
+    with torch.no_grad():
+        out = mask_assembly.assemble_masks(proto, coeffs, boxes)
+        nms.nms_iou_max(boxes.clone().requires_grad_())
+    assert not out.requires_grad
+    assert torch.equal(out, mask_assembly.assemble_masks(
+        proto, coeffs.detach(), boxes))
+
+
+def test_differentiable_wrappers_carry_gradients_on_cpu():
+    """The stem and DCN wrappers never return a detached result: on the CPU
+    autograd runs through their plain versions."""
+    from yolact_tpu_torch.kernels import dcn, stem
+    x = torch.randn(1, 12, 5, 6)
+    w2 = torch.randn(64, 12, 4, 4, requires_grad=True)
+    assert stem.stem_conv_s2d(x, w2).requires_grad
+    xs = torch.randn(1, 3, 5, 5, requires_grad=True)
+    offset = torch.zeros(1, 18, 5, 5, requires_grad=True)
+    mask = torch.rand(1, 9, 5, 5, requires_grad=True)
+    cols = dcn.dcn_columns(xs, offset, mask)
+    cols.sum().backward()
+    assert all(t.grad is not None and bool(t.grad.abs().sum() > 0)
+               for t in (xs, offset, mask))
+
+
+def test_needs_grad_is_what_autograd_would_record():
+    """The stem and DCN wrappers launch their kernels directly unless a
+    graph is being recorded: grad mode on and an input that requires grad."""
+    from yolact_tpu_torch.kernels import _build
+    a, b = torch.zeros(2), torch.zeros(2, requires_grad=True)
+    assert _build.needs_grad(a, b) and not _build.needs_grad(a, b.detach())
+    with torch.no_grad():
+        assert not _build.needs_grad(a, b)
+    with torch.inference_mode():
+        assert not _build.needs_grad(a, b)

@@ -41,11 +41,18 @@ def _maskiou_variables(cfg, seed=0):
     return jax.tree_util.tree_map(np.array, dict(v))
 
 
-def _variables(cfg, seed=0):
+def _variables(cfg, seed=0, train=False):
     """JAX variables for Yolact(cfg); for YOLACT++ configs also the mask
     scorer's (under 'maskiou', where convert_state_dict puts it) and
-    non-zero DCN offset convs."""
-    v = jax.tree_util.tree_map(np.array, random_variables(cfg, seed=seed))
+    non-zero DCN offset convs.  `train`: initialised with train=True, which
+    is when flax creates the training-only heads a reference .pth holds."""
+    if train:
+        v = JaxYolact(cfg).init(
+            jax.random.PRNGKey(seed),
+            jnp.zeros((1, cfg.max_size, cfg.max_size, 3)), train=True)
+    else:
+        v = random_variables(cfg, seed=seed)
+    v = jax.tree_util.tree_map(np.array, dict(v))
     v = {'params': v['params'], 'batch_stats': v['batch_stats']}
     if cfg.use_maskiou:
         v['maskiou'] = _maskiou_variables(cfg, seed)
@@ -55,9 +62,20 @@ def _variables(cfg, seed=0):
 
 def test_weights_round_trip_and_strict_load():
     cfg = tiny_resnet_config()
-    v = _variables(cfg)
+    v = _variables(cfg, train=True)
     sd = jax_variables_to_state_dict(P(cfg), v)
     Yolact(P(cfg)).load_state_dict(sd, strict=True)
+    # an eval tree lacks the training-only heads; the converter adds
+    # initial ones, the same every time, so that it loads strictly too
+    eval_sd = jax_variables_to_state_dict(P(cfg), _variables(cfg))
+    assert eval_sd.keys() == sd.keys()
+    again = jax_variables_to_state_dict(P(cfg), _variables(cfg))
+    assert torch.equal(eval_sd['semantic_seg_conv.weight'],
+                       again['semantic_seg_conv.weight'])
+    assert float(eval_sd['semantic_seg_conv.weight'].abs().max()) > 0
+    with pytest.raises(RuntimeError, match='Missing key'):
+        Yolact(P(cfg)).load_state_dict(
+            {k: t for k, t in sd.items() if 'semantic_seg' not in k})
     back, unhandled = convert_state_dict(
         cfg, {k: t.numpy() for k, t in sd.items()})
     assert unhandled == []
@@ -75,7 +93,7 @@ def test_full_width_names_and_shapes_match_jax():
     shapes = jax.eval_shape(
         lambda: JaxYolact(cfg).init(jax.random.PRNGKey(0),
                                     jnp.zeros((1, 550, 550, 3)),
-                                    train=False))
+                                    train=True))
     zeros = jax.tree_util.tree_map(
         lambda s: np.broadcast_to(np.float32(0), s.shape),
         {'params': shapes['params'], 'batch_stats': shapes['batch_stats']})
@@ -138,7 +156,7 @@ def test_stage_plan_matches_jax(args):
 def test_plus_weights_round_trip_and_strict_load():
     """tiny-plus, DCN layers and the separate maskiou tree included."""
     cfg = tiny_plus_config()
-    v = _variables(cfg)
+    v = _variables(cfg, train=True)
     sd = jax_variables_to_state_dict(P(cfg), v)
     Yolact(P(cfg)).load_state_dict(sd, strict=True)
     assert sd['backbone.layers.1.0.conv2.weight'].shape == (128, 128, 3, 3)
@@ -161,7 +179,7 @@ def test_plus_full_width_names_and_shapes_match_jax():
     shapes = jax.eval_shape(
         lambda: JaxYolact(cfg).init(jax.random.PRNGKey(0),
                                     jnp.zeros((1, 550, 550, 3)),
-                                    train=False))
+                                    train=True))
     miou = jax.eval_shape(
         lambda: MaskIoUHead(cfg).init(jax.random.PRNGKey(1),
                                       jnp.zeros((1, 138, 138, 1))))
@@ -228,3 +246,163 @@ def test_maskiou_net_and_rescore_match_jax(rng, make_cfg, hw):
                        proto=None))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5)
+
+
+def _train_variables(cfg, seed=0):
+    """JAX variables of the training model (the two training-only heads
+    included); DCN offset convs seeded non-zero."""
+    v = JaxYolact(cfg).init(jax.random.PRNGKey(seed),
+                            jnp.zeros((1, 128, 128, 3)), train=True)
+    v = jax.tree_util.tree_map(np.array, dict(v))
+    if cfg.use_maskiou:
+        v['maskiou'] = _maskiou_variables(cfg, seed)
+        # offsets of a pixel or so, nearly independent of the input: a DCN
+        # block multiplies the float32 rounding of its offsets by the slope
+        # of the sampled map, and the batch norms of the tiny last stages
+        # (8 values per channel) divide by a small deviation, so with the
+        # eval tests' offset convs the float32 forward itself is 5e-3 off a
+        # float64 run (tests/test_torch_train.py's docstring)
+        seed_offsets_jax(v, seed, w_scale=0.01, b_scale=1.0)
+    return v
+
+
+@pytest.mark.parametrize('make_cfg,overrides', [
+    (tiny_resnet_config, {}),
+    (tiny_resnet_config, {'use_class_existence_loss': True}),
+    (tiny_resnet_config, {'freeze_bn': True}),
+    (tiny_plus_config, {}),
+], ids=['base', 'class_existence', 'freeze_bn', 'plus'])
+def test_train_forward_matches_jax(rng, make_cfg, overrides):
+    """forward(train=True): batch-statistics batch norm (running statistics
+    under freeze_bn), the segm and classes outputs in JAX's layouts, and the
+    next running statistics (flax stores the biased batch variance; so does
+    the port), all within the eval forward's 1e-4.  The tiny DCN config
+    is held to 5e-4 instead (found 1.4e-4): its last stages normalise 8
+    values per channel behind DCN blocks, which amplifies float32 rounding
+    on both sides."""
+    from yolact_tpu_torch.models.layers import (BatchNorm2d,
+                                                commit_batch_stats)
+    cfg = make_cfg(**overrides)
+    tol = 5e-4 if cfg.use_maskiou else 1e-4
+    v = _train_variables(cfg, seed=4)
+    x = rng.randn(2, 128, 128, 3).astype(np.float32)
+    bn_train = not cfg.freeze_bn
+    out = JaxYolact(cfg).apply(
+        {k: v[k] for k in ('params', 'batch_stats')}, jnp.asarray(x),
+        train=True, mutable=['batch_stats'] if bn_train else False)
+    want, new_stats = out if bn_train else (out, v)
+    assert ('classes' in want) == cfg.use_class_existence_loss
+    assert want['segm'].shape == (2, 16, 16, cfg.num_classes - 1)
+
+    model = Yolact(P(cfg))
+    sd = jax_variables_to_state_dict(P(cfg), v)
+    model.load_state_dict(sd, strict=True)
+    assert {'semantic_seg_conv.weight', 'semantic_seg_conv.bias'} <= set(sd)
+    assert ('class_existence_fc.weight' in sd) == \
+        cfg.use_class_existence_loss
+    got = model(torch.from_numpy(x).permute(0, 3, 1, 2), train=True)
+    assert set(got) == set(want)
+    for k in want:
+        assert tuple(got[k].shape) == want[k].shape, k
+        np.testing.assert_allclose(got[k].detach().numpy(),
+                                   np.asarray(want[k]), rtol=tol, atol=tol,
+                                   err_msg=k)
+    # the forward leaves the new statistics pending; the buffers move on
+    # commit, and not at all under freeze_bn
+    before = {k: t.clone() for k, t in model.state_dict().items()}
+    assert all(torch.equal(t, before[k])
+               for k, t in model.state_dict().items())
+    n_bn = sum(isinstance(m, BatchNorm2d) for m in model.modules())
+    assert commit_batch_stats(model) == (n_bn if bn_train else 0)
+    want_sd = jax_variables_to_state_dict(
+        P(cfg), {'batch_stats': new_stats['batch_stats']})
+    after = model.state_dict()
+    moved = 0
+    for k, w in want_sd.items():
+        np.testing.assert_allclose(after[k].numpy(), w.numpy(), rtol=tol,
+                                   atol=tol / 10, err_msg=k)
+        moved += not torch.equal(after[k], before[k])
+    assert moved == (len(want_sd) if bn_train else 0)
+    assert commit_batch_stats(model) == 0
+    # the eval forward runs neither training-only head
+    with torch.no_grad():
+        assert not {'segm', 'classes'} & set(
+            model(torch.from_numpy(x).permute(0, 3, 1, 2)))
+
+
+def test_batch_norm_running_variance_is_biased_like_flax(rng):
+    """One layer: F.batch_norm would store the unbiased batch variance
+    (n / (n - 1) larger); flax and the port store the biased one."""
+    from yolact_tpu.models.layers import BatchNorm as JaxBatchNorm
+    from yolact_tpu_torch.models.layers import (BatchNorm2d,
+                                                commit_batch_stats)
+    x = (rng.randn(2, 3, 3, 4) * 2 + 1).astype(np.float32)
+    bn = JaxBatchNorm()
+    v = bn.init(jax.random.PRNGKey(0), jnp.asarray(x), train=True)
+    want, new = bn.apply(v, jnp.asarray(x), train=True,
+                         mutable=['batch_stats'])
+    layer = BatchNorm2d(4)
+    got = layer(torch.from_numpy(x).permute(0, 3, 1, 2), train=True)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).detach().numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-5)
+    commit_batch_stats(layer)
+    stats = new['batch_stats']['bn']
+    np.testing.assert_allclose(layer.running_mean.numpy(),
+                               np.asarray(stats['mean']), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(layer.running_var.numpy(),
+                               np.asarray(stats['var']), rtol=1e-6, atol=1e-7)
+    biased = 0.9 + 0.1 * x.reshape(-1, 4).var(0)
+    np.testing.assert_allclose(layer.running_var.numpy(), biased, rtol=1e-5)
+    unbiased = 0.9 + 0.1 * x.reshape(-1, 4).var(0, ddof=1)
+    assert np.all(np.abs(layer.running_var.numpy() - unbiased) > 1e-3)
+
+
+@pytest.mark.parametrize('remat', ['dcn', 'all'])
+def test_train_remat_gives_the_grads_of_none(rng, remat):
+    """Checkpointed bottlenecks (cfg.train_remat): the same state dict
+    keys, outputs, gradients and pending batch-norm statistics as without,
+    and the DCN sampler's forward runs once more per checkpointed block."""
+    from yolact_tpu_torch.kernels import dcn
+    from yolact_tpu_torch.models.layers import BatchNorm2d
+    x = torch.from_numpy(rng.randn(1, 3, 128, 128).astype(np.float32))
+    cfgs = {r: P(tiny_plus_config(train_remat=r)) for r in ('none', remat)}
+    sd = jax_variables_to_state_dict(
+        cfgs['none'], _train_variables(tiny_plus_config(), seed=2))
+    results = {}
+    calls = {}
+    orig = dcn.dcn_columns_plain
+    for r, cfg in cfgs.items():
+        model = Yolact(cfg)
+        model.load_state_dict(sd, strict=True)
+        count = [0]
+
+        def counted(*a, **kw):
+            count[0] += 1
+            return orig(*a, **kw)
+
+        dcn.dcn_columns_plain = counted
+        try:
+            out = model(x, train=True)
+            loss = sum((t.float() ** 2).sum() * 1e-6 for k, t in out.items()
+                       if k != 'priors')
+            loss.backward()
+        finally:
+            dcn.dcn_columns_plain = orig
+        calls[r] = count[0]
+        results[r] = (float(loss), {k: p.grad for k, p in
+                                    model.named_parameters()
+                                    if p.grad is not None},
+                      [m.pending for m in model.modules()
+                       if isinstance(m, BatchNorm2d)])
+    assert calls == {'none': 3, remat: 6}       # three DCN blocks
+    (l0, g0, s0), (l1, g1, s1) = results['none'], results[remat]
+    assert l0 == l1 and g0.keys() == g1.keys()
+    for k in g0:
+        np.testing.assert_allclose(g1[k].numpy(), g0[k].numpy(), rtol=1e-5,
+                                   atol=1e-6 * float(g0[k].abs().max()),
+                                   err_msg=k)
+    assert all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for a, b in zip(s0, s1))
+    with pytest.raises(ValueError, match='train_remat'):
+        Yolact(P(tiny_plus_config(train_remat='dnc')))(x, train=True)

@@ -323,7 +323,7 @@ PORT_SOURCES = sorted(
     os.path.relpath(path, REPO) for path in
     glob.glob(os.path.join(REPO, 'yolact_tpu_torch', '**', '*.py'),
               recursive=True)) + ['chip_smoke.py', 'probe_dcn.py',
-                                  'probe_small_kernels.py']
+                                  'probe_host.py', 'probe_small_kernels.py']
 
 
 @pytest.mark.parametrize('path', PORT_SOURCES)

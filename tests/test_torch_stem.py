@@ -229,14 +229,20 @@ def test_s2d_weight_follows_reloads_and_casts():
     """The derived 4x4 weight is cached but never stale: a reload of the
     state dict or a dtype cast of conv1 rebuilds it."""
     bb = ResNetBackbone((1, 1, 1, 1), stem_s2d=True)
-    first = bb.s2d_weight()
-    assert bb.s2d_weight() is first                   # cached
+    with torch.no_grad():
+        first = bb.s2d_weight()
+        assert bb.s2d_weight() is first               # cached
+    # under grad mode it is part of the graph, derived anew each time
+    live = bb.s2d_weight()
+    assert live.requires_grad and bb.s2d_weight() is not live
+    assert torch.equal(live, first)
     w = torch.randn(64, 3, 7, 7, generator=torch.Generator().manual_seed(1))
     bb.load_state_dict(dict(bb.state_dict(), **{'conv1.weight': w}))
-    assert torch.equal(bb.s2d_weight(), s2d_stem_kernel(w))
-    bb.conv1.to(torch.bfloat16)
-    got = bb.s2d_weight()
-    assert got.dtype == torch.bfloat16
+    with torch.no_grad():
+        assert torch.equal(bb.s2d_weight(), s2d_stem_kernel(w))
+        bb.conv1.to(torch.bfloat16)
+        got = bb.s2d_weight()
+    assert got.dtype == torch.bfloat16 and not got.requires_grad
     assert torch.equal(got, s2d_stem_kernel(w).bfloat16())
     bb.conv1 = torch.nn.Conv2d(3, 64, 7, stride=1, padding=3, bias=False)
     with pytest.raises(NotImplementedError):
@@ -305,3 +311,76 @@ def _assert_match(want, got):
                                rtol=0, atol=1e-5)
     np.testing.assert_allclose(got.masks.numpy(), np.asarray(want.masks),
                                rtol=0, atol=1e-4)
+
+
+# ---- gradients ------------------------------------------------------------
+
+def test_stem_conv_grads_match_jax(rng):
+    """The stem conv's gradients in x and w2 (kernels/stem.py:
+    stem_conv_s2d_grads, what the kernel's autograd.Function returns on the
+    card, and autograd through the plain version on the CPU) against
+    jax.grad through JAX's stem_conv_s2d, whose forward runs as its own
+    tests run it on the CPU (XLA conv; Pallas interpret for the forward
+    check), within 1e-5 of each gradient's largest entry."""
+    x = rng.randn(2, 9, 11, 12).astype(np.float32)
+    w2 = (rng.randn(4, 4, 12, 64) * 0.1).astype(np.float32)
+    g = rng.randn(2, 9, 11, 64).astype(np.float32)
+    from yolact_tpu.kernels.stem import stem_conv_s2d as jax_stem
+    want = jax.grad(lambda a, b: jnp.sum(jax_stem(a, b) * jnp.asarray(g)),
+                    argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w2))
+    want = (_nchw(want[0]), np.asarray(want[1]).transpose(3, 2, 0, 1))
+    np.testing.assert_allclose(
+        np.asarray(stem_conv_s2d_pallas(jnp.asarray(x), jnp.asarray(w2),
+                                        interpret=True)),
+        np.asarray(_conv_xla(jnp.asarray(x), jnp.asarray(w2))), atol=1e-5)
+
+    tx = torch.from_numpy(_nchw(x).copy()).requires_grad_()
+    tw = torch.from_numpy(w2.transpose(3, 2, 0, 1).copy()).requires_grad_()
+    tg = torch.from_numpy(_nchw(g).copy())
+    (stem.stem_conv_s2d(tx, tw) * tg).sum().backward()
+    by_hand = stem.stem_conv_s2d_grads(tx.detach(), tw.detach(), tg)
+    for name, auto, hand, w in zip(('x', 'w2'), (tx.grad, tw.grad), by_hand,
+                                   want):
+        tol = 1e-5 * np.abs(w).max()
+        np.testing.assert_allclose(auto.numpy(), w, rtol=0, atol=tol,
+                                   err_msg=name)
+        np.testing.assert_allclose(hand.numpy(), w, rtol=0, atol=tol,
+                                   err_msg=name)
+    # only what is needed is computed, in the inputs' dtypes
+    gx, gw = stem.stem_conv_s2d_grads(tx.detach().bfloat16(),
+                                      tw.detach().bfloat16(), tg.bfloat16(),
+                                      need_x=False)
+    assert gx is None and gw.dtype == torch.bfloat16
+    assert gw.shape == tw.shape
+
+
+def test_s2d_model_conv1_grad_matches_jax_and_plain_stem(jax_vars):
+    """conv1.weight's gradient through the s2d model (the 4x4 weight is
+    derived from it inside the graph) against jax.grad through JAX's s2d
+    model, within 1e-5 of its largest entry, and against the port's plain
+    7x7 stem on the same weights (the same taps in another layout)."""
+    cfg = tiny_resnet_config(stem_s2d=True)
+    imgs = np.random.RandomState(3).randn(2, 128, 128, 3).astype(np.float32)
+
+    def jax_total(params):
+        x = jax_layers.s2d_input(jnp.asarray(imgs), from_rgb=True)
+        out = JaxYolact(cfg).apply(
+            {'params': params, 'batch_stats': jax_vars['batch_stats']}, x,
+            train=False)
+        return sum(jnp.sum(out[k] ** 2) for k in ('loc', 'conf', 'proto'))
+
+    want = np.asarray(jax.jit(jax.grad(jax_total))(jax_vars['params'])[
+        'backbone']['conv1']['conv']['kernel']).transpose(3, 2, 0, 1)
+    sd = jax_variables_to_state_dict(P(cfg), jax_vars)
+    x = torch.from_numpy(imgs).permute(0, 3, 1, 2)
+    grads = {}
+    for s2d in (True, False):
+        model = Yolact(P(cfg).copy(stem_s2d=s2d)).eval()
+        model.load_state_dict(sd)
+        out = model(s2d_input(x, from_rgb=True) if s2d else x)
+        sum((out[k] ** 2).sum() for k in ('loc', 'conf', 'proto')).backward()
+        grads[s2d] = model.backbone.conv1.weight.grad.numpy()
+    tol = 1e-5 * np.abs(want).max()
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(grads[True], want, rtol=0, atol=tol)
+    np.testing.assert_allclose(grads[True], grads[False], rtol=0, atol=tol)

@@ -9,8 +9,18 @@ become ``weight`` / ``bias`` / ``running_mean`` / ``running_var``.  The
 YOLACT++ mask scorer, a separate ``MaskIoUHead`` tree in JAX
 (``{'params': {'maskiou': {'maskiou_net': ...}}}``), is read from the
 ``'maskiou'`` entry, where ``convert_state_dict`` puts it, and becomes
-``maskiou_net.maskiou_net.{i}``.  Inputs are nested dicts of numpy arrays,
-so this module needs no JAX.
+``maskiou_net.maskiou_net.{i}``.  The training-only heads convert like the
+rest: flax ``semantic_seg_conv`` (a conv) and ``class_existence_fc`` (a
+Dense, kernel transposed) become the reference's keys of the same names.
+Inputs are nested dicts of numpy arrays, so this module needs no JAX.
+
+For the train step, :func:`train_state_to_state_dict` takes the ``params``
+and ``batch_stats`` of a JAX ``TrainState`` (``{'model': ..., 'maskiou':
+...}``, as numpy) to the port's state dict, and
+:func:`state_dict_to_train_state` takes a state dict (or per-parameter
+gradients or momentum buffers under the same keys) back into trees of the
+same structure, so both packages can start a step from the same weights
+and their updated weights can be compared leaf by leaf.
 
 :func:`config_from_jax` rebuilds the port's config dataclasses field by
 field from a ``yolact_tpu.config`` object (the port keeps its own copy of
@@ -29,6 +39,7 @@ import torch
 
 from yolact_tpu_torch import config as port_config
 from yolact_tpu_torch.config import YolactConfig
+from yolact_tpu_torch.models.yolact import init_train_heads
 
 _LEAF = {'kernel': 'weight', 'weight': 'weight', 'bias': 'bias',
          'scale': 'weight', 'mean': 'running_mean', 'var': 'running_var'}
@@ -88,12 +99,69 @@ def jax_variables_to_state_dict(cfg: YolactConfig, variables: Dict
                                 ) -> Dict[str, torch.Tensor]:
     """``{'params': ..., 'batch_stats': ...}`` of ``yolact_tpu`` Yolact(cfg),
     plus for YOLACT++ ``'maskiou'``: the ``MaskIoUHead(cfg)`` variables
-    -> the port's ``state_dict`` (float32 CPU tensors)."""
-    del cfg  # names and shapes follow from the tree itself
+    -> the port's ``state_dict`` (float32 CPU tensors).  flax creates the
+    training-only heads only when the model is initialised with
+    ``train=True``; where ``params`` come without them they get
+    ``init_train_heads``'s seeded initial values, so the result loads
+    strictly."""
     trees = [variables.get('params', {}), variables.get('batch_stats', {}),
              variables.get('maskiou', {}).get('params', {})]
-    return {_torch_key(path): _to_torch(path, value)
-            for tree in trees for path, value in _walk(tree)}
+    sd = {_torch_key(path): _to_torch(path, value)
+          for tree in trees for path, value in _walk(tree)}
+    if 'params' in variables:
+        heads = init_train_heads(cfg, torch.Generator().manual_seed(0))
+        sd.update({k: t for k, t in heads.items() if k not in sd})
+    return sd
+
+
+def _from_torch(path: Tuple[str, ...], value) -> np.ndarray:
+    """The inverse of :func:`_to_torch`."""
+    a = np.asarray(value, dtype=np.float32)
+    if path[-1] in ('kernel', 'weight') and a.ndim == 4:
+        a = a.transpose(2, 3, 1, 0)       # OIHW -> HWIO
+    elif path[-1] == 'kernel' and a.ndim == 2:
+        a = a.T
+    return np.ascontiguousarray(a)
+
+
+def _train_variables(params: Dict, batch_stats: Dict) -> Dict:
+    variables = {'params': params['model'], 'batch_stats': batch_stats}
+    if 'maskiou' in params:
+        variables['maskiou'] = {'params': params['maskiou']}
+    return variables
+
+
+def train_state_to_state_dict(cfg: YolactConfig, params: Dict,
+                              batch_stats: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX ``TrainState``'s ``params`` (``{'model': ..., 'maskiou': ...}``)
+    and ``batch_stats`` as numpy trees -> the port's state dict."""
+    return jax_variables_to_state_dict(
+        cfg, _train_variables(params, batch_stats))
+
+
+def state_dict_to_train_state(sd: Dict[str, Any], params: Dict,
+                              batch_stats: Dict) -> Tuple[Dict, Dict]:
+    """Tensors (or arrays) under the port's state-dict keys -> (params,
+    batch_stats) trees shaped like the given ones, in JAX's layouts.  Keys
+    missing from `sd` (batch-norm buffers when `sd` holds gradients, say)
+    come back as None leaves."""
+    def fill(tree, prefix, key_prefix):
+        out = {}
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                out[key] = fill(value, prefix + (key,), key_prefix)
+            else:
+                path = prefix + (key,)
+                t = sd.get(_torch_key(key_prefix + path))
+                if t is not None and isinstance(t, torch.Tensor):
+                    t = t.detach().cpu().numpy()
+                out[key] = None if t is None else _from_torch(path, t)
+        return out
+
+    new_params = {'model': fill(params['model'], (), ())}
+    if 'maskiou' in params:
+        new_params['maskiou'] = fill(params['maskiou'], (), ())
+    return new_params, fill(batch_stats, (), ())
 
 
 def _rebuild(value: Any) -> Any:

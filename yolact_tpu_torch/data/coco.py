@@ -1,8 +1,11 @@
 """COCO detection dataset, pycocotools-free: the eval side of
 ``yolact_tpu/data/coco.py`` (``COCOIndex``, ``COCOAnnotationTransform``,
-``COCODetection``), copied for the port.  The training batch helpers
-(``pad_batch``, ``pack_batch_masks``, ``enforce_size``) come with the train
-step.
+``COCODetection``), copied for the port, and the batch contract of the
+train step: ``detection_collate``, ``pad_batch`` and ``enforce_size``.
+``pad_batch``'s ``multires`` targets come back unpacked (``gt_masks_proto``,
+``gt_masks_seg``, which ``train/loss.py:multibox_loss`` takes by that name):
+the JAX package bit-packs them to cut its host-to-TPU transfer, which is
+ported only if a run on the card shows the loader starving it.
 
 Crowd annotations are moved to the tail with ``category_id = -1``
 (reference ``data/coco.py:119-130``); a transform that drops all gt
@@ -153,3 +156,145 @@ class COCODetection:
 
     def pull_anno(self, index: int):
         return self.coco.img_to_anns.get(self.ids[index], [])
+
+
+def detection_collate(batch):
+    """Ragged collate (reference data/coco.py:260-284): lists, not stacks."""
+    imgs, targets, masks, num_crowds = [], [], [], []
+    for sample in batch:
+        imgs.append(sample[0])
+        targets.append(np.asarray(sample[1][0], np.float32))
+        masks.append(np.asarray(sample[1][1], np.float32))
+        num_crowds.append(sample[1][2])
+    return imgs, (targets, masks, num_crowds)
+
+
+def _resize_bilinear(masks: np.ndarray, size) -> np.ndarray:
+    """[n, h, w] float32 -> [n, size[0], size[1]]: torch's bilinear
+    downsample without antialiasing (``F.interpolate``,
+    ``align_corners=False``), the reference's."""
+    import torch
+    import torch.nn.functional as F
+    if tuple(masks.shape[-2:]) == tuple(size):
+        return np.asarray(masks, np.float32)
+    t = torch.from_numpy(np.ascontiguousarray(masks, np.float32))[None]
+    return F.interpolate(t, size=tuple(size), mode='bilinear',
+                         align_corners=False)[0].numpy()
+
+
+def pad_batch(imgs, targets, masks, num_crowds, max_gt: int = 100,
+              multires=None):
+    """Fixed-shape batch: pads or truncates gt to `max_gt` per image.
+
+    Returns a dict of numpy arrays:
+      image      [B, S, S, 3] float32
+      gt_boxes   [B, max_gt, 4]   (zeros padding)
+      gt_labels  [B, max_gt] int32  (-1 label marks crowds, -2 marks padding)
+      gt_masks   [B, max_gt, S, S] uint8
+      num_gts    [B] int32  (valid incl. crowds)
+      num_crowds [B] int32
+    Truncation drops crowd annotations first, then the highest-index
+    (latest in annotation order) gts, NOT by area: reordering gts would
+    change the matcher's tie-breaks.
+
+    ``multires``: optional ``{'proto': (Hp, Wp), 'seg': (Hs, Ws) | None}``.
+    When given, the full-res ``gt_masks`` are REPLACED by pre-downsampled
+    uint8 targets ``gt_masks_proto`` (and ``gt_masks_seg``), computed in the
+    reference's order of operations: torch-bilinear downsample of the SOFT
+    augmented mask, THEN binarize at 0.5 (multibox_loss.py:515-523,
+    225-228).  Only valid for lincomb configs with
+    mask_proto_binarize_downsampled_gt.
+    """
+    B = len(imgs)
+    S = imgs[0].shape[0]
+    out_img = np.stack(imgs).astype(np.float32)
+    boxes = np.zeros((B, max_gt, 4), np.float32)
+    labels = np.full((B, max_gt), -2, np.int32)
+    out_masks = None if multires else \
+        np.zeros((B, max_gt, S, S), np.uint8)
+    if multires:
+        proto = np.zeros((B, max_gt) + tuple(multires['proto']), np.uint8)
+        seg_hw = multires.get('seg')
+        seg = None if seg_hw is None else \
+            np.zeros((B, max_gt) + tuple(seg_hw), np.uint8)
+    n_gts = np.zeros(B, np.int32)
+    n_crowds = np.zeros(B, np.int32)
+
+    for i in range(B):
+        t = np.asarray(targets[i], np.float32)
+        m = np.asarray(masks[i])
+        nc = int(num_crowds[i])
+        n = len(t)
+        if n > max_gt:
+            # keep all non-crowds up to max_gt; drop crowds, then largest idx
+            n_keep_crowds = max(0, max_gt - (n - nc))
+            drop = nc - n_keep_crowds
+            if drop > 0:
+                t = t[:n - drop]
+                m = m[:n - drop]
+                nc = n_keep_crowds
+            if len(t) > max_gt:
+                t = t[:max_gt]
+                m = m[:max_gt]
+            n = len(t)
+        boxes[i, :n] = t[:, :4]
+        labels[i, :n] = t[:, 4].astype(np.int32)
+        if multires:
+            if n:
+                soft = np.asarray(m[:n], np.float32)
+                proto[i, :n] = _resize_bilinear(soft, multires['proto']) > 0.5
+                if seg is not None:
+                    seg[i, :n] = _resize_bilinear(soft, seg_hw) > 0.5
+        else:
+            out_masks[i, :n] = (m > 0.5).astype(np.uint8)
+        n_gts[i] = n
+        n_crowds[i] = nc
+
+    out = dict(image=out_img, gt_boxes=boxes, gt_labels=labels,
+               num_gts=n_gts, num_crowds=n_crowds)
+    if multires:
+        out['gt_masks_proto'] = proto
+        if seg is not None:
+            out['gt_masks_seg'] = seg
+    else:
+        out['gt_masks'] = out_masks
+    return out
+
+
+def enforce_size(img, targets, masks, num_crowds, new_w, new_h):
+    """Resize (aspect-preserving) + zero-pad an image/gt tuple to exactly
+    (new_h, new_w): host-side util for batching preserve_aspect_ratio
+    inputs (reference data/coco.py:219-255).
+
+    img: [h, w, 3] float; masks: [n, h, w]; targets: [n, 5] normalized.
+    """
+    import cv2
+    h, w = img.shape[:2]
+    if h == new_h and w == new_w:
+        return img, targets, masks, num_crowds
+
+    w_prime = new_w
+    h_prime = h * new_w / w
+    if h_prime > new_h:
+        w_prime *= new_h / h_prime
+        h_prime = new_h
+    w_prime, h_prime = int(w_prime), int(h_prime)
+
+    img = cv2.resize(img, (w_prime, h_prime), interpolation=cv2.INTER_LINEAR)
+    if masks is not None and len(masks):
+        m = cv2.resize(masks.transpose(1, 2, 0), (w_prime, h_prime),
+                       interpolation=cv2.INTER_LINEAR)
+        masks = m[None] if m.ndim == 2 else m.transpose(2, 0, 1)
+
+    if targets is not None and len(targets):
+        targets = targets.copy()
+        targets[:, [0, 2]] *= (w_prime / new_w)
+        targets[:, [1, 3]] *= (h_prime / new_h)
+
+    out = np.zeros((new_h, new_w) + img.shape[2:], img.dtype)
+    out[:h_prime, :w_prime] = img
+    if masks is not None and len(masks):
+        mp = np.zeros((masks.shape[0], new_h, new_w), masks.dtype)
+        mp[:, :h_prime, :w_prime] = masks
+        masks = mp
+    return out, targets, masks, num_crowds

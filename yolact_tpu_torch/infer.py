@@ -32,7 +32,7 @@ from yolact_tpu_torch.detect.postprocess import (postprocess_device,
                                                  rescore_with_maskiou)
 from yolact_tpu_torch.models.layers import s2d_input
 from yolact_tpu_torch.models.resnet import DCNLayer
-from yolact_tpu_torch.models.yolact import Yolact
+from yolact_tpu_torch.models.yolact import Yolact, init_train_heads
 from yolact_tpu_torch.ops.boxes import decode
 
 
@@ -240,11 +240,15 @@ def random_state_dict(cfg: YolactConfig, generator: torch.Generator
     """Seeded random float32 weights in the JAX package's init scheme:
     xavier-uniform conv kernels, zero biases, identity batch norm; a DCN
     layer's offset/mask conv is all zero (offsets 0, mask 0.5) and its
-    weight is flax's kaiming-normal (truncated normal, variance 2/fan_in)."""
+    weight is flax's kaiming-normal (truncated normal, variance 2/fan_in);
+    the class-existence layer is flax's Dense default (truncated normal,
+    variance 1/fan_in)."""
     model = Yolact(cfg)
+    # the training-only heads draw last, so the other weights are the same
+    # numbers whether or not a config has them
     with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, nn.Conv2d):
+        for name, m in model.named_modules():
+            if isinstance(m, nn.Conv2d) and name != 'semantic_seg_conv':
                 nn.init.xavier_uniform_(m.weight, generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
@@ -258,4 +262,5 @@ def random_state_dict(cfg: YolactConfig, generator: torch.Generator
                 nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
                                       b=2 * std, generator=generator)
                 m.bias.zero_()
-    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return dict(sd, **init_train_heads(cfg, generator))

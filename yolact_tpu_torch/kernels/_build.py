@@ -17,11 +17,24 @@ Products the kernels do want fused are written as explicit ``fmaf``.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*``
 and returns ``cudaGetLastError()`` after the launch; :func:`check` turns a
-non-zero code into an exception.
+non-zero code into an exception.  A wrapper launches inside
+:func:`device_guard`, ``torch.cuda.device(x.device)`` unless that device is
+current already: a launch goes to the current device
+whatever stream it names, and ``csrc/mask_assembly.cu`` sizes its grid from
+``cudaGetDevice``, so a wrapper called for ``cuda:1`` while ``cuda:0`` is
+current must switch.
+
+The kernels do not record themselves for autograd.  :func:`no_grad_inputs`
+is the guard of a wrapper whose kernel has no gradient (mask assembly, the
+IoU max; the JAX package's have none either): it raises where a detached
+result would silently cut a graph.  The stem and DCN wrappers go through
+their ``torch.autograd.Function`` instead, and only when :func:`needs_grad`
+says a graph is being recorded: inference launches the kernel directly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -58,6 +71,12 @@ SIGNATURES = {
     # x [b, 12, h, w], w2 [64, 12, 4, 4], out [b, 64, h, w], dtype (0 f32,
     # 1 bf16), b, h, w, stream
     'yolact_stem_s2d_conv': (_P, _P, _P, _I, _I, _I, _I, _P),
+    # g_cols [b*ho*wo, k^2*c], x [b, h, w, c] (NHWC), offset [b, 2k^2, ho,
+    # wo] f32, mask [b, k^2, ho, wo], grad_x [b, h, w, c] f32 (zeroed),
+    # grad_offset f32, grad_mask, dtype (0 f32, 1 bf16), b, c, h, w, ho, wo,
+    # k, stride, pad, dil, stream
+    'yolact_dcn_col2im': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -147,9 +166,35 @@ def load() -> ctypes.CDLL:
         return lib
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Grad mode is on and one of `tensors` requires grad: autograd would
+    record a differentiable call on them."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def no_grad_inputs(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and one of `tensors` requires grad."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f'{name} has no gradient: call it under torch.no_grad() or on '
+            f'detached tensors')
+
+
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f'{name}: CUDA launch failed with cudaError {err}')
+
+
+_NO_GUARD = contextlib.nullcontext()
+
+
+def device_guard(device: torch.device):
+    """A context in which `device` is the current CUDA device:
+    ``torch.cuda.device(device)``, or nothing where it is current already
+    (the usual case, and inference at batch 1 waits for the host)."""
+    if device.index == torch.cuda.current_device():
+        return _NO_GUARD
+    return torch.cuda.device(device)
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -39,6 +39,27 @@ maps under 256 pixels, every map of the YOLACT++ configs).
 
 :func:`dcn_columns` and :func:`deform_conv2d` take the plain version only
 for tensors on the CPU.  For CUDA tensors they launch the kernel or raise.
+
+Gradients.  On the card :func:`dcn_columns` runs the sampling kernel inside
+:class:`DCNColumns`, whose backward is a second hand-written kernel,
+``csrc/dcn_col2im.cu`` (:func:`dcn_col2im`): from the columns' gradient it
+scatters ``grad_x`` with float32 ``atomicAdd`` into an NHWC buffer (rounded
+once to x's dtype) and reduces the offset and mask gradients over the
+channels in the same pass.  It stands for the JAX package's hand-written XLA
+backward (``yolact_tpu/kernels/dcn.py:_bilinear_gather_bwd`` and the mask
+product's VJP), which is not a Pallas kernel.  The GEMM's gradients stay
+``torch.matmul``'s own.  The plain version of the backward,
+:func:`dcn_col2im_plain`, is autograd through :func:`dcn_columns_plain`
+(``torch.gather``'s backward is the scatter-add, the selected corner weights
+carry the coordinate gradients, ``floor`` gives none); on the CPU autograd
+runs through the plain forward directly.  Corners outside the map (far and
+infinite offsets included) add exactly nothing to any gradient; a NaN
+offset, whose columns are NaN, has NaN gradients.  Two deltas from JAX in
+bfloat16: JAX scatters ``grad_x`` in bfloat16, so its sum depends on the
+order, while the kernel sums in float32 and rounds once; and the atomics'
+order changes from run to run, so ``grad_x`` is reproducible to a tolerance,
+not bit for bit.  The plain versions also take float64 (for
+``torch.autograd.gradcheck``); the kernels take float32 and bfloat16.
 """
 
 from __future__ import annotations
@@ -49,7 +70,8 @@ import torch
 
 from yolact_tpu_torch.kernels import _build
 
-launches = 0        # kernel launches by dcn_columns since import / reset
+launches = 0        # sampling-kernel launches since import / reset
+col2im_launches = 0  # backward-kernel launches since import / reset
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -60,14 +82,17 @@ def out_size(size: int, k: int, stride: int, padding: int,
 
 
 def _check(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
-           k: int, stride: int, padding: int, dilation: int):
-    """Shapes, dtypes and layouts both versions take; returns (ho, wo)."""
+           k: int, stride: int, padding: int, dilation: int,
+           plain: bool = False):
+    """Shapes, dtypes and layouts both versions take (`plain`: float64 x
+    and offsets as well); returns (ho, wo)."""
     if x.dim() != 4:
         raise ValueError(f'dcn: x must be [B, Cin, H, W], got '
                          f'{tuple(x.shape)}')
-    if x.dtype not in _DTYPE_CODES:
+    f64 = plain and x.dtype == offset.dtype == torch.float64
+    if x.dtype not in _DTYPE_CODES and not f64:
         raise ValueError(f'dcn: x dtype {x.dtype} is not float32 or bfloat16')
-    if offset.dtype != torch.float32:
+    if offset.dtype != torch.float32 and not f64:
         raise ValueError(f'dcn: offset must be float32, got {offset.dtype}')
     if not mask.is_floating_point():
         raise ValueError(f'dcn: mask must be floating point, got {mask.dtype}')
@@ -120,6 +145,7 @@ def bilinear_sample_plain(x: torch.Tensor, ys: torch.Tensor,
     y0i = _corner_index(y0, h)
     x0i = _corner_index(x0, w)
     flat = x.reshape(b, h * w, c)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     out = None
     for dy, wy in ((0, wy0), (1, wy1)):
         for dx, wx in ((0, wx0), (1, wx1)):
@@ -128,8 +154,12 @@ def bilinear_sample_plain(x: torch.Tensor, ys: torch.Tensor,
             valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
             idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
             g = torch.gather(flat, 1, idx[:, :, None].expand(b, -1, c))
-            weight = torch.where(valid, wy * wx, 0.0).to(x.dtype)
-            term = (g * weight[:, :, None]).float()
+            # the factors are selected, not the product: the same value,
+            # and an invalid corner's inf or NaN factor sends no NaN back
+            # through the product's gradient
+            weight = (torch.where(valid, wy, 0.0)
+                      * torch.where(valid, wx, 0.0)).to(x.dtype)
+            term = (g * weight[:, :, None]).to(acc)
             out = term if out is None else out + term
     return out.to(x.dtype)
 
@@ -139,15 +169,15 @@ def dcn_columns_plain(x: torch.Tensor, offset: torch.Tensor,
                       padding: int = 1, dilation: int = 1) -> torch.Tensor:
     """Modulated im2col columns [B*Ho*Wo, K*K*Cin] in x's dtype, column
     t*Cin + c."""
-    ho, wo = _check(x, offset, mask, k, stride, padding, dilation)
+    ho, wo = _check(x, offset, mask, k, stride, padding, dilation, plain=True)
     b, cin = x.shape[:2]
     kk = k * k
     dev = x.device
     tap = torch.arange(kk, device=dev)
     base_y = ((torch.arange(ho, device=dev) * stride - padding)[:, None, None]
-              + (tap // k * dilation)[None, None, :]).float()  # [Ho, 1, KK]
+              + (tap // k * dilation)[None, None, :]).to(offset.dtype)
     base_x = ((torch.arange(wo, device=dev) * stride - padding)[None, :, None]
-              + (tap % k * dilation)[None, None, :]).float()  # [1, Wo, KK]
+              + (tap % k * dilation)[None, None, :]).to(offset.dtype)
     off = offset.view(b, kk, 2, ho, wo).permute(0, 3, 4, 1, 2)
     ys = (base_y + off[..., 0]).reshape(b, ho * wo * kk)
     xs = (base_x + off[..., 1]).reshape(b, ho * wo * kk)
@@ -157,32 +187,123 @@ def dcn_columns_plain(x: torch.Tensor, offset: torch.Tensor,
     return cols.view(b * ho * wo, kk * cin)
 
 
+def _geometry(x, offset, mask, k, stride, padding, dilation):
+    """Checked launch arguments: (NHWC x, mask in x's dtype, the ints the
+    C entry points take after the dtype code)."""
+    ho, wo = _check(x, offset, mask, k, stride, padding, dilation)
+    b, cin, h, w = x.shape
+    return (_nhwc(x), mask.to(x.dtype).contiguous(),
+            (b, cin, h, w, ho, wo, k, stride, padding, dilation))
+
+
+def _launch_im2col(xh, offset, mask, dims) -> torch.Tensor:
+    """The sampling kernel on checked CUDA tensors (xh NHWC)."""
+    b, cin, _, _, ho, wo, k = dims[:7]
+    cols = torch.empty((b * ho * wo, k * k * cin), dtype=xh.dtype,
+                       device=xh.device)
+    if cols.numel() == 0:
+        return cols
+    lib = _build.load()
+    global launches
+    with _build.device_guard(xh.device):
+        _build.check(lib.yolact_dcn_im2col(
+            xh.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+            cols.data_ptr(), _DTYPE_CODES[xh.dtype], *dims,
+            _build.stream_ptr(xh.device)), 'yolact_dcn_im2col')
+    launches += 1
+    return cols
+
+
+def _launch_col2im(g_cols, xh, offset, mask, dims):
+    """The backward kernel on checked CUDA tensors (xh NHWC): (grad_xh NHWC
+    in xh's dtype, grad_offset float32, grad_mask in xh's dtype)."""
+    grad_x = torch.zeros(xh.shape, dtype=torch.float32, device=xh.device)
+    grad_offset = torch.empty_like(offset)
+    grad_mask = torch.empty_like(mask)
+    if g_cols.numel() == 0:
+        return grad_x.to(xh.dtype), grad_offset.zero_(), grad_mask.zero_()
+    lib = _build.load()
+    global col2im_launches
+    with _build.device_guard(xh.device):
+        _build.check(lib.yolact_dcn_col2im(
+            g_cols.data_ptr(), xh.data_ptr(), offset.data_ptr(),
+            mask.data_ptr(), grad_x.data_ptr(), grad_offset.data_ptr(),
+            grad_mask.data_ptr(), _DTYPE_CODES[xh.dtype], *dims,
+            _build.stream_ptr(xh.device)), 'yolact_dcn_col2im')
+    col2im_launches += 1
+    return grad_x.to(xh.dtype), grad_offset, grad_mask
+
+
+def dcn_col2im_plain(g_cols: torch.Tensor, x: torch.Tensor,
+                     offset: torch.Tensor, mask: torch.Tensor, k: int = 3,
+                     stride: int = 1, padding: int = 1, dilation: int = 1):
+    """The gradients of :func:`dcn_columns_plain` for the columns' gradient
+    `g_cols` [B*Ho*Wo, K*K*Cin]: (grad_x [B, Cin, H, W] in x's dtype,
+    grad_offset, grad_mask in the mask's dtype), by autograd."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, offset, mask)]
+        cols = dcn_columns_plain(*leaves, k, stride, padding, dilation)
+        return torch.autograd.grad(cols, leaves, g_cols.to(cols.dtype))
+
+
+def dcn_col2im(g_cols: torch.Tensor, x: torch.Tensor, offset: torch.Tensor,
+               mask: torch.Tensor, k: int = 3, stride: int = 1,
+               padding: int = 1, dilation: int = 1):
+    """Same contract as :func:`dcn_col2im_plain`; the CUDA kernel for CUDA
+    tensors (grad_x comes back as a channels_last view; its last bits
+    change from run to run, see the module docstring)."""
+    if x.device.type == 'cpu':
+        return dcn_col2im_plain(g_cols, x, offset, mask, k, stride, padding,
+                                dilation)
+    if x.device.type != 'cuda':
+        raise ValueError(f'dcn_col2im: unsupported device {x.device}')
+    xh, m, dims = _geometry(x, offset, mask, k, stride, padding, dilation)
+    b, cin, _, _, ho, wo = dims[:6]
+    if (tuple(g_cols.shape) != (b * ho * wo, k * k * cin)
+            or g_cols.dtype != x.dtype or g_cols.device != x.device):
+        raise ValueError(
+            f'dcn_col2im: g_cols must be {(b * ho * wo, k * k * cin)} '
+            f'{x.dtype} on {x.device}, got {tuple(g_cols.shape)} '
+            f'{g_cols.dtype} on {g_cols.device}')
+    gx, go, gm = _launch_col2im(g_cols.contiguous(), xh, offset, m, dims)
+    return gx.permute(0, 3, 1, 2), go, gm.to(mask.dtype)
+
+
+class DCNColumns(torch.autograd.Function):
+    """The sampling kernel with a gradient: forward ``csrc/dcn_im2col.cu``,
+    backward ``csrc/dcn_col2im.cu``.  Takes the NHWC x, the float32 offsets,
+    the mask in x's dtype and the launch geometry."""
+
+    @staticmethod
+    def forward(ctx, xh, offset, mask, dims):
+        ctx.save_for_backward(xh, offset, mask)
+        ctx.dims = dims
+        return _launch_im2col(xh, offset, mask, dims)
+
+    @staticmethod
+    def backward(ctx, g_cols):
+        xh, offset, mask = ctx.saved_tensors
+        gx, go, gm = _launch_col2im(g_cols.contiguous(), xh, offset, mask,
+                                    ctx.dims)
+        need = ctx.needs_input_grad
+        return (gx if need[0] else None, go if need[1] else None,
+                gm if need[2] else None, None)
+
+
 def dcn_columns(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                 k: int = 3, stride: int = 1, padding: int = 1,
                 dilation: int = 1) -> torch.Tensor:
-    """Same contract as :func:`dcn_columns_plain`; the CUDA kernel for
-    CUDA tensors."""
+    """Same contract as :func:`dcn_columns_plain`; the CUDA kernels for
+    CUDA tensors, differentiable in x, offset and mask."""
     if x.device.type == 'cpu':
         return dcn_columns_plain(x, offset, mask, k, stride, padding,
                                  dilation)
     if x.device.type != 'cuda':
         raise ValueError(f'dcn_columns: unsupported device {x.device}')
-    ho, wo = _check(x, offset, mask, k, stride, padding, dilation)
-    b, cin, h, w = x.shape
-    xh = _nhwc(x)
-    mask = mask.to(x.dtype).contiguous()
-    cols = torch.empty((b * ho * wo, k * k * cin), dtype=x.dtype,
-                       device=x.device)
-    if cols.numel() == 0:
-        return cols
-    lib = _build.load()
-    global launches
-    _build.check(lib.yolact_dcn_im2col(
-        xh.data_ptr(), offset.data_ptr(), mask.data_ptr(), cols.data_ptr(),
-        _DTYPE_CODES[x.dtype], b, cin, h, w, ho, wo, k, stride, padding,
-        dilation, _build.stream_ptr(x.device)), 'yolact_dcn_im2col')
-    launches += 1
-    return cols
+    xh, m, dims = _geometry(x, offset, mask, k, stride, padding, dilation)
+    if not _build.needs_grad(x, offset, mask):      # inference: no graph
+        return _launch_im2col(xh, offset, m, dims)
+    return DCNColumns.apply(xh, offset, m, dims)
 
 
 def _gemm(cols: torch.Tensor, weight: torch.Tensor,

@@ -59,7 +59,9 @@ def assemble_masks_plain(proto: torch.Tensor, coeffs: torch.Tensor,
 def assemble_masks(proto: torch.Tensor, coeffs: torch.Tensor,
                    boxes: torch.Tensor, padding: int = 1) -> torch.Tensor:
     """Same contract as :func:`assemble_masks_plain`; the CUDA kernel for
-    CUDA tensors."""
+    CUDA tensors.  No gradient (the JAX kernel has none): raises under grad
+    mode when an input requires grad."""
+    _build.no_grad_inputs('assemble_masks', proto, coeffs, boxes)
     if proto.device.type == 'cpu':
         return assemble_masks_plain(proto, coeffs, boxes, padding)
     if proto.device.type != 'cuda':
@@ -88,9 +90,10 @@ def assemble_masks(proto: torch.Tensor, coeffs: torch.Tensor,
         return out
     lib = _build.load()
     global launches
-    _build.check(lib.yolact_mask_assembly(
-        proto.data_ptr(), coeffs.data_ptr(), boxes.data_ptr(),
-        out.data_ptr(), b, d, hp, wp, md, float(padding),
-        _build.stream_ptr(proto.device)), 'yolact_mask_assembly')
+    with _build.device_guard(proto.device):
+        _build.check(lib.yolact_mask_assembly(
+            proto.data_ptr(), coeffs.data_ptr(), boxes.data_ptr(),
+            out.data_ptr(), b, d, hp, wp, md, float(padding),
+            _build.stream_ptr(proto.device)), 'yolact_mask_assembly')
     launches += 1
     return out

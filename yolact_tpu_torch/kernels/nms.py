@@ -123,7 +123,9 @@ def _plan_array(n: int, k: int, sms: int):
 
 def nms_iou_max(boxes: torch.Tensor) -> torch.Tensor:
     """Same contract as :func:`nms_iou_max_plain`; the CUDA kernel for a
-    CUDA tensor."""
+    CUDA tensor.  No gradient (the JAX kernel has none): raises under grad
+    mode when `boxes` requires grad."""
+    _build.no_grad_inputs('nms_iou_max', boxes)
     if boxes.device.type == 'cpu':
         return nms_iou_max_plain(boxes)
     if boxes.device.type != 'cuda':
@@ -141,8 +143,9 @@ def nms_iou_max(boxes: torch.Tensor) -> torch.Tensor:
     lib = _build.load()
     sms = torch.cuda.get_device_properties(boxes.device).multi_processor_count
     global launches
-    _build.check(lib.yolact_fast_nms_iou_max(
-        boxes.data_ptr(), out.data_ptr(), n, k, _plan_array(n, k, sms),
-        _build.stream_ptr(boxes.device)), 'yolact_fast_nms_iou_max')
+    with _build.device_guard(boxes.device):
+        _build.check(lib.yolact_fast_nms_iou_max(
+            boxes.data_ptr(), out.data_ptr(), n, k, _plan_array(n, k, sms),
+            _build.stream_ptr(boxes.device)), 'yolact_fast_nms_iou_max')
     launches += 1
     return out

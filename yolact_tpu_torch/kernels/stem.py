@@ -19,6 +19,14 @@ TF32 tensor cores would round the inputs.  Only the stem's shape is taken:
 
 :func:`stem_conv_s2d` takes the plain version only for a tensor on the CPU.
 For a CUDA tensor it launches the kernel or raises.
+
+Gradients.  On the card the forward is the kernel inside
+:class:`StemConvS2D`, whose backward is the gradient of the plain version's
+formulation (pad (2, 1), float32 conv) by ``torch.nn.grad.conv2d_weight`` and
+``conv2d_input``: library convs, as the JAX package's backward is XLA's conv
+VJP outside any Pallas body (``yolact_tpu/kernels/stem.py:_bwd``).  Only the
+gradients that are needed are computed; the image never needs one.  On the
+CPU autograd runs through the plain version itself.
 """
 
 from __future__ import annotations
@@ -63,22 +71,61 @@ def _check(x: torch.Tensor, w2: torch.Tensor) -> None:
                          'aligned (the kernel copies it in 16-byte pieces)')
 
 
-def stem_conv_s2d(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
-    """Same contract as :func:`stem_conv_s2d_plain` for the stem's shape;
-    the CUDA kernel for CUDA tensors."""
-    if x.device.type == 'cpu':
-        return stem_conv_s2d_plain(x, w2)
-    if x.device.type != 'cuda':
-        raise ValueError(f'stem_conv_s2d: unsupported device {x.device}')
-    _check(x, w2)
+def _launch(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """The kernel on checked CUDA tensors; records nothing for autograd."""
     b, _, h, w = x.shape
     out = torch.empty((b, COUT, h, w), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = _build.load()
     global launches
-    _build.check(lib.yolact_stem_s2d_conv(
-        x.data_ptr(), w2.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype],
-        b, h, w, _build.stream_ptr(x.device)), 'yolact_stem_s2d_conv')
+    with _build.device_guard(x.device):
+        _build.check(lib.yolact_stem_s2d_conv(
+            x.data_ptr(), w2.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[x.dtype], b, h, w, _build.stream_ptr(x.device)),
+            'yolact_stem_s2d_conv')
     launches += 1
     return out
+
+
+def stem_conv_s2d_grads(x: torch.Tensor, w2: torch.Tensor, g: torch.Tensor,
+                        need_x: bool = True, need_w2: bool = True):
+    """(grad_x, grad_w2) of :func:`stem_conv_s2d_plain` for the output
+    gradient `g`, each in its input's dtype, None where not needed: the
+    float32 conv's gradients over the padded input."""
+    xp = F.pad(x.float(), (2, 1, 2, 1))
+    gf = g.float()
+    gx = gw = None
+    if need_x:
+        gx = torch.nn.grad.conv2d_input(xp.shape, w2.float(), gf)
+        gx = gx[:, :, 2:-1, 2:-1].to(x.dtype)
+    if need_w2:
+        gw = torch.nn.grad.conv2d_weight(xp, w2.shape, gf).to(w2.dtype)
+    return gx, gw
+
+
+class StemConvS2D(torch.autograd.Function):
+    """The stem kernel with a gradient (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w2):
+        ctx.save_for_backward(x, w2)
+        return _launch(x, w2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w2 = ctx.saved_tensors
+        return stem_conv_s2d_grads(x, w2, g, *ctx.needs_input_grad)
+
+
+def stem_conv_s2d(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Same contract as :func:`stem_conv_s2d_plain` for the stem's shape;
+    the CUDA kernel for CUDA tensors, differentiable in x and w2."""
+    if x.device.type == 'cpu':
+        return stem_conv_s2d_plain(x, w2)
+    if x.device.type != 'cuda':
+        raise ValueError(f'stem_conv_s2d: unsupported device {x.device}')
+    _check(x, w2)
+    if not _build.needs_grad(x, w2):                # inference: no graph
+        return _launch(x, w2)
+    return StemConvS2D.apply(x, w2)

@@ -57,9 +57,22 @@ def s2d_input(x: torch.Tensor, from_rgb: bool = False) -> torch.Tensor:
 
 
 class BatchNorm2d(nn.Module):
-    """Eval-mode batch norm (running statistics, eps 1e-5) with the
-    reference's parameter names.  Statistics stay float32 whatever the
-    input dtype; the output has the input's dtype."""
+    """Batch norm (eps 1e-5) with the reference's parameter names.
+    Statistics stay float32 whatever the input dtype; the output has the
+    input's dtype.
+
+    ``train=False`` normalises with the running statistics.  ``train=True``
+    (JAX ``BatchNorm(train=True)``) normalises with the batch's and works
+    out the next running statistics, ``0.9 * running + 0.1 * batch`` (torch
+    momentum 0.1), with the BIASED batch variance as flax stores it
+    (``F.batch_norm`` would store the unbiased one).  As flax returns the new
+    ``batch_stats`` beside the output instead of writing them, the forward
+    leaves them in ``pending``: :func:`commit_batch_stats` writes them to the
+    buffers.  So a step that turns out non-finite can drop them, and a
+    block replayed by activation checkpointing, which computes the same
+    pending values again, does not move the running statistics twice."""
+
+    momentum = 0.1
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -68,10 +81,45 @@ class BatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer('running_mean', torch.zeros(num_features))
         self.register_buffer('running_var', torch.ones(num_features))
+        self.pending = None     # (running_mean, running_var) after this batch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        # momentum 1 leaves exactly the batch mean and its unbiased variance
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                           self.eps)
+        with torch.no_grad():
+            n = x.numel() // x.shape[1]
+            self.pending = (
+                torch.lerp(self.running_mean, mean, self.momentum),
+                torch.lerp(self.running_var, var * ((n - 1) / n),
+                           self.momentum))
+        return out
+
+
+def commit_batch_stats(model: nn.Module) -> int:
+    """Write every batch norm's pending running statistics (left by a
+    ``train=True`` forward) to its buffers and clear them; returns how many
+    layers had some."""
+    n = 0
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d) and m.pending is not None:
+            m.running_mean.copy_(m.pending[0])
+            m.running_var.copy_(m.pending[1])
+            m.pending = None
+            n += 1
+    return n
+
+
+def drop_batch_stats(model: nn.Module) -> None:
+    """Forget the pending running statistics (a step that is skipped)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.pending = None
 
 
 def max_pool(x: torch.Tensor, kernel: int, stride: int, padding: int = 0,

@@ -15,6 +15,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from yolact_tpu_torch.kernels import dcn, stem
 from yolact_tpu_torch.models.layers import (BatchNorm2d, max_pool,
@@ -82,16 +83,22 @@ class Bottleneck(nn.Module):
                       bias=False, dilation=dilation),
             BatchNorm2d(planes * EXPANSION)) if has_downsample else None
 
-    def forward(self, x: torch.Tensor,
-                use_kernels: bool = True) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        if isinstance(self.conv2, DCNLayer):
+    @property
+    def use_dcn(self) -> bool:
+        return isinstance(self.conv2, DCNLayer)
+
+    def forward(self, x: torch.Tensor, use_kernels: bool = True,
+                bn_train: bool = False) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x), bn_train))
+        if self.use_dcn:
             out = self.conv2(out, use_kernels)
         else:
             out = self.conv2(out)
-        out = F.relu(self.bn2(out))
-        out = self.bn3(self.conv3(out))
-        residual = x if self.downsample is None else self.downsample(x)
+        out = F.relu(self.bn2(out, bn_train))
+        out = self.bn3(self.conv3(out), bn_train)
+        residual = x
+        if self.downsample is not None:
+            residual = self.downsample[1](self.downsample[0](x), bn_train)
         return F.relu(out + residual)
 
 
@@ -138,10 +145,21 @@ class ResNetBackbone(nn.Module):
     (BGR) image, ``[B, 12, S/2, S/2]`` (``models/layers.py:s2d_input``),
     and the stem runs as the 4x4/s1 conv of ``kernels/stem.py`` with the
     weight derived from ``conv1.weight`` by ``s2d_stem_kernel``.  The
-    parameter keeps its name and shape, so state dicts are unchanged.  The
-    derived weight is cached and rebuilt whenever ``conv1.weight`` changes:
-    another storage (a dtype cast or a move to another device) or an
-    in-place write (``load_state_dict``) bumps the key it is cached on."""
+    parameter keeps its name and shape, so state dicts are unchanged.  For
+    inference the derived weight is cached and rebuilt whenever
+    ``conv1.weight`` changes: another storage (a dtype cast or a move to
+    another device) or an in-place write (``load_state_dict``) bumps the key
+    it is cached on.  Under grad mode, when ``conv1.weight`` requires grad,
+    it is derived anew in every forward as part of the graph, so the stem's
+    gradient reaches the parameter.
+
+    ``bn_train`` runs the batch norms on batch statistics
+    (``models/layers.py:BatchNorm2d``).  ``remat`` ('none', 'dcn', 'all': the
+    JAX ``train_remat``) wraps the DCN bottlenecks, or all of them, in
+    ``torch.utils.checkpoint``: their intermediates (the im2col columns most
+    of all) are computed again in the backward pass instead of kept, so each
+    such block's forward, the DCN sampling kernel included, runs twice per
+    step.  The numbers do not change."""
 
     def __init__(self, layers: Sequence[int],
                  dcn_layers: Sequence[int] = (0, 0, 0, 0),
@@ -167,6 +185,8 @@ class ResNetBackbone(nn.Module):
                 conv.bias) != ((7, 7), (2, 2), (3, 3), (1, 1), None):
             raise NotImplementedError('stem_s2d supports 7x7/s2/p3')
         w = conv.weight
+        if torch.is_grad_enabled() and w.requires_grad:
+            return s2d_stem_kernel(w).contiguous()
         if self._w2 is not None:
             src, version, w2 = self._w2
             # src shares w's storage while it is cached, so an equal
@@ -179,18 +199,29 @@ class ResNetBackbone(nn.Module):
             self._w2 = (src, w._version, s2d_stem_kernel(src).contiguous())
         return self._w2[2]
 
-    def forward(self, x: torch.Tensor,
-                use_kernels: bool = True) -> Tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor, use_kernels: bool = True,
+                bn_train: bool = False,
+                remat: str = 'none') -> Tuple[torch.Tensor, ...]:
+        if remat not in ('none', 'dcn', 'all'):
+            raise ValueError(f"train_remat={remat!r}: expected one of "
+                             f"'none', 'dcn', 'all'")
         if self.stem_s2d:
             fn = stem.stem_conv_s2d if use_kernels else stem.stem_conv_s2d_plain
             x = fn(x.contiguous(), self.s2d_weight())
         else:
             x = self.conv1(x)
-        x = F.relu(self.bn1(x))
+        x = F.relu(self.bn1(x, bn_train))
         x = max_pool(x, 3, 2, 1)
         outs = []
         for stage in self.layers:
             for block in stage:
-                x = block(x, use_kernels)
+                if (torch.is_grad_enabled()
+                        and (remat == 'all'
+                             or (remat == 'dcn' and block.use_dcn))):
+                    x = checkpoint(block, x, use_kernels, bn_train,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    x = block(x, use_kernels, bn_train)
             outs.append(x)
         return tuple(outs)

@@ -5,8 +5,16 @@ lincomb configurations (``yolact_base``, and ``yolact_plus_base`` with its
 DCN blocks).  With ``cfg.use_maskiou`` the model also holds the YOLACT++
 mask scorer as ``maskiou_net`` (the JAX package keeps it in a separate
 ``MaskIoUHead`` tree); ``forward`` does not run it, ``infer`` does, on the
-assembled masks.  Training outputs, prototypes-as-features and the other
-backbones are not ported yet.
+assembled masks.  Prototypes-as-features and the other backbones are not
+ported yet.
+
+``forward(x, train=True)`` is the training forward: batch norm on batch
+statistics unless ``cfg.freeze_bn`` (the new running statistics are left
+pending, ``models/layers.py:commit_batch_stats``), ``cfg.train_remat``
+checkpointing of the bottlenecks, and two more outputs.  The training-only
+heads ``semantic_seg_conv`` and ``class_existence_fc`` carry the
+reference's names, so a reference ``.pth`` loads; the eval forward does not
+run them.
 
 Input is NCHW, already preprocessed (``infer.preprocess_device``); with
 ``cfg.stem_s2d`` it is the 2x2 space-to-depth ``[B, 12, S/2, S/2]``
@@ -18,10 +26,16 @@ Output dict, in the JAX package's layouts:
   mask   [B, P, Md]      mask coefficients
   priors [P, 4]          center-size anchors, float32
   proto  [B, Hp, Wp, Md] prototypes
+and with ``train=True``:
+  segm    [B, Hs, Ws, C-1] semantic-segmentation logits on the finest FPN
+                           level (``cfg.use_semantic_segmentation_loss``)
+  classes [B, C-1]         class-existence logits
+                           (``cfg.use_class_existence_loss``)
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -33,6 +47,28 @@ from yolact_tpu_torch.models.heads import (FastMaskIoUNet, PredictionHead,
                                            ProtoNet)
 from yolact_tpu_torch.models.resnet import DCNLayer, ResNetBackbone
 from yolact_tpu_torch.ops.anchors import generate_priors
+
+
+def init_train_heads(cfg: YolactConfig, generator: torch.Generator
+                     ) -> Dict[str, torch.Tensor]:
+    """Seeded initial weights of the heads that only ``forward(train=True)``
+    runs, under their state-dict keys, in the JAX package's init scheme:
+    a xavier-uniform ``semantic_seg_conv``, flax's Dense default for
+    ``class_existence_fc`` (truncated normal at 2 std, variance 1/fan_in),
+    zero biases.  For weights that come without them (a JAX eval tree)."""
+    nf, n = cfg.fpn.num_features, cfg.num_classes - 1
+    heads = {}
+    if cfg.use_semantic_segmentation_loss:
+        heads['semantic_seg_conv.weight'] = nn.init.xavier_uniform_(
+            torch.empty(n, nf, 1, 1), generator=generator)
+        heads['semantic_seg_conv.bias'] = torch.zeros(n)
+    if cfg.use_class_existence_loss:
+        std = math.sqrt(1.0 / nf) / .87962566103423978
+        heads['class_existence_fc.weight'] = nn.init.trunc_normal_(
+            torch.empty(n, nf), std=std, a=-2 * std, b=2 * std,
+            generator=generator)
+        heads['class_existence_fc.bias'] = torch.zeros(n)
+    return heads
 
 
 def _build_backbone(cfg: YolactConfig) -> ResNetBackbone:
@@ -80,6 +116,10 @@ class Yolact(nn.Module):
             PredictionHead(cfg, nf, self._priors_per_pos(i))
             for i in range(n_heads))
         self.maskiou_net = FastMaskIoUNet(cfg) if cfg.use_maskiou else None
+        if cfg.use_class_existence_loss:
+            self.class_existence_fc = nn.Linear(nf, cfg.num_classes - 1)
+        if cfg.use_semantic_segmentation_loss:
+            self.semantic_seg_conv = nn.Conv2d(nf, cfg.num_classes - 1, 1)
         self._priors = {}
 
     def _priors_per_pos(self, idx: int) -> int:
@@ -107,17 +147,20 @@ class Yolact(nn.Module):
                 generate_priors(self.cfg, (h, w)).copy()).to(device)
         return self._priors[key]
 
-    def forward(self, x: torch.Tensor,
-                use_kernels: bool = True) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, use_kernels: bool = True,
+                train: bool = False) -> Dict[str, torch.Tensor]:
         """``use_kernels=False`` runs the plain PyTorch versions of the DCN
         sampling and the s2d stem conv on the card too, to compare the
-        two."""
+        two.  ``train``: see the module docstring."""
         cfg = self.cfg
         # logical image size: a space-to-depth input is at half resolution
         scale = 2 if cfg.stem_s2d else 1
         h, w = x.shape[2] * scale, x.shape[3] * scale
         x = x.to(self.compute_dtype)
-        outs = self.backbone(x, use_kernels)
+        # freeze_bn keeps batch norm on its running statistics in training
+        outs = self.backbone(x, use_kernels,
+                             bn_train=train and not cfg.freeze_bn,
+                             remat=cfg.train_remat if train else 'none')
         outs = self.fpn([outs[i] for i in cfg.backbone.selected_layers])
 
         preds = []
@@ -131,4 +174,11 @@ class Yolact(nn.Module):
         if cfg.eval_mask_branch:
             pred_outs['proto'] = self.proto_net(
                 outs[cfg.mask_proto_src]).permute(0, 2, 3, 1)
+        if train:
+            if cfg.use_class_existence_loss:
+                pred_outs['classes'] = self.class_existence_fc(
+                    outs[-1].mean(dim=(2, 3)))
+            if cfg.use_semantic_segmentation_loss:
+                pred_outs['segm'] = self.semantic_seg_conv(
+                    outs[0]).permute(0, 2, 3, 1)
         return pred_outs

@@ -20,6 +20,12 @@ def point_form(boxes: torch.Tensor) -> torch.Tensor:
     return torch.cat([xy - wh / 2, xy + wh / 2], dim=-1)
 
 
+def center_size(boxes: torch.Tensor) -> torch.Tensor:
+    """(x1, y1, x2, y2) -> (cx, cy, w, h)."""
+    lo, hi = boxes[..., :2], boxes[..., 2:]
+    return torch.cat([(hi + lo) / 2, hi - lo], dim=-1)
+
+
 def intersect(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
     """Pairwise intersection area: [..., A, 4] x [..., B, 4] -> [..., A, B]."""
     w = (torch.minimum(box_a[..., :, None, 2], box_b[..., None, :, 2])
@@ -46,6 +52,53 @@ def jaccard(box_a: torch.Tensor, box_b: torch.Tensor,
     denom = area_a if iscrowd else area_a + area_b - inter
     pos = denom > 0
     return torch.where(pos, inter / torch.where(pos, denom, 1.0), 0.0)
+
+
+def elemwise_box_iou(box_a: torch.Tensor, box_b: torch.Tensor
+                     ) -> torch.Tensor:
+    """IoU between aligned boxes [n, 4] x [n, 4] -> [n] (union clamped to
+    >= 0.1, result to <= 1)."""
+    max_xy = torch.minimum(box_a[..., 2:], box_b[..., 2:])
+    min_xy = torch.maximum(box_a[..., :2], box_b[..., :2])
+    wh = (max_xy - min_xy).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = (area(box_a) + area(box_b) - inter).clamp(min=0.1)
+    return (inter / union).clamp(max=1.0)
+
+
+def change(gt: torch.Tensor, priors: torch.Tensor) -> torch.Tensor:
+    """Box2Pix -d_change metric: gt [..., G, 4] x priors [..., P, 4] (point
+    form) -> [..., G, P]."""
+    gt_w = (gt[..., 2] - gt[..., 0])[..., None]
+    gt_h = (gt[..., 3] - gt[..., 1])[..., None]
+    diff = gt[..., :, None, :] - priors[..., None, :, :]
+    diff = diff / torch.stack([gt_w, gt_h, gt_w, gt_h], dim=-1)
+    return -torch.sqrt((diff ** 2).sum(dim=-1))
+
+
+def encode(matched: torch.Tensor, priors: torch.Tensor,
+           use_yolo_regressors: bool = False) -> torch.Tensor:
+    """Matched gt boxes (point form) against center-size priors -> the
+    network's regression space; encode(decode(x)) == x."""
+    if use_yolo_regressors:
+        boxes = center_size(matched)
+        return torch.cat([boxes[..., :2] - priors[..., :2],
+                          torch.log(boxes[..., 2:] / priors[..., 2:])],
+                         dim=-1)
+    g_cxcy = ((matched[..., :2] + matched[..., 2:]) / 2 - priors[..., :2]) \
+        / (VARIANCES[0] * priors[..., 2:])
+    wh = (matched[..., 2:] - matched[..., :2]) / priors[..., 2:]
+    # padded gt rows have wh == 0: log(0) = -inf would poison gradients
+    g_wh = torch.log(wh.clamp(min=1e-12)) / VARIANCES[1]
+    return torch.cat([g_cxcy, g_wh], dim=-1)
+
+
+def log_sum_exp(x: torch.Tensor) -> torch.Tensor:
+    """log-sum-exp over the last axis, stabilised by the GLOBAL max (not
+    the row's), as the reference does, so OHEM scores match; the max takes
+    no gradient."""
+    x_max = x.detach().max()
+    return torch.log(torch.exp(x - x_max).sum(dim=-1)) + x_max
 
 
 def decode(loc: torch.Tensor, priors: torch.Tensor,

@@ -1,0 +1,197 @@
+"""The training step.  Port of ``yolact_tpu/train/step.py``.
+
+SGD with momentum and weight decay is ``torch.optim.SGD`` (the rule the JAX
+package's optax chain reproduces), with the learning rate set from
+``learning_rate(cfg, state.step)`` before every step, so a resumed step
+count lands on the right lr.  As in JAX:
+
+* a step whose loss or gradients are not finite leaves the parameters, the
+  momentum and the batch-norm running statistics untouched and still
+  advances ``step`` (``use_class_balanced_conf`` counts move on, as JAX's
+  do).  Batch norm leaves its new statistics pending during the forward
+  (``models/layers.py``), so nothing has to be rolled back.  The decision is
+  one host read of one device flag per step;
+* ``cfg.freeze_bn`` keeps batch norm on its running statistics, and its
+  scale and bias get no update at all, weight decay included: they are
+  frozen (``requires_grad=False``) and never reach the optimizer;
+* the loss draws its sampling priorities from the caller's
+  ``torch.Generator`` (``train/loss.py``).
+
+The step trains in float32 (the JAX trainer's default).
+``Yolact.set_compute_dtype`` casts the weights in place, which would leave
+no float32 master copy: a cast model raises here (bfloat16 compute over
+float32 master weights is ROADMAP A6b).  The batch is the dict of
+``data/coco.py:pad_batch``, numpy arrays or tensors, with the image
+``[B, S, S, 3]`` normalized RGB (or raw uint8 values as float).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from yolact_tpu_torch.config import YolactConfig
+from yolact_tpu_torch.infer import check_device, random_state_dict
+from yolact_tpu_torch.models.layers import (BatchNorm2d, commit_batch_stats,
+                                            drop_batch_stats, s2d_input)
+from yolact_tpu_torch.models.yolact import Yolact
+from yolact_tpu_torch.train.loss import multibox_loss
+from yolact_tpu_torch.train.schedule import learning_rate
+
+
+@dataclasses.dataclass
+class TrainState:
+    cfg: YolactConfig
+    model: Yolact
+    optimizer: torch.optim.SGD
+    step: int = 0
+    # running selected-example class counts for use_class_balanced_conf
+    conf_state: Optional[Dict[str, torch.Tensor]] = None
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+
+def create_train_state(cfg: YolactConfig, seed: int = 0,
+                       device: Union[str, torch.device] = 'cuda:0',
+                       state_dict: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> TrainState:
+    """The model (seeded random weights in the JAX package's init scheme,
+    or `state_dict`) in float32 on `device`, and its optimizer."""
+    device = check_device(device)
+    if state_dict is None:
+        state_dict = random_state_dict(
+            cfg, torch.Generator().manual_seed(seed))
+    model = Yolact(cfg)
+    model.load_state_dict(state_dict, strict=True)
+    model.to(device)
+    if cfg.freeze_bn:
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.weight.requires_grad_(False)
+                m.bias.requires_grad_(False)
+    optimizer = torch.optim.SGD(
+        [p for p in model.parameters() if p.requires_grad],
+        lr=learning_rate(cfg, 0), momentum=cfg.momentum,
+        weight_decay=cfg.decay)
+    conf_state = None
+    if cfg.use_class_balanced_conf:
+        conf_state = {'class_counts': torch.zeros(cfg.num_classes,
+                                                  device=device),
+                      'total': torch.zeros((), device=device)}
+    return TrainState(cfg, model, optimizer, 0, conf_state)
+
+
+def batch_to_device(batch: Dict[str, Any], device: torch.device
+                    ) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v).to(device, non_blocking=True)
+            for k, v in batch.items()}
+
+
+def model_input(cfg: YolactConfig, image: torch.Tensor) -> torch.Tensor:
+    """The batch's ``[B, S, S, 3]`` image as the model's NCHW float32 input:
+    the 2x2 space-to-depth of the raw-order image under ``cfg.stem_s2d``
+    (the loader emits RGB)."""
+    x = image.float().permute(0, 3, 1, 2)
+    return s2d_input(x, from_rgb=True) if cfg.stem_s2d else x
+
+
+def draw_priorities(cfg: YolactConfig, batch_size: int, num_priors: int,
+                    generator: torch.Generator, device: torch.device
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The loss's random draws: (mask_priorities [B, P], maskiou_priorities
+    [B * masks_to_train]), uniform in [0, 1), from `generator` (on its own
+    device), moved to `device`."""
+    def draw(*shape):
+        return torch.rand(shape, generator=generator,
+                          device=generator.device).to(device)
+    return (draw(batch_size, num_priors),
+            draw(batch_size * cfg.masks_to_train))
+
+
+def loss_and_grads(state: TrainState, batch: Dict[str, Any],
+                   mask_priorities: torch.Tensor,
+                   maskiou_priorities: torch.Tensor,
+                   use_kernels: bool = True) -> Dict[str, torch.Tensor]:
+    """Forward (train mode), loss and backward: fills every trained
+    parameter's ``.grad`` and returns the losses by letter plus ``total``.
+    Batch-norm statistics stay pending; nothing is updated."""
+    cfg, model = state.cfg, state.model
+    if model.compute_dtype != torch.float32:
+        raise NotImplementedError(
+            'train_step needs a float32 model: set_compute_dtype casts the '
+            'weights in place (bfloat16 compute over float32 master weights '
+            'is ROADMAP A6b)')
+    if cfg.use_device_augment:
+        raise NotImplementedError(
+            'use_device_augment is not ported (ROADMAP A9)')
+    if 'gt_masks_packed' in batch:
+        raise NotImplementedError(
+            'gt_masks_packed: bit-packed masks are not ported (ROADMAP A6b); '
+            'pass gt_masks')
+    num_gts = batch.get('num_gts')
+    if isinstance(num_gts, torch.Tensor):
+        # a count on the card would cost a sync: the matcher loops all rows
+        num_gts = num_gts.numpy() if num_gts.device.type == 'cpu' else None
+    tensors = batch_to_device(batch, state.device)
+    state.optimizer.zero_grad(set_to_none=True)
+    preds = model(model_input(cfg, tensors['image']),
+                  use_kernels=use_kernels, train=True)
+    losses, _ = multibox_loss(
+        cfg, preds, tensors, mask_priorities, maskiou_priorities,
+        maskiou_net=model.maskiou_net, conf_state=state.conf_state,
+        num_gts=None if num_gts is None else np.asarray(num_gts))
+    new_conf_state = losses.pop('_conf_state', state.conf_state)
+    total = sum(losses.values())
+    total.backward()
+    state.conf_state = new_conf_state
+    return dict({k: v.detach() for k, v in losses.items()},
+                total=total.detach())
+
+
+def grads_finite(state: TrainState) -> torch.Tensor:
+    """A device flag: every gradient is finite (the largest absolute entry
+    of all, so a large finite gradient cannot overflow the test)."""
+    grads = [p.grad for group in state.optimizer.param_groups
+             for p in group['params'] if p.grad is not None]
+    return torch.nn.utils.get_total_norm(grads, float('inf')).isfinite()
+
+
+def apply_gradients(state: TrainState, losses: Dict[str, Any]
+                    ) -> Dict[str, Any]:
+    """The second half of a step, after :func:`loss_and_grads`: the finite
+    guard, the SGD update at the schedule's learning rate, the batch-norm
+    statistics, the step count.  Returns `losses` with ``lr`` (a float) and
+    ``finite`` (whether the update was applied)."""
+    # the loss can still be finite on the step where the backward pass
+    # overflows, so the guard covers the gradients too
+    finite = bool(losses['total'].isfinite() & grads_finite(state))
+    lr = learning_rate(state.cfg, state.step)   # resume-safe: from the count
+    if finite:
+        for group in state.optimizer.param_groups:
+            group['lr'] = lr
+        state.optimizer.step()
+        commit_batch_stats(state.model)
+    else:
+        drop_batch_stats(state.model)
+    # the iteration still advances on a skipped step, like the reference
+    state.step += 1
+    return dict(losses, lr=lr, finite=finite)
+
+
+def train_step(state: TrainState, batch: Dict[str, Any],
+               generator: torch.Generator,
+               use_kernels: bool = True) -> Dict[str, Any]:
+    """One SGD step in place on `state`.  Returns the losses by letter
+    (detached device scalars) with ``total``, ``lr`` (a float) and
+    ``finite`` (whether the update was applied)."""
+    image = batch['image']
+    priors = state.model.priors(image.shape[1], image.shape[2], state.device)
+    draws = draw_priorities(state.cfg, image.shape[0], priors.shape[0],
+                            generator, state.device)
+    return apply_gradients(
+        state, loss_and_grads(state, batch, *draws, use_kernels=use_kernels))
