@@ -63,6 +63,25 @@ Phases, each of which raises on failure:
    statistics bit-equal and advance the count; then ms per step, peak
    memory, device busy and idle share, the matcher's and the loss's time,
    and dcn_col2im per block against its bound and its plain version
+8. trainer (run between phases 6 and 7): cli/train.train with in-memory
+   data, 24 raw BGR frames of 480x640, 640x480 and 600x600 with boxes,
+   labels, one crowd and rectangular or elliptic masks each, through the
+   cv2-free SSDAugmentation on 4 loader threads, 550x550 b8, every
+   bottleneck's last batch norm scaled to 0.1 and a tenth of the learning
+   rate: yolact_base with --stem_s2d in f32 and in bf16 (--compute_dtype
+   over f32 master weights), each 20 iterations from a weights file with
+   --save_interval=10 --keep_latest, then --resume latest for 10 more and
+   validation on 16 frames; yolact_plus_base bf16 (train_remat='dcn'), 10
+   iterations.  Checks: every step applied and every logged loss finite;
+   launches per step (stem 1; DCN sampling 22 and backward 11 for plus);
+   the checkpoint left by --keep_latest; the reloaded state bit-equal to
+   the one saved (weights, buffers, momentum, step); in f32 one step from
+   each under deterministic algorithms on a fixed batch and draws,
+   bit-equal; the resumed run starts at the saved step and its learning
+   rate; the log holds train and val entries; validation prints its mAP
+   table.  Prints per run the median ms per iteration, the loader's share
+   of it, images/s, peak memory, device busy and idle share (profiler
+   kernel events inside the loop's iterations), and bf16 against f32
 7. timing: median and p90 ms per batch at b1 / b8 bf16 for every path
    (CUDA events over 100 calls; the s2d A/B in the order plain, s2d, s2d,
    plain), device busy and idle share per batch (torch.profiler kernel
@@ -71,20 +90,24 @@ Phases, each of which raises on failure:
    against one on per-image [Cin*9, Ho*Wo] columns and a cuDNN 3x3 conv,
    the block's tail on channels_last against NCHW), and each kernel's
    device time against its plain version, its bound and, for the stem,
-   cuDNN's convs (the IoU max and mask assembly at b8 and b1)
+   cuDNN's convs (the IoU max and mask assembly at b8 and b1; the stem
+   also in f32 at b8, against cuDNN's f32 convs with TF32 off)
 
-The line before the last is a JSON object with each kernel's launches,
-error, times and bound; the last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with each kernel's launches
+(and, as trainer_launches, its launches in the trainer's runs), error,
+times and bound; the last line is {"ok": true, "device": {...}}.
 """
 
 import collections
 import contextlib
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -93,6 +116,9 @@ import torch
 import torch.nn.functional as F
 
 from yolact_tpu_torch import MEANS, STD, get_config
+from yolact_tpu_torch.cli import train as train_cli
+from yolact_tpu_torch.config import register_config
+from yolact_tpu_torch.data.augmentations import SSDAugmentation
 from yolact_tpu_torch.detect import detection
 from yolact_tpu_torch.eval.evaluate import evaluate_dataset
 from yolact_tpu_torch.infer import (Pipeline, forward_and_detect, load_model,
@@ -101,8 +127,10 @@ from yolact_tpu_torch.kernels import _build, dcn, mask_assembly, nms, stem
 from yolact_tpu_torch.models.layers import drop_batch_stats
 from yolact_tpu_torch.models.resnet import DCNLayer
 from yolact_tpu_torch.ops.anchors import proto_size
+from yolact_tpu_torch.train import checkpoint, step as step_module
 from yolact_tpu_torch.train.loss import multibox_loss
 from yolact_tpu_torch.train.matcher import match as match_priors
+from yolact_tpu_torch.train.schedule import learning_rate
 from yolact_tpu_torch.train.step import (batch_to_device, create_train_state,
                                          draw_priorities, loss_and_grads,
                                          train_step)
@@ -895,6 +923,19 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def device_events(prof):
+    """The profiler's device events: kernels and copies.  A record_function
+    range (the optimizer's step, the trainer's iterations) shows up on the
+    device too, spanning the kernels it holds; those are left out."""
+    events = prof.events()
+    annotations = {e.name for e in events
+                   if getattr(e, 'is_user_annotation', False)}
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, 'is_user_annotation', False)
+            and e.name not in annotations | {'train_iteration'}]
+
+
 def profile_kernels(fn, calls=20, warmup=3):
     """torch.profiler kernel events over `calls` calls: (device busy ms per
     call, idle share of the span from the first kernel's start to the last
@@ -909,8 +950,7 @@ def profile_kernels(fn, calls=20, warmup=3):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_events(prof)
     if not events:
         return None
     by_name = collections.Counter()
@@ -946,40 +986,45 @@ def kernel_names(fn):
 
 def stem_timing(dev, card):
     """The stem kernel's device time against its plain version, cuDNN's
-    bf16 4x4 conv of the same function (one call: padding 2, the extra
-    last row and column not read) and cuDNN's 7x7/s2 conv on the 3-channel
-    image it replaces, bf16, with the kernel's bound; b8 and b1."""
+    4x4 conv of the same function (one call: padding 2, the extra last row
+    and column not read) and cuDNN's 7x7/s2 conv on the 3-channel image it
+    replaces, with the kernel's bound: bf16 (the tensor-core kernel) at b8
+    and b1, and float32 (the FMA kernel a float32 train step runs; TF32 is
+    off, so cuDNN's convs are float32 too) at b8.  Returns the numbers by
+    (dtype, batch)."""
     gen = torch.Generator().manual_seed(6)
     out = {}
-    for batch in (8, 1):
-        x = torch.randn(batch, 12, 275, 275, generator=gen).to(dev).bfloat16()
-        w2 = (torch.randn(64, 12, 4, 4, generator=gen) * 0.1).to(dev)\
-            .bfloat16()
-        x3 = torch.randn(batch, 3, 550, 550, generator=gen).to(dev).bfloat16()
-        w7 = (torch.randn(64, 3, 7, 7, generator=gen) * 0.1).to(dev)\
-            .bfloat16()
+    for dtype, batch in ((torch.bfloat16, 8), (torch.bfloat16, 1),
+                         (torch.float32, 8)):
+        x = torch.randn(batch, 12, 275, 275, generator=gen).to(dev, dtype)
+        w2 = (torch.randn(64, 12, 4, 4, generator=gen) * 0.1).to(dev, dtype)
+        x3 = torch.randn(batch, 3, 550, 550, generator=gen).to(dev, dtype)
+        w7 = (torch.randn(64, 3, 7, 7, generator=gen) * 0.1).to(dev, dtype)
         fns = {'plain': lambda: stem.stem_conv_s2d_plain(x, w2),
                'kernel': lambda: stem.stem_conv_s2d(x, w2),
                'cudnn_4x4': lambda: F.conv2d(x, w2, padding=2)[..., :275,
                                                                 :275],
                'cudnn_7x7': lambda: F.conv2d(x3, w7, stride=2, padding=3)}
         dev_ms = {k: device_times(fn)[0] for k, fn in fns.items()}
-        dev_ms['kernel'] = device_times(fns['kernel'],
-                                        'stem_s2d_mma_kernel')[1]
+        symbol = ('stem_s2d_mma_kernel' if dtype == torch.bfloat16
+                  else 'stem_s2d_fma_kernel')
+        dev_ms['kernel'] = device_times(fns['kernel'], symbol)[1]
         call = {k: time_ms(fns[k]) for k in ('plain', 'kernel')}
         y = fns['kernel']()
         b_ms, b_by = bound(nbytes(x, w2, y), 2 * y.numel() * 12 * 16,
-                           BF16_TENSOR_OPS_PER_S)
-        print(f'stem b{batch} bf16 x[{batch},12,275,275] -> '
+                           BF16_TENSOR_OPS_PER_S if dtype == torch.bfloat16
+                           else FP32_OPS_PER_S)
+        name = str(dtype)[6:]
+        print(f'stem b{batch} {name} x[{batch},12,275,275] -> '
               f'[{batch},64,275,275]: device ms per call (torch.profiler '
-              f'kernel events, 20 calls) kernel {dev_ms["kernel"]!r} (bound {b_ms!r} by '
-              f'{b_by}: {b_ms / dev_ms["kernel"]!r} of it), plain (float32 '
-              f'conv, rounded) {dev_ms["plain"]!r}, cuDNN bf16 4x4 '
-              f'{dev_ms["cudnn_4x4"]!r}, cuDNN bf16 7x7/s2 on '
+              f'kernel events, 20 calls) kernel {dev_ms["kernel"]!r} (bound '
+              f'{b_ms!r} by {b_by}: {b_ms / dev_ms["kernel"]!r} of it), plain '
+              f'(float32 conv, rounded) {dev_ms["plain"]!r}, cuDNN {name} 4x4 '
+              f'{dev_ms["cudnn_4x4"]!r}, cuDNN {name} 7x7/s2 on '
               f'[{batch},3,550,550] {dev_ms["cudnn_7x7"]!r}; call median '
               f'(p90) ms kernel {call["kernel"][0]!r} ({call["kernel"][1]!r}), '
               f'plain {call["plain"][0]!r} ({call["plain"][1]!r}) [{card}]')
-        out[batch] = dict(dev_ms, bound=(b_ms, b_by))
+        out[dtype, batch] = dict(dev_ms, bound=(b_ms, b_by))
     return out
 
 
@@ -1453,6 +1498,376 @@ def col2im_timing(dev, card):
     return line
 
 
+# ---- phase 8: the trainer ------------------------------------------------
+
+# Raw frames of mixed sizes, 3 batches of 8 an epoch
+TRAINER_SIZES = ((480, 640), (640, 480), (600, 600))
+TRAINER_FRAMES = 24
+# (tag, config, flags, iterations, iterations after --resume latest,
+# launches per step)
+TRAINER_RUNS = (
+    ('yolact_base f32', 'yolact_base', ['--stem_s2d'], 20, 10,
+     dict(stem_s2d=1, dcn=0, dcn_col2im=0)),
+    ('yolact_base bf16', 'yolact_base',
+     ['--stem_s2d', '--compute_dtype', 'bfloat16'], 20, 10,
+     dict(stem_s2d=1, dcn=0, dcn_col2im=0)),
+    ('yolact_plus_base bf16', 'yolact_plus_base',
+     ['--compute_dtype', 'bfloat16', '--train_remat', 'dcn'], 10, 0,
+     dict(stem_s2d=0, dcn=22, dcn_col2im=11)),
+)
+
+
+class SyntheticTrainSet:
+    """`n` seeded raw BGR uint8 frames of `sizes` (in turn), each with 1-3
+    objects of random foreground classes and one crowd (rectangular or
+    elliptic masks inside their boxes), in the COCODetection item contract
+    after `transform` (a training SSDAugmentation, run on the host by the
+    loader's workers): pull_item -> (image, gt [k, 5] relative boxes and
+    labels with the crowd last at -1, masks [k, S, S], h, w, num_crowds).
+    An item whose transform drops every box is replaced by the next."""
+
+    def __init__(self, n, sizes, num_classes, transform, seed=0):
+        rng = np.random.RandomState(seed)
+        self.transform = transform
+        self.raw = []
+        for i in range(n):
+            h, w = sizes[i % len(sizes)]
+            k = rng.randint(1, 4) + 1
+            xy1 = rng.rand(k, 2) * 0.6
+            xy2 = np.minimum(xy1 + 0.15 + rng.rand(k, 2) * 0.3, 1.0)
+            boxes = np.hstack([xy1, xy2])
+            yy, xx = np.mgrid[:h, :w] + 0.5
+            masks = np.zeros((k, h, w), np.uint8)
+            for j, (x1, y1, x2, y2) in enumerate(boxes * [w, h, w, h]):
+                if j % 2:
+                    cx, cy, rx, ry = ((x1 + x2) / 2, (y1 + y2) / 2,
+                                      (x2 - x1) / 2, (y2 - y1) / 2)
+                    masks[j] = (((xx - cx) / rx) ** 2
+                                + ((yy - cy) / ry) ** 2) <= 1
+                else:
+                    masks[j, int(y1):int(y2), int(x1):int(x2)] = 1
+            labels = np.append(rng.randint(0, num_classes - 1, k - 1), -1)
+            self.raw.append((rng.randint(0, 256, (h, w, 3)).astype(np.uint8),
+                             boxes, masks, labels.astype(np.float64)))
+
+    def __len__(self):
+        return len(self.raw)
+
+    def pull_item(self, index):
+        frame, boxes, masks, labels = self.raw[index]
+        h, w = frame.shape[:2]
+        img, masks, boxes, out = self.transform(
+            frame, masks.astype(np.float32), boxes.copy(),
+            {'num_crowds': 1, 'labels': labels})
+        if len(boxes) == 0:
+            return self.pull_item((index + 1) % len(self))
+        target = np.hstack([boxes, out['labels'][:, None]]).astype(np.float32)
+        return img, target, masks, h, w, out['num_crowds']
+
+
+class StepRecorder:
+    """Stands in for train/step.py:train_step while cli/train.py runs (it
+    looks the function up when it starts): per step the step count, the
+    schedule's learning rate at it, whether it was applied, and each
+    kernel's launches (the counters' difference across the call).  With a
+    profiler it steps the profiler's schedule after each step."""
+
+    def __init__(self, prof=None):
+        self.steps = []
+        self.prof = prof
+
+    def __enter__(self):
+        self.real = step_module.train_step
+        step_module.train_step = self
+        return self
+
+    def __exit__(self, *exc):
+        step_module.train_step = self.real
+
+    def __call__(self, state, batch, generator):
+        before = read_launches(TRAIN_KERNELS)
+        step, lr = state.step, learning_rate(state.cfg, state.step)
+        out = self.real(state, batch, generator)
+        after = read_launches(TRAIN_KERNELS)
+        self.steps.append(dict(step=step, lr=lr, finite=out['finite'],
+                               launches={k: after[k] - before[k]
+                                         for k in after}))
+        if self.prof is not None:
+            self.prof.step()
+        return out
+
+
+# the profiled iterations of a trainer run: after 3, the next 5
+TRAINER_PROFILE = dict(wait=2, warmup=1, active=5, repeat=1)
+
+
+def run_trainer(argv, dataset, val_dataset=None, profile=False):
+    """cli/train.train(argv) on the in-memory datasets, its output captured:
+    (summary, output, steps recorded, the kernels' launches in the run,
+    the profiler or None).  `profile` traces TRAINER_PROFILE's iterations
+    with torch.profiler."""
+    reset_launches()
+    buf = io.StringIO()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA],
+        schedule=torch.profiler.schedule(**TRAINER_PROFILE)) \
+        if profile else None
+    with StepRecorder(prof) as rec, contextlib.redirect_stdout(buf), \
+            prof or contextlib.nullcontext():
+        summary = train_cli.train(argv, dataset=dataset,
+                                  val_dataset=val_dataset)
+        torch.cuda.synchronize()
+    return (summary, buf.getvalue(), rec.steps, read_launches(KERNELS), prof)
+
+
+def loop_busy(prof):
+    """Device busy ms per iteration and idle share over the profiled
+    iterations but the first (the train_iteration ranges cli/train.py
+    records; validation and set-up fall outside), from the kernel events,
+    or None when the profiler recorded no kernel."""
+    iters = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.name == 'train_iteration'
+                   and e.device_type == torch.autograd.DeviceType.CPU)
+    start, end = iters[1][0], iters[-1][1]
+    # the union of the device events' intervals inside the window
+    busy, reach = 0, start
+    for a, b in sorted((max(e.time_range.start, start),
+                        min(e.time_range.end, end))
+                       for e in device_events(prof)):
+        if b > reach:
+            busy += b - max(a, reach)
+            reach = b
+    if busy == 0:
+        return None
+    return busy / 1e3 / (len(iters) - 1), 1 - busy / (end - start)
+
+
+def states_equal(a, b):
+    """(weights and buffers, momentum, step) bit-equal between two train
+    states."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    weights = sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k])
+                                             for k in sa)
+    ma = {k: a.optimizer.state[p]['momentum_buffer']
+          for k, p in a.model.named_parameters() if p in a.optimizer.state}
+    mb = {k: b.optimizer.state[p]['momentum_buffer']
+          for k, p in b.model.named_parameters() if p in b.optimizer.state}
+    momentum = bool(ma) and ma.keys() == mb.keys() and all(
+        torch.equal(ma[k], mb[k]) for k in ma)
+    return weights, momentum, a.step == b.step
+
+
+def step_alone_ms(state, cfg, dev, steps=8):
+    """Median ms of `steps` train steps on one fixed batch with no loader
+    running (CUDA events around each, its host read included): the loop's
+    iteration without the loader's threads beside it."""
+    batch = make_train_batch(cfg)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    train_step(state, batch, gen)
+    times = []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        train_step(state, batch, gen)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def trainer_timing(tag, summary, peak, busy, card, note=''):
+    """Print and return the loop's numbers: median ms per iteration (its
+    first two left out), the share of it spent waiting on the loader,
+    images/s, peak memory, device busy and idle."""
+    iters = [t * 1e3 for t in summary['iter_seconds'][2:]]
+    waits = [t * 1e3 for t in summary['wait_seconds'][2:]]
+    ms = statistics.median(iters)
+    out = dict(ms=ms, wait_share=sum(waits) / sum(iters),
+               images_s=8000.0 / ms, peak_gib=peak,
+               busy=None if busy is None else busy[0],
+               idle=None if busy is None else busy[1])
+    dev = ('device busy not measured (the profiler recorded no kernel)'
+           if busy is None else f'device busy {busy[0]!r} ms per iteration, '
+           f'idle share {busy[1]!r} (torch.profiler kernel events, '
+           f'{TRAINER_PROFILE["active"] - 1} iterations)')
+    print(f'trainer {tag} 550 b8: median {ms!r} ms per iteration (min '
+          f'{min(iters)!r}, max {max(iters)!r}; {len(iters)} iterations, '
+          f'host clock, each ends in the step\'s host read){note}; loader '
+          f'wait {out["wait_share"]!r} of it; {out["images_s"]!r} images/s; '
+          f'peak memory allocated {peak!r} GiB; {dev} [{card}]')
+    return out
+
+
+def trainer_phase(sds, dev, card):
+    """Phase 8 (see the module docstring).  Returns the kernels' launches
+    summed over the trainer's runs, and the timing of each run."""
+    total = collections.Counter()
+    timing = {}
+    t_phase = time.perf_counter()
+
+    def stage(what):
+        print(f'trainer phase at {time.perf_counter() - t_phase:.1f} s: '
+              f'{what} [{card}]')
+
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_trainer_') as tmp:
+        for tag, config, flags, iters, more, per_step in TRAINER_RUNS:
+            stage(f'{tag} begins')
+            name = 'smoke_' + tag.replace(' ', '_')
+            # a tenth of the config's learning rate, warmed up from 1e-7
+            base = get_config(config).copy(name=name, lr=1e-4,
+                                           lr_warmup_init=1e-7)
+            cfg = register_config(base.copy(max_iter=iters))
+            # the seeded random weights, tamed, as the file a run starts
+            # from: a reference-style .pth of weights (a fresh optimizer,
+            # the step its name gives)
+            weights = f'{tmp}/{name}_0_0.pth'
+            torch.save(tame_residuals(sds[config]), weights)
+            data = SyntheticTrainSet(TRAINER_FRAMES, TRAINER_SIZES,
+                                     cfg.num_classes,
+                                     SSDAugmentation(
+                                         cfg, rng=np.random.RandomState(7)))
+            save, logs = f'{tmp}/{name}', f'{tmp}/{name}_logs'
+            argv = ['--config', name, '--batch_size', '8', '--num_workers',
+                    '4', '--save_folder', save, '--log_folder', logs,
+                    '--save_interval', '10', '--keep_latest',
+                    '--validation_size', str(EVAL_FRAMES)] + flags
+            stage(f'{tag}: weights file and data made')
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            first, out, steps, launches, prof = run_trainer(
+                argv + ['--validation_epoch', '0', '--resume', weights], data,
+                profile=not more)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            total.update(launches)
+            print(f'trainer {tag}: {len(steps)} iterations from {weights} in '
+                  f'{time.perf_counter() - t0:.1f} s [{card}] (launches '
+                  f'{json.dumps(launches)}); its loss lines:')
+            print('\n'.join(l for l in out.splitlines() if '||' in l))
+            checks(tag, cfg, first, steps, per_step, 0, iters)
+            check(os.listdir(save) == [f'{name}_{first["epoch"]}_{iters}.pth'],
+                  f'trainer {tag}: checkpoints {os.listdir(save)}')
+            if not more:
+                timing[tag] = trainer_timing(tag, first, peak, loop_busy(prof),
+                                             card, ' (under torch.profiler)')
+                stage(f'{tag}: profile read')
+                step_alone(tag, first['state'], dev, card, timing)
+                del first
+                stage(f'{tag}: step alone timed')
+                continue
+            timing[tag] = trainer_timing(tag, first, peak, None, card)
+
+            # the file loads back bit for bit (the run's config: the flags'
+            # overrides applied)
+            saved = first['state']
+            cfg = saved.cfg
+            reloaded = create_train_state(cfg, device=dev)
+            checkpoint.load_checkpoint(first['path'], reloaded)
+            same = states_equal(reloaded, saved)
+            stage(f'{tag}: reloaded')
+            print(f'trainer {tag}: {first["path"]} reloaded: weights and '
+                  f'buffers, momentum, step bit-equal {same}')
+            check(all(same), f'trainer {tag}: the reloaded state differs')
+            if 'bfloat16' not in flags:
+                # one step from each on a fixed batch and fixed draws
+                batch = make_train_batch(cfg)
+                with deterministic_library():
+                    a = train_step(reloaded, batch,
+                                   torch.Generator(device=dev).manual_seed(5))
+                    b = train_step(saved, batch,
+                                   torch.Generator(device=dev).manual_seed(5))
+                torch.cuda.synchronize()
+                same = states_equal(reloaded, saved)
+                losses = all(float(a[k]) == float(b[k]) for k in a
+                             if k != 'finite')
+                print(f'trainer {tag}: one step from the state in memory and '
+                      f'from the reloaded file (deterministic algorithms): '
+                      f'losses bit-equal {losses} ({float(a["total"])!r}), '
+                      f'weights and buffers, momentum, step bit-equal {same}')
+                check(losses and all(same), f'trainer {tag}: the step from '
+                      f'the reloaded state differs from the step from memory')
+            del reloaded
+            stage(f'{tag}: checks of the reloaded state done')
+            step_alone(tag, saved, dev, card, timing)
+            del saved, first
+            stage(f'{tag}: step alone timed')
+
+            # --resume latest for `more` iterations, then validation
+            register_config(base.copy(max_iter=iters + more))
+            val = SyntheticEvalSet(EVAL_FRAMES, cfg.max_size, cfg.num_classes,
+                                   seed=5)
+            t0 = time.perf_counter()
+            second, out, steps, launches, prof = run_trainer(
+                argv + ['--validation_epoch', '1000', '--resume', 'latest'],
+                data, val, profile=True)
+            total.update(launches)
+            print(f'trainer {tag}: resumed run (under torch.profiler, '
+                  f'validation included) {time.perf_counter() - t0:.1f} s '
+                  f'[{card}]')
+            check(second['start_iter'] == iters and steps[0]['step'] == iters
+                  and steps[0]['lr'] == learning_rate(cfg, iters),
+                  f'trainer {tag}: resumed at step {steps[0]["step"]}, lr '
+                  f'{steps[0]["lr"]!r}')
+            checks(tag, cfg, second, steps, per_step, iters, iters + more)
+            print(f'trainer {tag}: --resume latest from step {iters} at lr '
+                  f'{steps[0]["lr"]!r} for {len(steps)} iterations (launches '
+                  f'{json.dumps(launches)}); validation on {EVAL_FRAMES} '
+                  f'frames:')
+            table = [l for l in out.splitlines() if re.match(
+                r'\s*(box|mask|-+\+|\s*\|\s+all)', l)]
+            print('\n'.join(table))
+            check(set(second['maps'] or ()) == {'box', 'mask'}
+                  and len(table) == 5, f'trainer {tag}: no mAP table')
+            with open(second['log']) as f:
+                kinds = collections.Counter(json.loads(l)['type'] for l in f)
+            print(f'trainer {tag}: log {second["log"]}: {dict(kinds)}')
+            check(kinds['train'] >= 2 and kinds['val'] == 1,
+                  f'trainer {tag}: log entries {dict(kinds)}')
+            busy = loop_busy(prof) if prof is not None else None
+            stage(f'{tag}: resumed run checked, its profile read')
+            if busy is not None:
+                print(f'trainer {tag}: resumed run device busy {busy[0]!r} ms '
+                      f'per iteration, idle share {busy[1]!r} (torch.profiler '
+                      f'kernel events, {TRAINER_PROFILE["active"] - 1} '
+                      f'iterations) [{card}]')
+                timing[tag].update(busy=busy[0], idle=busy[1])
+            del second
+    f32, bf16 = timing['yolact_base f32'], timing['yolact_base bf16']
+    busy = ('not measured' if not (f32['busy'] and bf16['busy'])
+            else repr(bf16['busy'] / f32['busy']))
+    print(f'trainer yolact_base bf16 against f32: ms per iteration '
+          f'{bf16["ms"]!r} / {f32["ms"]!r} = {bf16["ms"] / f32["ms"]!r}, '
+          f'the step alone {bf16["step_alone_ms"]!r} / '
+          f'{f32["step_alone_ms"]!r} = '
+          f'{bf16["step_alone_ms"] / f32["step_alone_ms"]!r}, device busy '
+          f'per iteration {busy} [{card}]')
+    return dict(total), timing
+
+
+def step_alone(tag, state, dev, card, timing):
+    ms = step_alone_ms(state, state.cfg, dev)
+    timing[tag]['step_alone_ms'] = ms
+    print(f'trainer {tag}: the step alone on a fixed batch, no loader '
+          f'running: median {ms!r} ms (8 steps, CUDA events) against the '
+          f'loop\'s {timing[tag]["ms"]!r} ms per iteration [{card}]')
+
+
+def checks(tag, cfg, summary, steps, per_step, start, end):
+    """A trainer run: every step applied with the expected launches, the
+    logged losses finite, the iterations as asked."""
+    check(summary['iteration'] == end and len(steps) == end - start,
+          f'trainer {tag}: ran {len(steps)} steps to {summary["iteration"]}')
+    for s in steps:
+        check(s['finite'], f'trainer {tag}: step {s["step"]} skipped')
+        check(s['launches'] == per_step, f'trainer {tag}: step {s["step"]} '
+              f'launches {s["launches"]}, expected {per_step}')
+    check(summary['losses'] and all(
+        np.isfinite(v) for e in summary['losses'] for v in e['loss'].values()),
+        f'trainer {tag}: logged losses {summary["losses"]}')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this smoke '
@@ -1509,6 +1924,9 @@ def main():
     for name, path in TRAIN_PATHS.items():
         launches[name] = train_path(name, sds[path['config']], dev, card)
     train_remat_none_counts(sds['yolact_plus_base'], dev)
+
+    # ---- phase 8: the trainer (cli/train.py) ----
+    trainer_launches, _ = trainer_phase(sds, dev, card)
     del sds
     torch.cuda.empty_cache()
 
@@ -1554,7 +1972,7 @@ def main():
                   f'{s2d_ms - plain_ms!r} ms [{card}]')
     dcn_line = dcn_timing(dev, card, pipes['yolact_plus_base'], frames8)
     del pipes
-    stem_ms = stem_timing(dev, card)[8]
+    stem_ms = stem_timing(dev, card)[torch.bfloat16, 8]
     lines = dict(small_kernel_timing(dev, card), dcn=dcn_line,
                  dcn_col2im=col2im_timing(dev, card),
                  stem_s2d=dict(ms=stem_ms['kernel'], plain_ms=stem_ms['plain'],
@@ -1566,6 +1984,7 @@ def main():
         report.append({'name': name, 'route': 'cuda', 'source': info['source'],
                        'replaces': info['replaces'],
                        'launches': launches[info['path']][name],
+                       'trainer_launches': trainer_launches.get(name, 0),
                        'max_abs_err': errs[name], 'ms': t['ms'],
                        'plain_ms': t['plain_ms'], 'bound_ms': t['bound'][0],
                        'bound_by': t['bound'][1],

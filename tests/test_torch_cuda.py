@@ -559,3 +559,39 @@ def _tiny_train_steps(cuda, name, create_train_state, train_step):
             assert float(a[k]) == pytest.approx(float(b[k]), rel=1e-4), k
     for k in wk:
         torch.testing.assert_close(wk[k], wp[k], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_trainer_on_card(cuda, tmp_path):
+    """cli/train on the card: the loader hands over pinned batches, a tiny
+    bf16 run with the s2d stem over in-memory frames takes its steps with
+    the stem kernel, saves, and resumes bit for bit."""
+    from test_torch_inputs import SyntheticTrainSet
+    from yolact_tpu_torch.cli.train import train
+    from yolact_tpu_torch.config import register_config
+    from yolact_tpu_torch.data.augmentations import SSDAugmentation
+    from yolact_tpu_torch.data.loader import BatchLoader
+    from yolact_tpu_torch.train.checkpoint import load_checkpoint
+    from yolact_tpu_torch.train.step import create_train_state
+    cfg = register_config(tiny_resnet_config().copy(name='cardtrain',
+                                                     max_iter=3))
+    data = SyntheticTrainSet(4, ((96, 128), (128, 96)), cfg.num_classes,
+                             SSDAugmentation(cfg, rng=np.random.RandomState(0)))
+    loader = BatchLoader(data, 2, max_gt=8, num_workers=1, pin_memory=True)
+    try:
+        assert all(v.is_pinned() for v in loader.next_batch().values()
+                   if isinstance(v, torch.Tensor))
+    finally:
+        loader.stop()
+    before = stem.launches
+    run = train(['--config', 'cardtrain', '--batch_size', '2', '--no_log',
+                 '--no_autoscale',
+                 '--save_folder', str(tmp_path), '--num_workers', '2',
+                 '--validation_epoch', '0', '--stem_s2d', '--max_gt', '8',
+                 '--compute_dtype', 'bfloat16'], dataset=data)
+    assert stem.launches - before == 3 and run['state'].step == 3
+    assert run['state'].model.compute_dtype == torch.bfloat16
+    reloaded = create_train_state(run['state'].cfg, device=cuda)
+    load_checkpoint(run['path'], reloaded)
+    want, got = run['state'].model.state_dict(), reloaded.model.state_dict()
+    assert all(torch.equal(got[k], want[k]) for k in want)

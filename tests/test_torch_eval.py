@@ -268,7 +268,7 @@ def _write_pth(cfg, sd, path, wrap):
 
 @pytest.mark.parametrize('wrap', [False, True], ids=['bare', 'state_dict'])
 def test_load_weights_pth(setup, tmp_path, wrap):
-    cfg, _, sd, _ = setup
+    cfg, v, sd, _ = setup
     path = _write_pth(cfg, sd, str(tmp_path / 'w_1_2.pth'), wrap)
     got = load_weights(P(cfg), path)
     heads = _train_heads(cfg)
@@ -297,8 +297,13 @@ def test_load_weights_pth(setup, tmp_path, wrap):
                        torch.device('cpu'))
     assert torch.equal(model.class_existence_fc.bias,
                        _train_heads(cfg_e)['class_existence_fc.bias'])
-    with pytest.raises(NotImplementedError, match='A4'):
-        load_weights(P(cfg), str(tmp_path / 'w_1_2.ckpt'))
+    # a JAX weights-only .ckpt (flax msgpack) reads without flax: the same
+    # weights as the converter gives
+    from yolact_tpu.train.checkpoint import save_weights_only
+    save_weights_only(v, str(tmp_path / 'w_1_2.ckpt'))
+    got = load_weights(P(cfg), str(tmp_path / 'w_1_2.ckpt'))
+    assert got.keys() == sd.keys()
+    assert all(torch.equal(got[k], sd[k]) for k in sd)
 
 
 @pytest.fixture(scope='module')

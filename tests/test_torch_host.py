@@ -23,6 +23,7 @@ from yolact_tpu_torch import native
 from yolact_tpu_torch.data import augmentations, coco, rle
 from yolact_tpu_torch.eval import coco_json, evaluator, traditional
 from yolact_tpu_torch.utils import functions, timer
+from test_torch_inputs import cv2_generic  # noqa: F401
 
 
 @pytest.fixture(params=['native', 'numpy'])
@@ -184,7 +185,7 @@ def _write_coco(root, rng):
     return str(path)
 
 
-def test_coco_dataset_and_base_transform_match_jax(rng, tmp_path):
+def test_coco_dataset_and_base_transform_match_jax(rng, tmp_path, cv2_generic):
     info = _write_coco(tmp_path, rng)
     cfg = J.get_config('yolact_base').copy(max_size=64)
     port_cfg = C.get_config('yolact_base').copy(max_size=64)

@@ -18,11 +18,15 @@ to the smoke script's inputs does not move the unit tests.
   one float32 ulp apart, or equal in their float32 cross products.
 - :class:`SyntheticEvalSet` is an in-memory eval dataset of seeded frames
   with boxes and masks, for ``evaluate_dataset`` where no image files or
-  cv2 are at hand.
+  cv2 are at hand; :class:`SyntheticTrainSet` the training counterpart, raw
+  frames of mixed sizes through a training transform, for ``cli/train``.
 - :func:`make_train_batch` is a seeded training batch in the contract of
   ``data/coco.py:pad_batch`` (boxes, labels with one crowd per image and
   padding, rectangular masks), as ``tests/test_train.py:make_batch`` builds
   one for the JAX package.
+- :func:`cv2_generic` is a fixture that turns cv2's Intel IPP paths off
+  for one test, so the JAX package's cv2 resize takes cv2's generic path,
+  which ``data/augmentations.py:resize_linear`` reproduces bit for bit.
 - :func:`tiny_resnet_config` and :func:`tiny_plus_config` are
   ``tests/_tiny.py``'s small configs built with the port's own config
   module (``test_torch_config.py`` holds them equal to ``_tiny.py``'s), for
@@ -30,11 +34,27 @@ to the smoke script's inputs does not move the unit tests.
 """
 
 import numpy as np
+import pytest
 import torch
 
 from yolact_tpu_torch import MEANS, STD
 from yolact_tpu_torch import config as C
 from yolact_tpu_torch.kernels.dcn import out_size
+
+
+@pytest.fixture
+def cv2_generic():
+    """cv2 with IPP off during the test, restored after it (IPP's float
+    INTER_LINEAR, which cv2 takes for 1, 3 or 4 channels where it is built
+    in, rounds its own way: within 1.6e-2 on the 0-255 scale of cv2's
+    generic path)."""
+    import cv2
+    before = cv2.ipp.useIPP()
+    cv2.ipp.setUseIPP(False)
+    try:
+        yield cv2
+    finally:
+        cv2.ipp.setUseIPP(before)
 
 
 def tiny_resnet_config(**kw):
@@ -264,6 +284,55 @@ class SyntheticEvalSet:
 
     def pull_image(self, index):
         return self.raw[index]
+
+
+class SyntheticTrainSet:
+    """``n`` seeded raw BGR uint8 frames of ``sizes`` (in turn), each with
+    1-3 objects of random foreground classes and one crowd, with
+    rectangular or elliptic masks inside their boxes, in the
+    ``COCODetection`` item contract after ``transform`` (a training
+    ``SSDAugmentation``): ``pull_item`` -> (image, gt ``[k, 5]`` relative
+    boxes and 0-based labels with the crowd last at -1, masks
+    ``[k, S, S]``, h, w, num_crowds).  As ``COCODetection`` does, an item
+    whose transform drops every box is replaced by another."""
+
+    def __init__(self, n, sizes, num_classes, transform, seed=0):
+        rng = np.random.RandomState(seed)
+        self.transform = transform
+        self.raw = []
+        for i in range(n):
+            h, w = sizes[i % len(sizes)]
+            k = rng.randint(1, 4) + 1
+            xy1 = rng.rand(k, 2) * 0.6
+            xy2 = np.minimum(xy1 + 0.15 + rng.rand(k, 2) * 0.3, 1.0)
+            boxes = np.hstack([xy1, xy2])
+            yy, xx = np.mgrid[:h, :w] + 0.5
+            masks = np.zeros((k, h, w), np.uint8)
+            for j, (x1, y1, x2, y2) in enumerate(boxes * [w, h, w, h]):
+                if j % 2:
+                    cx, cy, rx, ry = (x1 + x2) / 2, (y1 + y2) / 2, \
+                        (x2 - x1) / 2, (y2 - y1) / 2
+                    masks[j] = (((xx - cx) / rx) ** 2
+                                + ((yy - cy) / ry) ** 2) <= 1
+                else:
+                    masks[j, int(y1):int(y2), int(x1):int(x2)] = 1
+            labels = np.append(rng.randint(0, num_classes - 1, k - 1), -1)
+            self.raw.append((rng.randint(0, 256, (h, w, 3)).astype(np.uint8),
+                             boxes, masks, labels.astype(np.float64)))
+
+    def __len__(self):
+        return len(self.raw)
+
+    def pull_item(self, index):
+        frame, boxes, masks, labels = self.raw[index]
+        h, w = frame.shape[:2]
+        img, masks, boxes, out = self.transform(
+            frame, masks.astype(np.float32), boxes.copy(),
+            {'num_crowds': 1, 'labels': labels})
+        if len(boxes) == 0:
+            return self.pull_item((index + 1) % len(self))
+        target = np.hstack([boxes, out['labels'][:, None]]).astype(np.float32)
+        return img, target, masks, h, w, out['num_crowds']
 
 
 def test_synthetic_eval_set_is_seeded_and_consistent():

@@ -48,7 +48,8 @@ import pytest
 import torch
 
 from _tiny import tiny_plus_config, tiny_resnet_config
-from test_torch_inputs import make_train_batch, seed_offsets_jax
+from test_torch_inputs import (cv2_generic, make_train_batch,  # noqa: F401
+                              seed_offsets_jax)
 from test_torch_loss import jax_draws
 from yolact_tpu.train import schedule as jax_schedule
 from yolact_tpu.train.step import create_train_state as jax_create_train_state
@@ -365,8 +366,8 @@ def test_unported_step_options_raise(port_trainer):
     state = create_train_state(cfg, device='cpu')
     with pytest.raises(NotImplementedError, match='A6b'):
         train_step(state, dict(batch, gt_masks_packed=0), gen)
-    state.model.set_compute_dtype(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match='A6b'):
+    state.model.set_compute_dtype(torch.bfloat16)   # cast for inference
+    with pytest.raises(ValueError, match='master weights'):
         train_step(state, batch, gen)
     state = create_train_state(cfg.copy(use_device_augment=True),
                                device='cpu')
@@ -451,7 +452,7 @@ def test_pad_batch_matches_jax(rng, multires):
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def test_enforce_size_matches_jax(rng):
+def test_enforce_size_matches_jax(rng, cv2_generic):
     from yolact_tpu.data import coco as jax_coco
     from yolact_tpu_torch.data import coco
     img = rng.rand(40, 60, 3).astype(np.float32)

@@ -22,6 +22,16 @@ gradients or momentum buffers under the same keys) back into trees of the
 same structure, so both packages can start a step from the same weights
 and their updated weights can be compared leaf by leaf.
 
+:func:`jax_checkpoint_to_port` takes a JAX ``.ckpt`` blob, as
+``convert/msgpack.py`` reads it, to the port's checkpoint dict
+(``train/checkpoint.py``): a ``save_checkpoint`` train state gives the
+step, the weights (``params.model``, ``params.maskiou``, ``batch_stats``),
+the SGD momentum by parameter name and ``conf_state``; a
+``save_weights_only`` blob the weights alone.  The JAX optimizer is
+``optax.chain(add_decayed_weights, trace, scale(-1))`` with the learning
+rate applied outside it (``yolact_tpu/train/step.py:38-51``), so element
+1's ``trace`` is ``torch.optim.SGD``'s ``momentum_buffer`` as it stands.
+
 :func:`config_from_jax` rebuilds the port's config dataclasses field by
 field from a ``yolact_tpu.config`` object (the port keeps its own copy of
 that module, so the two packages' classes differ); it reads the object's
@@ -95,6 +105,11 @@ def _to_torch(path: Tuple[str, ...], value) -> torch.Tensor:
     return torch.tensor(a)               # a contiguous, writable copy
 
 
+def _state_dict(trees) -> Dict[str, torch.Tensor]:
+    return {_torch_key(path): _to_torch(path, value)
+            for tree in trees for path, value in _walk(tree)}
+
+
 def jax_variables_to_state_dict(cfg: YolactConfig, variables: Dict
                                 ) -> Dict[str, torch.Tensor]:
     """``{'params': ..., 'batch_stats': ...}`` of ``yolact_tpu`` Yolact(cfg),
@@ -106,8 +121,7 @@ def jax_variables_to_state_dict(cfg: YolactConfig, variables: Dict
     strictly."""
     trees = [variables.get('params', {}), variables.get('batch_stats', {}),
              variables.get('maskiou', {}).get('params', {})]
-    sd = {_torch_key(path): _to_torch(path, value)
-          for tree in trees for path, value in _walk(tree)}
+    sd = _state_dict(trees)
     if 'params' in variables:
         heads = init_train_heads(cfg, torch.Generator().manual_seed(0))
         sd.update({k: t for k, t in heads.items() if k not in sd})
@@ -162,6 +176,24 @@ def state_dict_to_train_state(sd: Dict[str, Any], params: Dict,
     if 'maskiou' in params:
         new_params['maskiou'] = fill(params['maskiou'], (), ())
     return new_params, fill(batch_stats, (), ())
+
+
+def jax_checkpoint_to_port(cfg: YolactConfig, blob: Dict) -> Dict[str, Any]:
+    """A JAX checkpoint tree -> ``{'model': state dict}`` for weights, plus
+    ``'step'``, ``'momentum'`` ({parameter name: buffer}) and, where saved,
+    ``'conf_state'`` for a train state (see the module docstring)."""
+    if 'opt_state' not in blob and 'step' not in blob:
+        return {'model': jax_variables_to_state_dict(cfg, blob)}
+    params = blob['params']
+    out = {'step': int(np.asarray(blob['step'])),
+           'model': train_state_to_state_dict(cfg, params,
+                                              blob.get('batch_stats', {}))}
+    trace = blob['opt_state']['1']['trace']
+    out['momentum'] = _state_dict([trace['model'], trace.get('maskiou', {})])
+    if blob.get('conf_state') is not None:
+        out['conf_state'] = {k: torch.tensor(np.asarray(v, np.float32))
+                             for k, v in blob['conf_state'].items()}
+    return out
 
 
 def _rebuild(value: Any) -> Any:

@@ -267,8 +267,10 @@ def enforce_size(img, targets, masks, num_crowds, new_w, new_h):
     inputs (reference data/coco.py:219-255).
 
     img: [h, w, 3] float; masks: [n, h, w]; targets: [n, 5] normalized.
+    The resize is ``data/augmentations.py:resize_linear``, cv2's
+    INTER_LINEAR order in numpy.
     """
-    import cv2
+    from yolact_tpu_torch.data.augmentations import resize_linear
     h, w = img.shape[:2]
     if h == new_h and w == new_w:
         return img, targets, masks, num_crowds
@@ -280,11 +282,9 @@ def enforce_size(img, targets, masks, num_crowds, new_w, new_h):
         h_prime = new_h
     w_prime, h_prime = int(w_prime), int(h_prime)
 
-    img = cv2.resize(img, (w_prime, h_prime), interpolation=cv2.INTER_LINEAR)
+    img = resize_linear(img, w_prime, h_prime)
     if masks is not None and len(masks):
-        m = cv2.resize(masks.transpose(1, 2, 0), (w_prime, h_prime),
-                       interpolation=cv2.INTER_LINEAR)
-        masks = m[None] if m.ndim == 2 else m.transpose(2, 0, 1)
+        masks = resize_linear(masks, w_prime, h_prime, axis=1)
 
     if targets is not None and len(targets):
         targets = targets.copy()

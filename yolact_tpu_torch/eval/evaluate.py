@@ -334,7 +334,6 @@ def calc_map_from_file(cfg: YolactConfig, ap_data_file: str) -> Dict:
 
 
 def make_eval_dataset(cfg: YolactConfig) -> COCODetection:
-    # BaseTransform resizes with cv2, imported only where it resizes
     from yolact_tpu_torch.data.augmentations import BaseTransform
     return COCODetection(cfg.dataset.valid_images, cfg.dataset.valid_info,
                          transform=BaseTransform(cfg),

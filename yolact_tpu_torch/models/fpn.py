@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yolact_tpu_torch.config import FPNConfig
+from yolact_tpu_torch.models.layers import Conv2d
 
 
 class FPN(nn.Module):
@@ -25,11 +26,11 @@ class FPN(nn.Module):
         nf = cfg.num_features
         pad = 1 if cfg.pad else 0
         self.lat_layers = nn.ModuleList(
-            nn.Conv2d(c, nf, 1) for c in reversed(in_channels))
+            Conv2d(c, nf, 1) for c in reversed(in_channels))
         self.pred_layers = nn.ModuleList(
-            nn.Conv2d(nf, nf, 3, padding=pad) for _ in in_channels)
+            Conv2d(nf, nf, 3, padding=pad) for _ in in_channels)
         self.downsample_layers = nn.ModuleList(
-            nn.Conv2d(nf, nf, 3, stride=2, padding=1)
+            Conv2d(nf, nf, 3, stride=2, padding=1)
             for _ in range(cfg.num_downsample if cfg.use_conv_downsample
                            else 0))
 

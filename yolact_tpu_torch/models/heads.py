@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yolact_tpu_torch.config import YolactConfig
-from yolact_tpu_torch.models.layers import make_net
+from yolact_tpu_torch.models.layers import Conv2d, make_net
 
 
 def _activation(name: str):
@@ -79,7 +79,7 @@ class PredictionHead(nn.Module):
         def extra(n_layers):
             mods = []
             for _ in range(n_layers):
-                mods += [nn.Conv2d(ch, ch, 3, padding=1), nn.ReLU()]
+                mods += [Conv2d(ch, ch, 3, padding=1), nn.ReLU()]
             return nn.Sequential(*mods)
 
         self.bbox_extra, self.conf_extra, self.mask_extra = (
@@ -87,12 +87,12 @@ class PredictionHead(nn.Module):
 
         hp = cfg.head_layer_params_dict
         k, p = hp.get('kernel_size', 3), hp.get('padding', 0)
-        self.bbox_layer = nn.Conv2d(ch, num_priors * 4, k, padding=p)
-        self.conf_layer = nn.Conv2d(ch, num_priors * cfg.num_classes, k,
-                                    padding=p)
+        self.bbox_layer = Conv2d(ch, num_priors * 4, k, padding=p)
+        self.conf_layer = Conv2d(ch, num_priors * cfg.num_classes, k,
+                                 padding=p)
         if cfg.eval_mask_branch:
-            self.mask_layer = nn.Conv2d(ch, num_priors * self.mask_dim, k,
-                                        padding=p)
+            self.mask_layer = Conv2d(ch, num_priors * self.mask_dim, k,
+                                     padding=p)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         cfg = self.cfg

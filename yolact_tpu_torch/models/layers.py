@@ -13,9 +13,13 @@ rearrangement is a reshape and permute; JAX's one-hot stride-2 conv, which
 makes the TPU's matrix unit do the shuffle, is not ported.  The s2d stem
 runs only where a config asks for it (``cfg.stem_s2d``).
 
-Compute dtype follows the JAX convention: parameters are float32 in the
-state dict, convolutions run in the compute dtype (``Yolact.set_compute_dtype``
-casts the conv weights once), and batch norm keeps float32 statistics.
+Compute dtype follows the JAX convention (flax modules with ``dtype`` over
+float32 parameters): :class:`Conv2d` and :class:`Linear` compute in their
+input's dtype and cast their weight and bias to it at use, so a bfloat16
+activation runs a bfloat16 conv over float32 master weights, and autograd
+brings float32 gradients back to them.  For inference
+``Yolact.set_compute_dtype`` casts the weights once, and the cast at use is
+then a no-op.  Batch norm keeps float32 statistics and parameters.
 """
 
 from __future__ import annotations
@@ -25,6 +29,22 @@ from typing import Any, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype: weight and bias are cast to it at
+    use (see the module docstring)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in its input's dtype, as :class:`Conv2d`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 def s2d_stem_kernel(w: torch.Tensor) -> torch.Tensor:
@@ -159,9 +179,9 @@ def make_net(in_channels: int, spec: Tuple[Tuple[Any, ...], ...],
                 f'make_net entry {entry!r} (parallel branches or transposed '
                 f'conv) is not ported')
         if k > 0:
-            layers.append(nn.Conv2d(ch, num, k, stride=kw.get('stride', 1),
-                                    padding=kw.get('padding', 0),
-                                    dilation=kw.get('dilation', 1)))
+            layers.append(Conv2d(ch, num, k, stride=kw.get('stride', 1),
+                                 padding=kw.get('padding', 0),
+                                 dilation=kw.get('dilation', 1)))
             ch = num
         else:
             layers.append(InterpolateModule(-k))

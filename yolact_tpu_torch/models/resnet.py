@@ -18,7 +18,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from yolact_tpu_torch.kernels import dcn, stem
-from yolact_tpu_torch.models.layers import (BatchNorm2d, max_pool,
+from yolact_tpu_torch.models.layers import (BatchNorm2d, Conv2d, max_pool,
                                             s2d_stem_kernel)
 
 EXPANSION = 4
@@ -39,9 +39,9 @@ class DCNLayer(nn.Module):
         super().__init__()
         k = kernel_size
         self.stride, self.padding, self.dilation = stride, padding, dilation
-        self.conv_offset_mask = nn.Conv2d(inplanes, 3 * k * k, k,
-                                          stride=stride, padding=padding,
-                                          dilation=dilation, bias=True)
+        self.conv_offset_mask = Conv2d(inplanes, 3 * k * k, k,
+                                       stride=stride, padding=padding,
+                                       dilation=dilation, bias=True)
         self.weight = nn.Parameter(torch.empty(planes, inplanes, k, k))
         self.bias = nn.Parameter(torch.zeros(planes))
 
@@ -64,23 +64,23 @@ class Bottleneck(nn.Module):
                  dilation: int = 1, use_dcn: bool = False,
                  has_downsample: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False,
-                               dilation=dilation)
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False,
+                            dilation=dilation)
         self.bn1 = BatchNorm2d(planes)
         if use_dcn:
             self.conv2 = DCNLayer(planes, planes, 3, stride=stride,
                                   padding=dilation, dilation=dilation)
         else:
-            self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
-                                   padding=dilation, dilation=dilation,
-                                   bias=False)
+            self.conv2 = Conv2d(planes, planes, 3, stride=stride,
+                                padding=dilation, dilation=dilation,
+                                bias=False)
         self.bn2 = BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, planes * EXPANSION, 1, bias=False,
-                               dilation=dilation)
+        self.conv3 = Conv2d(planes, planes * EXPANSION, 1, bias=False,
+                            dilation=dilation)
         self.bn3 = BatchNorm2d(planes * EXPANSION)
         self.downsample = nn.Sequential(
-            nn.Conv2d(inplanes, planes * EXPANSION, 1, stride=stride,
-                      bias=False, dilation=dilation),
+            Conv2d(inplanes, planes * EXPANSION, 1, stride=stride,
+                   bias=False, dilation=dilation),
             BatchNorm2d(planes * EXPANSION)) if has_downsample else None
 
     @property
@@ -169,7 +169,7 @@ class ResNetBackbone(nn.Module):
         extra = max(0, (num_stages or len(layers)) - len(layers))
         plans = _stage_plan(layers, dcn_layers, dcn_interval, atrous_layers,
                             extra)
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.layers = nn.ModuleList(
             nn.Sequential(*[Bottleneck(**blk) for blk in stage])
@@ -207,7 +207,7 @@ class ResNetBackbone(nn.Module):
                              f"'none', 'dcn', 'all'")
         if self.stem_s2d:
             fn = stem.stem_conv_s2d if use_kernels else stem.stem_conv_s2d_plain
-            x = fn(x.contiguous(), self.s2d_weight())
+            x = fn(x.contiguous(), self.s2d_weight().to(x.dtype))
         else:
             x = self.conv1(x)
         x = F.relu(self.bn1(x, bn_train))

@@ -45,6 +45,7 @@ from yolact_tpu_torch.config import MaskType, YolactConfig, backbone_channels
 from yolact_tpu_torch.models.fpn import FPN
 from yolact_tpu_torch.models.heads import (FastMaskIoUNet, PredictionHead,
                                            ProtoNet)
+from yolact_tpu_torch.models.layers import Conv2d, Linear
 from yolact_tpu_torch.models.resnet import DCNLayer, ResNetBackbone
 from yolact_tpu_torch.ops.anchors import generate_priors
 
@@ -117,9 +118,9 @@ class Yolact(nn.Module):
             for i in range(n_heads))
         self.maskiou_net = FastMaskIoUNet(cfg) if cfg.use_maskiou else None
         if cfg.use_class_existence_loss:
-            self.class_existence_fc = nn.Linear(nf, cfg.num_classes - 1)
+            self.class_existence_fc = Linear(nf, cfg.num_classes - 1)
         if cfg.use_semantic_segmentation_loss:
-            self.semantic_seg_conv = nn.Conv2d(nf, cfg.num_classes - 1, 1)
+            self.semantic_seg_conv = Conv2d(nf, cfg.num_classes - 1, 1)
         self._priors = {}
 
     def _priors_per_pos(self, idx: int) -> int:
@@ -127,16 +128,25 @@ class Yolact(nn.Module):
         return sum(len(ars) * len(bb.pred_scales[idx])
                    for ars in bb.pred_aspect_ratios[idx])
 
-    def set_compute_dtype(self, dtype: torch.dtype) -> 'Yolact':
-        """Run the convolutions in `dtype` (the JAX ``compute_dtype``): conv
-        and DCN weights are cast once here, batch-norm statistics stay
-        float32, and so does the mask scorer, which JAX runs in float32 on
-        float32 masks: its weights are never cast, so they keep every bit."""
-        scorer = (set(self.maskiou_net.modules())
-                  if self.maskiou_net is not None else set())
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, DCNLayer)) and m not in scorer:
-                m.to(dtype)
+    def set_compute_dtype(self, dtype: torch.dtype,
+                          cast_weights: bool = True) -> 'Yolact':
+        """Run the convolutions in `dtype` (the JAX ``compute_dtype``): the
+        forward casts its input to `dtype`, and every conv computes in its
+        input's dtype (``models/layers.py:Conv2d``).  Batch-norm statistics
+        stay float32, and so does the mask scorer, which JAX runs in float32
+        on float32 masks: its weights are never cast, so they keep every bit.
+
+        ``cast_weights`` (inference) casts the conv and DCN weights once,
+        in place.  Training passes False: the parameters stay the float32
+        master weights, each conv casts its weight at use, and the
+        gradients come back in float32, as flax's ``dtype`` over float32
+        params does."""
+        if cast_weights:
+            scorer = (set(self.maskiou_net.modules())
+                      if self.maskiou_net is not None else set())
+            for m in self.modules():
+                if isinstance(m, (nn.Conv2d, DCNLayer)) and m not in scorer:
+                    m.to(dtype)
         self.compute_dtype = dtype
         return self
 

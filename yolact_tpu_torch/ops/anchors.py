@@ -134,3 +134,10 @@ def proto_size(cfg: YolactConfig, img_size=None) -> Tuple[int, int]:
     else:
         h, w = feature_map_sizes(cfg, img_size)[cfg.mask_proto_src]
     return spec_out_hw(cfg.mask_proto_net, h, w)
+
+
+def seg_size(cfg: YolactConfig, img_size=None) -> Tuple[int, int]:
+    """(h, w) of the semantic-seg aux head (1x1 conv on outs[0] —
+    models/yolact.py), the gt downsample target of
+    semantic_segmentation_loss (multibox_loss.py:225-228)."""
+    return feature_map_sizes(cfg, img_size)[0]

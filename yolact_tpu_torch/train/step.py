@@ -17,10 +17,15 @@ count lands on the right lr.  As in JAX:
 * the loss draws its sampling priorities from the caller's
   ``torch.Generator`` (``train/loss.py``).
 
-The step trains in float32 (the JAX trainer's default).
-``Yolact.set_compute_dtype`` casts the weights in place, which would leave
-no float32 master copy: a cast model raises here (bfloat16 compute over
-float32 master weights is ROADMAP A6b).  The batch is the dict of
+The step computes in ``cfg.compute_dtype`` over float32 master weights, as
+the JAX trainer's flax modules with ``dtype`` over float32 params do:
+``create_train_state`` leaves the parameters float32 and sets the model's
+compute dtype without casting them (``Yolact.set_compute_dtype(...,
+cast_weights=False)``), every conv casts its weight at use, batch-norm
+statistics and the mask scorer stay float32, the loss widens the
+predictions to float32, and the gradients and the SGD update are float32.
+A model whose weights were cast in place for inference raises.  The batch
+is the dict of
 ``data/coco.py:pad_batch``, numpy arrays or tensors, with the image
 ``[B, S, S, 3]`` normalized RGB (or raw uint8 values as float).
 """
@@ -61,13 +66,16 @@ def create_train_state(cfg: YolactConfig, seed: int = 0,
                        state_dict: Optional[Dict[str, torch.Tensor]] = None
                        ) -> TrainState:
     """The model (seeded random weights in the JAX package's init scheme,
-    or `state_dict`) in float32 on `device`, and its optimizer."""
+    or `state_dict`) with float32 parameters on `device`, computing in
+    ``cfg.compute_dtype``, and its optimizer."""
     device = check_device(device)
     if state_dict is None:
         state_dict = random_state_dict(
             cfg, torch.Generator().manual_seed(seed))
     model = Yolact(cfg)
     model.load_state_dict(state_dict, strict=True)
+    model.set_compute_dtype(getattr(torch, cfg.compute_dtype),
+                            cast_weights=False)
     model.to(device)
     if cfg.freeze_bn:
         for m in model.modules():
@@ -121,11 +129,11 @@ def loss_and_grads(state: TrainState, batch: Dict[str, Any],
     parameter's ``.grad`` and returns the losses by letter plus ``total``.
     Batch-norm statistics stay pending; nothing is updated."""
     cfg, model = state.cfg, state.model
-    if model.compute_dtype != torch.float32:
-        raise NotImplementedError(
-            'train_step needs a float32 model: set_compute_dtype casts the '
-            'weights in place (bfloat16 compute over float32 master weights '
-            'is ROADMAP A6b)')
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise ValueError(
+            'train_step needs float32 master weights: this model\'s were cast '
+            'in place (set_compute_dtype for inference); build it with '
+            'create_train_state, which computes in cfg.compute_dtype')
     if cfg.use_device_augment:
         raise NotImplementedError(
             'use_device_augment is not ported (ROADMAP A9)')

@@ -1,11 +1,15 @@
-"""Small host-side helpers of the eval loop: moving average and progress
-bar, the port's copy of ``yolact_tpu/utils/functions.py``.  Behavioural
-parity with the reference ``utils/functions.py``."""
+"""Small host-side helpers of the eval and train loops: moving average,
+progress bar and the checkpoint filename codec, the port's copy of
+``yolact_tpu/utils/functions.py``.  Behavioural parity with the reference
+``utils/functions.py``."""
 
 from __future__ import annotations
 
 import math
+import os
 from collections import deque
+from pathlib import Path
+from typing import Optional
 
 
 class MovingAverage:
@@ -68,3 +72,61 @@ class ProgressBar:
 
     def __repr__(self):
         return self.string
+
+
+class SavePath:
+    """Checkpoint filename codec ``<config>_<epoch>_<iter>.<ext>``
+    (utils/functions.py:98-161), extended to the JAX package's .ckpt
+    extension.  The port's trainer names its checkpoints ``.pth``."""
+
+    EXTS = ('.pth', '.ckpt', '.npz', '.msgpack')
+
+    def __init__(self, model_name: str, epoch: int, iteration: int,
+                 ext: str = '.ckpt'):
+        self.model_name = model_name
+        self.epoch = epoch
+        self.iteration = iteration
+        self.ext = ext
+
+    def get_path(self, root: str = '') -> str:
+        name = f'{self.model_name}_{self.epoch}_{self.iteration}{self.ext}'
+        return os.path.join(root, name)
+
+    @staticmethod
+    def from_str(path: str) -> 'SavePath':
+        file_name = os.path.basename(path)
+        ext = '.ckpt'
+        for e in SavePath.EXTS:
+            if file_name.endswith(e):
+                ext = e
+                file_name = file_name[:-len(e)]
+                break
+        params = file_name.split('_')
+        if file_name.endswith('interrupt'):
+            params = params[:-1]
+        model_name = '_'.join(params[:-2])
+        return SavePath(model_name, int(params[-2]), int(params[-1]), ext)
+
+    @staticmethod
+    def remove_interrupt(save_folder: str):
+        for p in Path(save_folder).glob('*_interrupt.*'):
+            p.unlink()
+
+    @staticmethod
+    def get_interrupt(save_folder: str) -> Optional[str]:
+        for p in Path(save_folder).glob('*_interrupt.*'):
+            return str(p)
+        return None
+
+    @staticmethod
+    def get_latest(save_folder: str, config: str) -> Optional[str]:
+        max_iter, max_name = -1, None
+        for p in Path(save_folder).glob(config + '_*'):
+            try:
+                save = SavePath.from_str(str(p))
+            except Exception:
+                continue
+            if save.model_name == config and save.iteration > max_iter:
+                max_iter = save.iteration
+                max_name = str(p)
+        return max_name
