@@ -17,12 +17,17 @@ Phases, each of which raises on failure:
    Cin % 8 != 0, in bf16 at b8 and in f32 at b1, with integer, fractional,
    far out-of-bounds and non-finite offsets, bit for bit, from NCHW and
    channels_last inputs; the s2d stem conv at the yolact_base shapes (bf16
-   b8, f32 b1) and an odd one: f32 within 1e-5 of max|out|, bf16 within
-   one bf16 ulp of |plain| plus 1e-5 of max|plain|; the DCN backward
+   b8, f32 b1 and b8), an odd one and f32 b8 inputs 1 + k * 2^-15 (the
+   split-TF32 product's lo halves): f32 within 1e-5 of max|out|, bf16
+   within one bf16 ulp of |plain| plus 1e-5 of max|plain|; the DCN backward
    (dcn_col2im) against autograd through the plain columns at the same six
    shapes and offsets, in bf16 at b8 and in f32 at b1 and at b8 (the train
-   step's call): f32 within 1e-5 of each gradient's largest entry with the
-   same zeros, bf16 within one bf16 ulp plus 1e-2 of it; the stem's
+   step's call), and with offsets beyond the kernel's window halo (its
+   global path) at two shapes in f32 and bf16: f32 within 1e-5 of each
+   gradient's largest entry, the offset and mask gradients with the same
+   zeros and grad_x exactly 0 where no valid corner lands, bf16 within one
+   bf16 ulp plus 1e-2 of it; each line with the global-path share of the
+   corners and the global reductions into grad_x; the stem's
    gradients at [8,12,275,275] f32 against autograd through the plain stem
 4. the three paths, each at 550x550 with seeded random weights, b1 and b8
    in bf16 and b1 in f32 (TF32 off), with the kernels and with the plain
@@ -57,12 +62,16 @@ Phases, each of which raises on failure:
    learning rate warmed up from 1e-7 (so that the atomics' last bits stay
    last bits for three steps): every loss finite and equal within 1e-4 relative per
    step, the gradients of conv1 and of the first DCN block non-zero and
-   within 1e-3 of their largest entry, the launch counts per step (stem 1;
+   within 1e-3 of their largest entry (yolact_base's on a second
+   comparison with frozen batch norm, see TRAIN_PATHS), the launch counts per step (stem 1;
    DCN sampling 22 and backward 11 under 'dcn', 11 and 11 under 'none'), and
    a step on a NaN image, which must leave weights, momentum and batch-norm
    statistics bit-equal and advance the count; then ms per step, peak
-   memory, device busy and idle share, the matcher's and the loss's time,
-   and dcn_col2im per block against its bound and its plain version
+   memory, device busy and idle share, the matcher's and the loss's time;
+   for yolact_plus_base the inputs of each dcn_col2im launch of the first
+   kernel step are recorded, held against the plain version as in phase 3
+   and timed alone (beside the kernel's time inside the step), with the
+   global reductions per step
 8. trainer (run between phases 6 and 7): cli/train.train with in-memory
    data, 24 raw BGR frames of 480x640, 640x480 and 600x600 with boxes,
    labels, one crowd and rectangular or elliptic masks each, through the
@@ -91,7 +100,9 @@ Phases, each of which raises on failure:
    the block's tail on channels_last against NCHW), and each kernel's
    device time against its plain version, its bound and, for the stem,
    cuDNN's convs (the IoU max and mask assembly at b8 and b1; the stem
-   also in f32 at b8, against cuDNN's f32 convs with TF32 off)
+   also in f32 at b8, against cuDNN's f32 convs with TF32 off, its bound
+   as three TF32 products beside the bound as FMAs); dcn_col2im at the
+   five shapes in f32 and bf16 with its global reductions
 
 The line before the last is a JSON object with each kernel's launches
 (and, as trainer_launches, its launches in the trainer's runs), error,
@@ -211,12 +222,19 @@ DCN_ODD_SHAPE = ('Cin 60', 0, 60, 35, 1)
 # rate of their type
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# dense TF32 on the tensor cores; the stem's float32 kernel does each
+# product three times (split TF32: hi*hi + hi*lo + lo*hi)
+TF32_TENSOR_OPS_PER_S = 494.7e12
 BF16_TENSOR_OPS_PER_S = 989e12
-# The s2d stem conv: yolact_base 550 at b8 bf16 and b1 f32, and an odd shape
-STEM_SHAPES = ((torch.bfloat16, (8, 12, 275, 275)),
-               (torch.float32, (1, 12, 275, 275)),
-               (torch.bfloat16, (2, 12, 37, 41)),
-               (torch.float32, (2, 12, 37, 41)))
+# The s2d stem conv: yolact_base 550 at b8 bf16 and b1 and b8 f32, an odd
+# shape, and (wide) float32 inputs 1 + k * 2^-15, k < 2^12, whose low bits
+# only the split-TF32 product's lo halves carry
+STEM_SHAPES = ((torch.bfloat16, (8, 12, 275, 275), False),
+               (torch.float32, (1, 12, 275, 275), False),
+               (torch.float32, (8, 12, 275, 275), False),
+               (torch.bfloat16, (2, 12, 37, 41), False),
+               (torch.float32, (2, 12, 37, 41), False),
+               (torch.float32, (8, 12, 275, 275), True))
 EVAL_FRAMES = 16
 RUNS = 100     # timed calls per measurement: p90 has 10 samples beyond it
 
@@ -244,15 +262,21 @@ def time_ms(fn, runs=RUNS, warmup=5):
     return statistics.median(times), float(np.percentile(times, 90))
 
 
+QUEUE_CYCLES = 2 * 10 ** 7    # about 10 ms of the card's clock
+
+
 def device_ms(fn, runs=50, warmup=5):
     """Device time of one call, by CUDA events around `runs` calls launched
-    back to back: the card never waits for the host, so for kernels longer
-    than their launch this is the device time per call."""
+    back to back behind a spin of QUEUE_CYCLES on the card, so that the
+    host has queued them all before the first starts: the card never waits
+    for the host, and short kernels read their own time, not their
+    launch's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(runs):
         fn()
@@ -399,14 +423,168 @@ def dcn_vs_plain(dev):
     return worst
 
 
+def reached_pixels(offset, h, w, stride, pad=1, dil=1):
+    """[B, H, W] bool: the input pixels that a valid corner of some sample
+    lands on (dcn.col2im_corners), the only ones grad_x can be non-zero at."""
+    b = offset.shape[0]
+    where = dcn.col2im_corners(offset, h, w, 3, stride, pad, dil)
+    y0, x0 = dcn._top_left_corners(offset, h, w, 3, stride, pad, dil)
+    img = torch.arange(b, device=offset.device)[:, None, None, None]
+    reached = torch.zeros(b * h * w, dtype=torch.bool, device=offset.device)
+    for q, (dy, dx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        keys = (img * h + y0 + dy) * w + x0 + dx
+        reached[keys[where[..., q] > 0]] = True
+    return reached.view(b, h, w)
+
+
+def order_bounds(g_cols, offset, mask, h, w, stride, pad=1, dil=1):
+    """[B, C, H, W] float32: how far two float32 sums of the addends
+    g * m * cw that a pixel and channel of grad_x sums can differ when
+    taken in different orders, 2 (n - 1) 2^-24 sum |addend| for n addends
+    (recursive summation's error bound, for each of the two; NaN samples
+    left out)."""
+    b, _, ho, wo = offset.shape
+    c = g_cols.shape[1] // 9
+    dev = offset.device
+    tap = torch.arange(9, device=dev)
+    base_y = ((torch.arange(ho, device=dev) * stride - pad)[:, None, None]
+              + tap // 3 * dil).float()
+    base_x = ((torch.arange(wo, device=dev) * stride - pad)[None, :, None]
+              + tap % 3 * dil).float()
+    off = offset.view(b, 9, 2, ho, wo).permute(0, 3, 4, 1, 2)
+    fy, fx = base_y + off[..., 0], base_x + off[..., 1]
+    fy, fx = fy - torch.floor(fy), fx - torch.floor(fx)
+    y0, x0 = dcn._top_left_corners(offset, h, w, 3, stride, pad, dil)
+    m = mask.float().permute(0, 2, 3, 1).abs()
+    g = g_cols.float().view(b, ho, wo, 9, c).abs()
+    img = torch.arange(b, device=dev)[:, None, None, None]
+    total = torch.zeros(b * h * w, c, dtype=torch.float64, device=dev)
+    n = torch.zeros(b * h * w, dtype=torch.float64, device=dev)
+    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        yi, xi = y0 + dy, x0 + dx
+        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        cw = (fy if dy else 1 - fy) * (fx if dx else 1 - fx)
+        scale = (m * cw.abs()).nan_to_num(0, 0, 0)[valid]
+        keys = ((img * h + yi) * w + xi)[valid]
+        total.index_add_(0, keys, (g[valid] * scale[:, None]).double())
+        n.index_add_(0, keys, torch.ones_like(keys, dtype=torch.float64))
+    bound = 2 * (n[:, None] - 1).clamp(min=0) * 2.0 ** -24 * total
+    return bound.float().view(b, h, w, c).permute(0, 3, 1, 2)
+
+
+def col2im_check(tag, g_cols, x, offset, mask, stride, pad=1, dil=1):
+    """The DCN backward kernel against autograd through the plain columns on
+    one input (see KERNELS['dcn_col2im']); prints each gradient's error, the
+    share of corners on the kernel's global path and the global reductions
+    into grad_x (see col2im_reductions_line).  Returns the largest float32
+    abs error (0.0 in bfloat16)."""
+    tol = KERNELS['dcn_col2im']['tol']
+    dtype = x.dtype
+    got = dcn.dcn_col2im(g_cols, x, offset, mask, 3, stride, pad, dil)
+    want = dcn.dcn_col2im_plain(g_cols, x, offset, mask, 3, stride, pad, dil)
+    torch.cuda.synchronize()
+    report, worst, cancelled = [], 0.0, ''
+    for gname, g, w in zip(('grad_x', 'grad_offset', 'grad_mask'), got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f'{tag}: {gname} has another shape or dtype')
+        check(bool(torch.equal(g.isnan(), w.isnan())),
+              f'{tag}: {gname} has other NaNs')
+        ok = ~w.isnan()
+        gf, wf = g[ok].float(), w[ok].float()
+        top = float(wf.abs().max())
+        err = float((gf - wf).abs().max())
+        limit = tol * top
+        if dtype == torch.bfloat16:
+            # one rounding of the float32 sum against bfloat16 products,
+            # sums and (grad_x) scatter-adds
+            limit = bf16_ulp(wf) + 1e-2 * top
+            over = int(((gf - wf).abs() > limit).sum())
+        else:
+            over = int(err > limit)
+            if gname == 'grad_x':
+                # zero exactly where no valid corner lands, in both; where
+                # the plain version's addends cancel to exactly 0 on a pixel
+                # they reach, the kernel's sum of them in another order
+                # (the atomics' order changes from run to run, the plain
+                # scatter's too) within the two orders' error bound
+                idle = ~reached_pixels(offset, *x.shape[2:], stride, pad,
+                                       dil)[:, None].expand_as(g)
+                check(bool((g[idle] == 0).all() and (w[idle] == 0).all()),
+                      f'{tag}: grad_x is not 0 where no corner lands')
+                cancel = (w == 0) & ~idle
+                bound = order_bounds(g_cols, offset, mask, *x.shape[2:],
+                                     stride, pad, dil)[cancel]
+                got0 = g[cancel].abs()
+                check(bool((got0 <= bound).all()), f'{tag}: grad_x is '
+                      f'further from 0 than the order of its sum explains '
+                      f'where the plain version cancels to 0')
+                share = float((got0 / bound)[got0 > 0].max()) if bool(
+                    (got0 > 0).any()) else 0.0
+                cancelled = (f'; grad_x where plain cancels to 0 at a reached '
+                             f'pixel: {int(cancel.sum())} values, kernel 0 at '
+                             f'{int((got0 == 0).sum())}, the others at most '
+                             f'{share!r} of their order bound')
+            else:
+                check(bool(torch.equal(gf == 0, wf == 0)),
+                      f'{tag}: {gname} has other zeros')
+            worst = max(worst, err)
+        report.append(f'{gname} max_abs_err={err!r} rel_to_max={err / top!r} '
+                      f'nans={int((~ok).sum())}'
+                      + (cancelled if gname == 'grad_x' else ''))
+        check(over == 0, f'{tag}: {gname} disagrees with the plain version '
+              f'({report[-1]})')
+    print(f'{tag}: ' + '; '.join(report) + '; '
+          + col2im_reductions_line(x, offset, stride, pad, dil))
+    if dtype == torch.bfloat16:
+        # which of the two is nearer the float32 gradients of the same
+        # bfloat16 inputs
+        ref = dcn.dcn_col2im_plain(g_cols.float(), x.float(), offset,
+                                   mask.float(), 3, stride, pad, dil)
+        ok = ~ref[0].isnan()
+        top = float(ref[0][ok].abs().max())
+        print(f'{tag}: grad_x against float32 autograd on the same inputs, '
+              f'of its max: kernel '
+              f'{float((got[0].float() - ref[0])[ok].abs().max()) / top!r}, '
+              f'plain version '
+              f'{float((want[0].float() - ref[0])[ok].abs().max()) / top!r}')
+    return worst
+
+
+def col2im_reductions_line(x, offset, stride, pad=1, dil=1):
+    """The global reductions into grad_x of one call, reckoned from the
+    offsets and the kernel's geometry (dcn.col2im_reductions): a kernel
+    with one float32 atomicAdd per valid corner and channel (the design
+    before the tiled one) beside the tiled kernel's 16-byte window
+    flushes and global-path reductions, and the global path's share of
+    the corners."""
+    c, h, w = x.shape[1:]
+    r = dcn.col2im_reductions(offset, c, h, w, 3, stride, pad, dil,
+                              dcn.col2im_vec(c, x.element_size(), x))
+    return (f'global reductions into grad_x: per corner and channel '
+            f'{r["scalar"]}, tiled {r["window_v4"] + r["fallback"]} '
+            f'({r["window_v4"]} window flushes + {r["fallback"]} on the global '
+            f'path); global-path share of the corners '
+            f'{r["fallback_share"]!r}')
+
+
+def far_offsets(gen, b, ho, h):
+    """[b, 18, ho, ho] offsets of 10 to h / 2 pixels, either sign: beyond
+    the window's halo (dcn.col2im_geometry), so many corners that stay in the
+    map take the kernel's global path."""
+    shape = (b, 18, ho, ho)
+    size = 10 + torch.rand(shape, generator=gen) * max(h / 2 - 10, 1)
+    sign = torch.randint(0, 2, shape, generator=gen) * 2 - 1
+    return size * sign
+
+
 def col2im_vs_plain(dev):
     """The DCN backward kernel against autograd through the plain columns
     at the five yolact_plus_base shapes and one with Cin % 8 != 0, with
-    integer, fractional, far out-of-bounds and non-finite offsets; returns
-    the largest float32 abs error at the yolact_plus_base shapes.  Float32
-    at b8 is the train step's own call."""
+    integer, fractional, far out-of-bounds and non-finite offsets, in bf16
+    at b8 and in f32 at b1 and b8 (the train step's call); then offsets far
+    outside any window at two shapes.  Returns the largest float32 abs
+    error at the yolact_plus_base shapes."""
     gen = torch.Generator().manual_seed(8)
-    tol = KERNELS['dcn_col2im']['tol']
     worst = 0.0
     for dtype, batch in ((torch.bfloat16, 8), (torch.float32, 1),
                          (torch.float32, 8)):
@@ -417,55 +595,83 @@ def col2im_vs_plain(dev):
             ho = offset.shape[-1]
             g_cols = torch.randn(batch * ho * ho, 9 * cin, generator=gen)\
                 .to(dtype).to(dev)
-            got = dcn.dcn_col2im(g_cols, x, offset, mask, 3, stride)
-            want = dcn.dcn_col2im_plain(g_cols, x, offset, mask, 3, stride)
-            torch.cuda.synchronize()
-            tag = (f'dcn_col2im {name} {str(dtype)[6:]} b{batch} '
-                   f'x{list(x.shape)} g_cols{list(g_cols.shape)}')
-            report = []
-            for gname, g, w in zip(('grad_x', 'grad_offset', 'grad_mask'),
-                                   got, want):
-                check(g.shape == w.shape and g.dtype == w.dtype,
-                      f'{tag}: {gname} has another shape or dtype')
-                check(bool(torch.equal(g.isnan(), w.isnan())),
-                      f'{tag}: {gname} has other NaNs')
-                ok = ~w.isnan()
-                gf, wf = g[ok].float(), w[ok].float()
-                top = float(wf.abs().max())
-                err = float((gf - wf).abs().max())
-                limit = tol * top
-                if dtype == torch.bfloat16:
-                    # one rounding of the float32 sum against bfloat16
-                    # products, sums and (grad_x) scatter-adds
-                    limit = bf16_ulp(wf) + 1e-2 * top
-                    over = int(((gf - wf).abs() > limit).sum())
-                else:
-                    over = int(err > limit)
-                    check(bool(torch.equal(gf == 0, wf == 0)),
-                          f'{tag}: {gname} has other zeros')
-                report.append(f'{gname} max_abs_err={err!r} '
-                              f'rel_to_max={err / top!r} nans='
-                              f'{int((~ok).sum())}')
-                check(over == 0, f'{tag}: {gname} disagrees with the plain '
-                      f'version ({report[-1]})')
-                if dtype == torch.float32 and count:
-                    worst = max(worst, err)
-            print(f'{tag}: ' + '; '.join(report))
-            if dtype == torch.bfloat16:
-                # which of the two is nearer the float32 gradients of the
-                # same bfloat16 inputs
-                ref = dcn.dcn_col2im_plain(g_cols.float(), x.float(), offset,
-                                           mask.float(), 3, stride)
-                ok = ~ref[0].isnan()
-                top = float(ref[0][ok].abs().max())
-                print(f'{tag}: grad_x against float32 autograd on the same '
-                      f'inputs, of its max: kernel '
-                      f'{float((got[0].float() - ref[0])[ok].abs().max()) / top!r}'
-                      f', plain version '
-                      f'{float((want[0].float() - ref[0])[ok].abs().max()) / top!r}')
-                del ref
-            del x, offset, mask, g_cols, got, want
+            err = col2im_check(
+                f'dcn_col2im {name} {str(dtype)[6:]} b{batch} '
+                f'x{list(x.shape)} g_cols{list(g_cols.shape)}',
+                g_cols, x, offset, mask, stride)
+            if count:
+                worst = max(worst, err)
+            del x, offset, mask, g_cols
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, count, cin, h, stride in (DCN_SHAPES[0], DCN_SHAPES[3]):
+            x, _, mask = dcn_inputs(gen, dev, 8, cin, h, stride, dtype)
+            ho = mask.shape[-1]
+            offset = far_offsets(gen, 8, ho, h).to(dev)
+            g_cols = torch.randn(8 * ho * ho, 9 * cin, generator=gen)\
+                .to(dtype).to(dev)
+            err = col2im_check(
+                f'dcn_col2im {name} {str(dtype)[6:]} b8 far offsets '
+                f'x{list(x.shape)}', g_cols, x, offset, mask, stride)
+            worst = max(worst, err)
+            del x, offset, mask, g_cols
     return worst
+
+
+@contextlib.contextmanager
+def capture_col2im():
+    """Records the inputs of every dcn_col2im kernel launch in the block, as
+    the backward of DCNColumns passes them (g_cols, NHWC x, offsets, mask,
+    geometry), in a list."""
+    captured = []
+    launch = dcn._launch_col2im
+
+    def record(g_cols, xh, offset, mask, dims):
+        captured.append((g_cols.clone(), xh.clone(), offset.clone(),
+                         mask.clone(), dims))
+        return launch(g_cols, xh, offset, mask, dims)
+
+    dcn._launch_col2im = record
+    try:
+        yield captured
+    finally:
+        dcn._launch_col2im = launch
+
+
+def col2im_in_step(captured, card):
+    """The DCN backward kernel on the inputs one train step gave it: held
+    against its plain version, then timed alone per block (torch.profiler
+    kernel events, 20 calls) with the global reductions; returns the
+    kernel's ms summed over the step's launches."""
+    total = 0.0
+    reductions = collections.Counter()
+    for i, (g_cols, xh, offset, mask, dims) in enumerate(captured):
+        _, c, h, w, _, _, k, stride, pad, dil = dims
+        x = xh.permute(0, 3, 1, 2)
+        r = dcn.col2im_reductions(offset, c, h, w, k, stride, pad, dil,
+                                  dcn.col2im_vec(c, x.element_size(), x))
+        reductions.update(scalar=r['scalar'], tiled=r['window_v4']
+                          + r['fallback'], corners=r['scalar'] // c,
+                          global_path=round(r['fallback_share']
+                                            * r['scalar'] / c))
+        tag = (f'dcn_col2im in-step launch {i} {str(x.dtype)[6:]} '
+               f'x{list(x.shape)} stride {stride}')
+        col2im_check(tag, g_cols, x, offset, mask, stride, pad, dil)
+        q = torch.quantile(offset.abs().flatten()[:1 << 24].float(),
+                           torch.tensor([0.5, 0.9, 0.99], device=x.device))
+        ms = device_times(lambda: dcn.dcn_col2im(g_cols, x, offset, mask, k,
+                                                 stride, pad, dil),
+                          'dcn_col2im_kernel')[1]
+        total += ms
+        print(f'{tag}: kernel alone {ms!r} ms (torch.profiler kernel events, '
+              f'20 calls); |offset| median, p90, p99 '
+              f'{[float(v) for v in q]} [{card}]')
+    print(f'dcn_col2im alone on one step\'s {len(captured)} in-step inputs: '
+          f'{total!r} ms; global reductions into grad_x per step: per corner '
+          f'and channel {reductions["scalar"]}, tiled {reductions["tiled"]}; '
+          f'global-path share of the corners '
+          f'{reductions["global_path"] / max(reductions["corners"], 1)!r} '
+          f'[{card}]')
+    return total
 
 
 def stem_grads_vs_plain(dev):
@@ -500,8 +706,10 @@ def stem_vs_plain(dev):
     float64 conv.  Returns the largest abs error."""
     gen = torch.Generator().manual_seed(4)
     worst = 0.0
-    for dtype, shape in STEM_SHAPES:
-        x = torch.randn(shape, generator=gen).to(dtype).to(dev)
+    for dtype, shape, wide in STEM_SHAPES:
+        x = (1 + torch.randint(0, 1 << 12, shape, generator=gen).float()
+             * 2.0 ** -15 if wide else torch.randn(shape, generator=gen))
+        x = x.to(dtype).to(dev)
         w2 = (torch.randn(64, 12, 4, 4, generator=gen) * 0.1).to(dtype).to(dev)
         got = stem.stem_conv_s2d(x, w2)
         want = stem.stem_conv_s2d_plain(x, w2)
@@ -511,7 +719,8 @@ def stem_vs_plain(dev):
         top = float(want.float().abs().max())
         err = float(diff.max())
         rel = err / top
-        tag = (f'stem_s2d {str(dtype)[6:]} x{list(shape)}: max_abs_err={err!r} '
+        tag = (f'stem_s2d {str(dtype)[6:]} x{list(shape)}'
+               f'{" 1+k*2^-15" if wide else ""}: max_abs_err={err!r} '
                f'rel_to_max={rel!r} vs_float64: kernel '
                f'{float((got.double() - exact).abs().max())!r} plain '
                f'{float((want.double() - exact).abs().max())!r}')
@@ -936,11 +1145,19 @@ def device_events(prof):
             and e.name not in annotations | {'train_iteration'}]
 
 
+PROFILES = collections.Counter()    # profile_kernels: profiles, lost events
+
+
 def profile_kernels(fn, calls=20, warmup=3):
     """torch.profiler kernel events over `calls` calls: (device busy ms per
     call, idle share of the span from the first kernel's start to the last
-    one's end, {kernel name: ms per call}), or None when the profiler
-    recorded no kernel."""
+    one's end, {kernel name: ms per call}, {kernel name: events}), or None
+    when the profiler recorded no kernel.  The profiler loses events on an
+    H100 (11-19 of 20 kept is common; the sum of a 0.39 ms kernel's events
+    over 20 calls once read 0.079 ms, as if it had kept 4), so a kernel's
+    ms per call is the mean of its recorded events times its launches per
+    call, the recorded count over the calls rounded up (which holds while
+    fewer than `calls` of its events are lost)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -953,29 +1170,36 @@ def profile_kernels(fn, calls=20, warmup=3):
     events = device_events(prof)
     if not events:
         return None
-    by_name = collections.Counter()
+    total, counts = collections.Counter(), collections.Counter()
     for e in events:
-        by_name[e.name] += e.time_range.elapsed_us() / 1e3 / calls
+        total[e.name] += e.time_range.elapsed_us() / 1e3
+        counts[e.name] += 1
+    by_name = {k: total[k] / counts[k] * -(-counts[k] // calls)
+               for k in total}
+    PROFILES['profiles'] += 1
+    PROFILES['with lost events'] += any(n % calls for n in counts.values())
     busy = sum(by_name.values())
     span = (max(e.time_range.end for e in events)
             - min(e.time_range.start for e in events)) / 1e3 / calls
-    return busy, 1 - busy / span, dict(by_name)
+    return busy, 1 - busy / span, by_name, dict(counts)
 
 
 def device_times(fn, symbol=None):
     """Device ms per call of `fn` by torch.profiler kernel events over 20
-    calls: (all its kernels, those whose name holds `symbol`).  Launched
-    back to back, a short kernel's calls can outrun CUDA events' view of
-    the device (the host is slower than the kernel), so the kernel's own
-    events are its time.  Where the profiler records nothing, both are the
-    CUDA-event time of device_ms, and say so."""
+    calls (profile_kernels): (all its kernels, those whose name holds
+    `symbol`).  Where the profiler records nothing (or nothing of
+    `symbol`), which it does on an H100 for whole profiles, both are
+    device_ms's time of the whole call, and say so."""
     prof = profile_kernels(fn)
-    if prof is None:
+    mine = [v for k, v in (prof[2] if prof else {}).items()
+            if symbol is not None and symbol in k]
+    if prof is None or (symbol is not None and not mine):
         t = device_ms(fn)
-        print('profiler recorded no kernel: CUDA-event time instead')
+        what = '' if prof is None else f' of {symbol}'
+        print(f'profiler recorded no kernel{what}: CUDA-event time of the '
+              f'whole call (device_ms) instead')
         return t, t
-    return prof[0], sum(v for k, v in prof[2].items()
-                        if symbol is not None and symbol in k)
+    return prof[0], sum(mine)
 
 
 def kernel_names(fn):
@@ -988,10 +1212,11 @@ def stem_timing(dev, card):
     """The stem kernel's device time against its plain version, cuDNN's
     4x4 conv of the same function (one call: padding 2, the extra last row
     and column not read) and cuDNN's 7x7/s2 conv on the 3-channel image it
-    replaces, with the kernel's bound: bf16 (the tensor-core kernel) at b8
-    and b1, and float32 (the FMA kernel a float32 train step runs; TF32 is
-    off, so cuDNN's convs are float32 too) at b8.  Returns the numbers by
-    (dtype, batch)."""
+    replaces, with the kernel's bound: bf16 at b8 and b1, and float32 (the
+    split-TF32 kernel a float32 train step runs; TF32 is off, so cuDNN's
+    convs are float32 too) at b8, whose bound is its three TF32 products
+    at the TF32 rate, printed beside the FMA bound of one float32 product
+    per pair.  Returns the numbers by (dtype, batch)."""
     gen = torch.Generator().manual_seed(6)
     out = {}
     for dtype, batch in ((torch.bfloat16, 8), (torch.bfloat16, 1),
@@ -1007,18 +1232,37 @@ def stem_timing(dev, card):
                'cudnn_7x7': lambda: F.conv2d(x3, w7, stride=2, padding=3)}
         dev_ms = {k: device_times(fn)[0] for k, fn in fns.items()}
         symbol = ('stem_s2d_mma_kernel' if dtype == torch.bfloat16
-                  else 'stem_s2d_fma_kernel')
+                  else 'stem_s2d_tf32_kernel')
         dev_ms['kernel'] = device_times(fns['kernel'], symbol)[1]
         call = {k: time_ms(fns[k]) for k in ('plain', 'kernel')}
         y = fns['kernel']()
-        b_ms, b_by = bound(nbytes(x, w2, y), 2 * y.numel() * 12 * 16,
-                           BF16_TENSOR_OPS_PER_S if dtype == torch.bfloat16
-                           else FP32_OPS_PER_S)
+        ops = 2 * y.numel() * 12 * 16
+        # no call can beat the bytes it must move, nor the kernel its bound
+        # below: a reading under its floor is a fault of the measurement
+        floors = {k: bound(n, 0, 1)[0] for k, n in (
+            ('plain', nbytes(x, w2, y)), ('kernel', nbytes(x, w2, y)),
+            ('cudnn_4x4', nbytes(x, w2, y)),
+            ('cudnn_7x7', nbytes(x3, w7) + y.numel() * y.element_size()))}
+        if dtype == torch.bfloat16:
+            b_ms, b_by = bound(nbytes(x, w2, y), ops, BF16_TENSOR_OPS_PER_S)
+            fma = ''
+        else:
+            b_ms, b_by = bound(nbytes(x, w2, y), 3 * ops,
+                               TF32_TENSOR_OPS_PER_S)
+            fma_ms, fma_by = bound(nbytes(x, w2, y), ops, FP32_OPS_PER_S)
+            fma = (f'; as FMAs the bound would be {fma_ms!r} by {fma_by} '
+                   f'({fma_ms / dev_ms["kernel"]!r} of it)')
+        floors['kernel'] = b_ms
         name = str(dtype)[6:]
+        for k, floor in floors.items():
+            check(dev_ms[k] >= floor, f'stem b{batch} {name}: {k} read '
+                  f'{dev_ms[k]!r} ms, below its bound {floor!r} ms: not a '
+                  f'device time')
         print(f'stem b{batch} {name} x[{batch},12,275,275] -> '
               f'[{batch},64,275,275]: device ms per call (torch.profiler '
               f'kernel events, 20 calls) kernel {dev_ms["kernel"]!r} (bound '
-              f'{b_ms!r} by {b_by}: {b_ms / dev_ms["kernel"]!r} of it), plain '
+              f'{b_ms!r} by {b_by}: {b_ms / dev_ms["kernel"]!r} of it{fma}), '
+              f'plain '
               f'(float32 conv, rounded) {dev_ms["plain"]!r}, cuDNN {name} 4x4 '
               f'{dev_ms["cudnn_4x4"]!r}, cuDNN {name} 7x7/s2 on '
               f'[{batch},3,550,550] {dev_ms["cudnn_7x7"]!r}; call median '
@@ -1185,11 +1429,23 @@ def small_kernel_timing(dev, card):
 # the gradients held against the plain run (non-zero, within 1e-3 of their
 # largest entry)
 DCN0 = 'backbone.layers.1.0.conv2.'
+# stem_limit: under batch statistics the float32 stem's train check holds
+# the first-step conv1 gradient to this limit, set from recorded readings,
+# instead of 1e-3; the same comparison with frozen batch norm holds it to
+# 1e-3 beside it.  Under batch statistics the random ResNet-101's
+# first-step conv1 gradient moves by 3.4e-3 of its max when the plain
+# stem's float32 output alone is perturbed by about an ulp (probe_stem.py
+# --sensitivity, PERF.md), so 1e-3 holds only a stem bit-equal to cuDNN's.
+# The limit sits between two readings taken in the same run
+# (stem_calibration): the plain path with its stem's output perturbed at
+# the kernel's own error level, which the limit must admit, and the plain
+# path with a one-pass TF32 stem (2^-11 relative), which it must refuse.
+STEM_BATCH_STATS_LIMIT = 3e-2
 TRAIN_PATHS = {
     'train_yolact_base_s2d': dict(
         config='yolact_base', overrides=dict(stem_s2d=True),
         per_step=dict(stem_s2d=1, dcn=0, dcn_col2im=0),
-        grads=('backbone.conv1.weight',)),
+        grads=('backbone.conv1.weight',), stem_limit=STEM_BATCH_STATS_LIMIT),
     'train_yolact_plus_base': dict(
         config='yolact_plus_base', overrides=dict(train_remat='dcn'),
         per_step=dict(stem_s2d=0, dcn=22, dcn_col2im=11),
@@ -1258,23 +1514,122 @@ def tame_residuals(sd, scale=0.1):
             for k, v in sd.items()}
 
 
-def run_train_steps(cfg, sd, batch, dev, use_kernels, grad_names):
+def run_train_steps(cfg, sd, batch, dev, use_kernels, grad_names,
+                    captured=None):
     """TRAIN_STEPS steps from `sd` with seeded draws: (state, the losses of
     each step, the named gradients of the first step, the kernels' launches
-    of each step)."""
+    of each step).  `captured`, a list: the first step's dcn_col2im inputs
+    are appended to it (capture_col2im)."""
     state = create_train_state(cfg, device=dev, state_dict=sd)
     gen = torch.Generator(device=dev).manual_seed(11)
     params = dict(state.model.named_parameters())
     losses, launches, grads = [], [], None
-    for _ in range(TRAIN_STEPS):
+    for i in range(TRAIN_STEPS):
         reset_launches()
-        out = train_step(state, batch, gen, use_kernels=use_kernels)
+        with (capture_col2im() if captured is not None and i == 0
+              else contextlib.nullcontext([])) as got:
+            out = train_step(state, batch, gen, use_kernels=use_kernels)
+        if captured is not None:
+            captured.extend(got)
         torch.cuda.synchronize()
         launches.append(read_launches(TRAIN_KERNELS))
         losses.append({k: float(v) for k, v in out.items()})
         if grads is None:
             grads = {k: params[k].grad.clone() for k in grad_names}
     return state, losses, grads, launches
+
+
+def grad_checks(tag, names, grads, plain_grads, rel):
+    """The named first-step gradients of a kernel run against the plain
+    run's: non-zero, and within `rel` of their largest entry."""
+    for k in names:
+        top = float(plain_grads[k].abs().max())
+        err = float((grads[k] - plain_grads[k]).abs().max())
+        print(f'{tag} first-step gradient of {k}: max {top!r}, max_abs_err '
+              f'against the plain versions {err!r} ({err / top!r} of max; '
+              f'criterion {rel!r})')
+        check(top > 0 and float(grads[k].abs().max()) > 0,
+              f'{tag}: {k} has no gradient')
+        check(err <= rel * top, f'{tag}: the gradient of {k} differs')
+
+
+@contextlib.contextmanager
+def plain_stem_as(conv):
+    """stem.stem_conv_s2d_plain replaced by `conv` in the block (the plain
+    path's stem: the model looks it up at each call)."""
+    plain = stem.stem_conv_s2d_plain
+    stem.stem_conv_s2d_plain = conv
+    try:
+        yield
+    finally:
+        stem.stem_conv_s2d_plain = plain
+
+
+def recording_stem(record):
+    """The plain stem, recording its first call's inputs in `record`."""
+    plain = stem.stem_conv_s2d_plain
+
+    def conv(x, w2):
+        if not record:
+            record.extend((x.detach().clone(), w2.detach().clone()))
+        return plain(x, w2)
+    return conv
+
+
+def tf32_round(t):
+    """`t` rounded to TF32 as cvt.rna.tf32.f32 rounds (to nearest, ties away
+    from zero, 10 mantissa bits), passing `t`'s gradient through."""
+    bits = t.detach().view(torch.int32)
+    r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return t + (r - t).detach()
+
+
+def stem_calibration(tag, cfg, sd, batch, dev, name, plain_grads,
+                     stem_input, limit, card):
+    """Two more plain runs of the train check: the stem's output perturbed
+    by Gaussian noise of the kernel's own error on the first step's stem
+    input (its rms against the plain stem there), and a one-pass TF32 stem
+    (input and weight rounded to TF32, float32 sums).  The first-step
+    gradient `name` of the first must stay within `limit` of the plain
+    run's largest entry, and the second must leave it: the readings that
+    place the limit."""
+    x, w2 = stem_input
+    want = stem.stem_conv_s2d_plain(x, w2)
+    diff = stem.stem_conv_s2d(x, w2) - want
+    sigma = float(diff.pow(2).mean().sqrt())
+    print(f'{tag}: the stem kernel on the first step\'s stem input x'
+          f'{list(x.shape)}: rms difference from the plain stem {sigma!r}, '
+          f'max {float(diff.abs().max())!r}, max|plain| '
+          f'{float(want.abs().max())!r}')
+    del diff, want
+    plain = stem.stem_conv_s2d_plain
+
+    def noisy(x, w2):
+        out = plain(x, w2)
+        gen = torch.Generator(device=out.device).manual_seed(1)
+        return out + sigma * torch.randn(out.shape, device=out.device,
+                                         generator=gen)
+
+    def one_pass_tf32(x, w2):
+        return plain(tf32_round(x), tf32_round(w2))
+
+    top = float(plain_grads[name].abs().max())
+    readings = {}
+    for what, conv in (('noise of the kernel\'s rms error', noisy),
+                       ('one-pass TF32 stem', one_pass_tf32)):
+        with deterministic_library(), plain_stem_as(conv):
+            _, losses, grads, _ = run_train_steps(cfg, sd, batch, dev, False,
+                                                  (name,))
+        rel = float((grads[name] - plain_grads[name]).abs().max()) / top
+        readings[what] = rel
+        print(f'{tag} calibration, plain path with {what}: first-step '
+              f'gradient of {name} max_abs_err / max {rel!r} (limit '
+              f'{limit!r}); losses {json.dumps(losses)} [{card}]')
+    low, control = readings.values()
+    check(low <= limit, f'{tag}: the limit {limit!r} refuses the plain path '
+          f'perturbed at the kernel\'s error level ({low!r})')
+    check(control > limit, f'{tag}: the limit {limit!r} admits a one-pass '
+          f'TF32 stem ({control!r}): it has no teeth')
 
 
 def train_path(name, sd, dev, card):
@@ -1305,14 +1660,17 @@ def train_path(name, sd, dev, card):
     del untamed
     sd = tame_residuals(sd)
 
+    stem_input = []      # the plain run's first stem input
     with deterministic_library():
-        _, plain_losses, plain_grads, plain_launches = run_train_steps(
-            cfg, sd, batch, dev, False, path['grads'])
+        with plain_stem_as(recording_stem(stem_input)):
+            _, plain_losses, plain_grads, plain_launches = run_train_steps(
+                cfg, sd, batch, dev, False, path['grads'])
         check(not any(n for step in plain_launches for n in step.values()),
               f'{tag}: the plain path launched a kernel')
         # the path's run: counts from 0 before each step, read right after
+        captured = [] if path['per_step']['dcn_col2im'] else None
         state, losses, grads, launches = run_train_steps(
-            cfg, sd, batch, dev, True, path['grads'])
+            cfg, sd, batch, dev, True, path['grads'], captured)
     total = {k: sum(step[k] for step in launches) for k in TRAIN_KERNELS}
     print(f'{tag} launches per step: {json.dumps(launches)}')
     for step in launches:
@@ -1328,16 +1686,32 @@ def train_path(name, sd, dev, card):
                   f'{tag}: step {i} loss {k} {got[k]!r} against the plain '
                   f'versions\' {want[k]!r}')
     check(state.step == TRAIN_STEPS, f'{tag}: step count {state.step}')
-    for k in path['grads']:
-        top = float(plain_grads[k].abs().max())
-        err = float((grads[k] - plain_grads[k]).abs().max())
-        print(f'{tag} first-step gradient of {k}: max {top!r}, '
-              f'max_abs_err against the plain versions {err!r} '
-              f'({err / top!r} of max)')
-        check(top > 0 and float(grads[k].abs().max()) > 0,
-              f'{tag}: {k} has no gradient')
-        check(err <= 1e-3 * top, f'{tag}: the gradient of {k} differs')
+    limit = path.get('stem_limit')
+    grad_checks(tag, path['grads'], grads, plain_grads, limit or 1e-3)
+    if limit:
+        stem_calibration(tag, cfg, sd, batch, dev, path['grads'][0],
+                         plain_grads, stem_input, limit, card)
+        frozen = cfg.copy(freeze_bn=True)
+        with deterministic_library():
+            _, plain_losses, plain_grads, _ = run_train_steps(
+                frozen, sd, batch, dev, False, path['grads'])
+            _, losses, grads, _ = run_train_steps(
+                frozen, sd, batch, dev, True, path['grads'])
+        for i, (got, want) in enumerate(zip(losses, plain_losses)):
+            for k in got:
+                check(np.isfinite(got[k]) and
+                      abs(got[k] - want[k]) <= 1e-4 * abs(want[k]),
+                      f'{tag} frozen batch norm: step {i} loss {k} '
+                      f'{got[k]!r} against the plain versions\' {want[k]!r}')
+        grad_checks(f'{tag} (frozen batch norm)', path['grads'], grads,
+                    plain_grads, 1e-3)
     del plain_grads, grads
+    if captured:
+        # the backward kernel alone on this step's own inputs (its time
+        # inside the step is read below); the inputs are freed before the
+        # step is timed, so the step's peak memory is its own
+        col2im_in_step(captured, card)
+    del captured
 
     # a non-finite step: nothing moves but the count
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -1395,7 +1769,6 @@ def train_path(name, sd, dev, card):
                                ('dcn', 'dcn_im2col_kernel'),
                                ('dcn_col2im', 'dcn_col2im_kernel'))}
         print(f'{tag} hand-written kernels ms per step: {json.dumps(ours)}')
-
     # the matcher and the loss (forward and backward) on the step's shapes
     tensors = batch_to_device(batch, dev)
     with torch.no_grad():
@@ -1452,12 +1825,14 @@ def train_remat_none_counts(sd, dev):
 
 def col2im_timing(dev, card):
     """dcn_col2im at the five yolact_plus_base shapes, b8, in float32 (the
-    train step's dtype) and bfloat16: device time of the kernel, of the
-    whole wrapper call (the zero fill and the rounding of grad_x included)
-    and of the plain version (autograd through the plain columns, their
-    forward included), with the bound: the bytes of g_cols, x, offsets and
-    mask read once and the three gradients written once.  Returns the
-    float32 layers.2 blocks 3-21 numbers for the kernels line."""
+    train step's dtype) and bfloat16, on dcn_inputs' finite offsets: device
+    time of the kernel, of the whole wrapper call (the zero fill and the
+    rounding of grad_x included) and of the plain version (autograd
+    through the plain columns, their forward included), with the bound:
+    the bytes of g_cols, x, offsets and mask read once and the three
+    gradients written once; and the global reductions into grad_x
+    (col2im_reductions_line).  Returns the float32 layers.2 blocks 3-21
+    numbers for the kernels line."""
     gen = torch.Generator().manual_seed(13)
     line = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1486,7 +1861,8 @@ def col2im_timing(dev, card):
                   f'ms kernel {kern_ms!r}, whole call {all_ms!r}, plain '
                   f'version {plain_ms!r}; bound {b_ms!r} by {b_by} '
                   f'({b_ms / kern_ms!r} of it) (torch.profiler kernel '
-                  f'events, 20 calls) [{card}]')
+                  f'events, 20 calls); '
+                  f'{col2im_reductions_line(x, offset, stride)} [{card}]')
             if count == 7 and dtype == torch.float32:
                 line = dict(ms=kern_ms, plain_ms=plain_ms,
                             bound=(b_ms, b_by))
@@ -1990,7 +2366,11 @@ def main():
                        'bound_by': t['bound'][1],
                        'library_ms': t.get('library_ms')})
     print(f'eval frames/s: {json.dumps(eval_rates)}')
-
+    print(f'torch.profiler lost kernel events in '
+          f'{PROFILES["with lost events"]} of {PROFILES["profiles"]} '
+          f'profiles; '
+          f'kernel times are the mean recorded event times launches per call '
+          f'(profile_kernels) [{card}]')
     print(json.dumps({'kernels': report}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

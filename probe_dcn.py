@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Layout variants of the DCN sampling kernel on one NVIDIA GPU.
 
-    python3 probe_dcn.py [--backward]
+    python3 probe_dcn.py [--backward [--parent DIR]]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Each variant is ``yolact_tpu_torch/csrc/dcn_im2col.cu`` with one change
@@ -22,21 +22,32 @@ the row on blockIdx.y, looping over the row's taps), ``threads128``
 ``--backward`` probes the backward kernel instead
 (``yolact_tpu_torch/csrc/dcn_col2im.cu``): its registers and spills
 (``nvcc -Xptxas -v``), chip_smoke.py's check against autograd through the
-plain columns, and its device time at the five shapes at b8 in float32 and
-bfloat16 beside its bound and the plain version.
+plain columns, its device time at the five shapes at b8 in float32 and
+bfloat16 beside its bound and the plain version, and its time alone on the
+inputs of one yolact_plus_base 550 b8 float32 train step (captured from
+the step's own backward), with the global reductions.  ``--parent DIR``
+adds the backward kernel of another tree (``DIR/yolact_tpu_torch/csrc/
+dcn_col2im.cu``, e.g. an unpacked ``git archive`` of the parent commit
+under ``build/``), built into a library of its own and timed beside this
+tree's on the same inputs, in the order parent, this, this, parent.
 """
 
 import argparse
+import collections
 import ctypes
 import os
 import re
+import statistics
 import subprocess
 import tempfile
 
 import torch
 
 import chip_smoke as cs
+from yolact_tpu_torch import get_config
+from yolact_tpu_torch.infer import random_state_dict
 from yolact_tpu_torch.kernels import _build, dcn
+from yolact_tpu_torch.train.step import create_train_state, train_step
 
 SOURCE = 'yolact_tpu_torch/csrc/dcn_im2col.cu'
 BACKWARD_SOURCE = 'yolact_tpu_torch/csrc/dcn_col2im.cu'
@@ -104,7 +115,77 @@ def build(sources, out_dir):
     return fns
 
 
-def backward(dev, card):
+def step_inputs(dev):
+    """The dcn_col2im inputs of one yolact_plus_base 550 b8 float32 train
+    step, as chip_smoke.py's phase 6 drives it (seeded weights and offset
+    convs, tamed residuals, its synthetic batch)."""
+    cfg = get_config('yolact_plus_base').copy(lr=1e-4, lr_warmup_init=1e-7,
+                                              train_remat='dcn')
+    sd = cs.seed_offsets_state_dict(
+        random_state_dict(cfg, torch.Generator().manual_seed(0)),
+        torch.Generator().manual_seed(3))
+    state = create_train_state(cfg, device=dev, state_dict=cs.tame_residuals(sd))
+    with cs.capture_col2im() as captured:
+        train_step(state, cs.make_train_batch(cfg),
+                   torch.Generator(device=dev).manual_seed(11))
+    torch.cuda.synchronize()
+    return captured
+
+
+def parent_kernel(parent):
+    """The parent tree's dcn_col2im built alone: a function of (g_cols, xh,
+    offset, mask, dims) returning its gradients as _launch_col2im does."""
+    src = os.path.join(parent, BACKWARD_SOURCE)
+    with open(src) as f:
+        text = f.read()
+    vec_arg = 'int vec' in text
+    out = os.path.join(tempfile.mkdtemp(), 'parent_col2im.so')
+    subprocess.run([_build._find_nvcc(), *_build.NVCC_FLAGS, '-shared', '-o',
+                    out, src], check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(out).yolact_dcn_col2im
+    sig = _build.SIGNATURES['yolact_dcn_col2im']
+    fn.argtypes = sig if vec_arg else sig[:-2] + sig[-1:]
+    fn.restype = ctypes.c_int
+
+    def call(g_cols, xh, offset, mask, dims):
+        grad_x = torch.zeros(xh.shape, dtype=torch.float32, device=xh.device)
+        grad_offset = torch.empty_like(offset)
+        grad_mask = torch.empty_like(mask)
+        extra = ((int(dcn.col2im_vec(dims[1], xh.element_size(), g_cols, xh,
+                                     grad_x)),) if vec_arg else ())
+        _build.check(fn(g_cols.data_ptr(), xh.data_ptr(), offset.data_ptr(),
+                        mask.data_ptr(), grad_x.data_ptr(),
+                        grad_offset.data_ptr(), grad_mask.data_ptr(),
+                        int(xh.dtype == torch.bfloat16), *dims, *extra,
+                        _build.stream_ptr(xh.device)), 'parent dcn_col2im')
+        return grad_x, grad_offset, grad_mask
+    return call
+
+
+def compare(tag, parent, inputs, card):
+    """Device ms of the parent's kernel and this tree's on each input,
+    parent / this / this / parent; returns the two sums (weights: how many
+    launches per step each input stands for)."""
+    sums = {'parent': 0.0, 'this': 0.0}
+    for weight, (g_cols, xh, offset, mask, dims) in inputs:
+        fns = {'parent': lambda: parent(g_cols, xh, offset, mask, dims),
+               'this': lambda: dcn._launch_col2im(g_cols, xh, offset, mask,
+                                                  dims)}
+        ms = collections.defaultdict(list)
+        for name in ('parent', 'this', 'this', 'parent'):
+            ms[name].append(cs.device_times(fns[name],
+                                            'dcn_col2im_kernel')[1])
+        line = {k: statistics.mean(v) for k, v in ms.items()}
+        for k in sums:
+            sums[k] += weight * line[k]
+        print(f'{tag} C{dims[1]} H{dims[2]} stride {dims[7]} '
+              f'{str(xh.dtype)[6:]}: parent {ms["parent"]} ms, this '
+              f'{ms["this"]} ms [{card}]')
+    print(f'{tag} per step: parent {sums["parent"]!r} ms, this '
+          f'{sums["this"]!r} ms [{card}]')
+
+
+def backward(dev, card, parent_dir=None):
     """The --backward mode (see the module docstring)."""
     with tempfile.TemporaryDirectory() as tmp:
         out = subprocess.run(
@@ -116,12 +197,35 @@ def backward(dev, card):
             print(f'dcn_col2im: {line.strip()}')
     cs.col2im_vs_plain(dev)
     cs.col2im_timing(dev, card)
+    captured = step_inputs(dev)
+    cs.col2im_in_step(captured, card)
+    if parent_dir is None:
+        return
+    parent = parent_kernel(parent_dir)
+    gen = torch.Generator().manual_seed(13)
+    for dtype in (torch.float32, torch.bfloat16):
+        seeded = []
+        for _, count, cin, h, stride in cs.DCN_SHAPES:
+            x, offset, mask = cs.dcn_inputs(gen, dev, 8, cin, h, stride,
+                                            dtype, finite=True)
+            ho = offset.shape[-1]
+            g_cols = torch.randn(8 * ho * ho, 9 * cin, generator=gen)\
+                .to(dtype).to(dev)
+            seeded.append((count, (g_cols, x.permute(0, 2, 3, 1).contiguous(),
+                                   offset, mask,
+                                   (8, cin, h, h, ho, ho, 3, stride, 1, 1))))
+        compare(f'dcn_col2im seeded {str(dtype)[6:]}', parent, seeded, card)
+        del seeded
+    compare('dcn_col2im in-step', parent, [(1, c) for c in captured], card)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--backward', action='store_true',
                         help='probe csrc/dcn_col2im.cu instead')
+    parser.add_argument('--parent', metavar='DIR',
+                        help='with --backward: time DIR\'s dcn_col2im beside '
+                        'this tree\'s')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('probe_dcn: needs a CUDA device')
@@ -130,7 +234,7 @@ def main():
                           text=True, check=True).stdout.strip()
     print(card)
     if args.backward:
-        backward(torch.device('cuda', 0), card)
+        backward(torch.device('cuda', 0), card, args.parent)
         return
     with open(SOURCE) as f:
         sources = variants(f.read())

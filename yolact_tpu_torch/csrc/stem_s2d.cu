@@ -42,17 +42,42 @@
 //     of one channel row.
 //   The 45 zero taps of the embedded 7x7 are multiplied like the rest.
 //
-// float32: plain FMAs, one pixel x 64 channels per thread (TF32 tensor
-// cores would round the inputs to 10-bit mantissas and break the float32
-// contract): one block of 256 threads per tile of 8 x 32 pixels, the halo
-// and the weight as float32 in shared memory, 64 sums in registers, fmaf in
-// the order c, i, j.  Bound by the FMA rate (0.22 ms at b8 at 67 TFLOP/s).
-//
+// float32: the same implicit GEMM on the tensor cores in TF32, with each
+// product split in three (one TF32 pass keeps ~11 significant bits, 3e-4
+// of max|out| at K = 192, against the 1e-5 criterion): v = hi + lo with
+// hi = cvt.rna.tf32(v), lo = cvt.rna.tf32(v - hi), summing lo*hi + hi*lo
+// + hi*hi in float32 (the dropped lo*lo and lo's rounding leave ~2^-21 of
+// each product), as csrc/mask_assembly.cu does.  As FMAs the conv would be
+// bound at 0.22 ms at b8 (14.9 GFLOP at 67 TFLOP/s), above cuDNN's own
+// float32 convs; as three TF32 products it is bound at 0.09 ms (494.7
+// TFLOP/s); its bytes (184 MB) take 0.055 ms.
+//   - a persistent grid, one block of 8 warps per SM (162 KB of shared
+//     memory), walks tiles of 16 output rows x 32 columns; a warp owns two
+//     rows: four m16 tiles x eight n8 tiles of mma.sync.m16n8k8 (128 float32
+//     sums per thread), over 24 k-steps of 8 (one channel, two tap rows);
+//   - the weight is split once per block into (hi, lo) pairs, [64][196]
+//     float2: a row pitch of 4 mod 16 pairs puts the 8-byte B-fragment
+//     loads of a half-warp on 16 distinct bank pairs;
+//   - the raw float32 halo (12 x 19 x 36) is double-buffered: the next
+//     tile's halo is in flight by 4-byte cp.async (zero-filled outside the
+//     image) while this tile is multiplied; A fragments are split as they
+//     are loaded;
+//   - per k-step a warp loads its eight B fragments, then issues the 96
+//     products pass by pass, 32 independent accumulators between two
+//     products into the same one;
+//   - the sums are stored straight from the fragments: a warp's store
+//     covers 8 consecutive pixels of 4 channel rows.
+//   Measured on an H100 (probe_stem.py, PERF.md): 0.39-0.40 ms at b8, 4.3x
+//   its bound and ahead of cuDNN's float32 4x4 and 7x7/s2 convs in the same
+//   process; one product fewer saves 8%, no stores 17%, no halo staging 7%:
+//   no single part sets the time.
+
 // Numerics.  The plain version (kernels/stem.py) is cuDNN's float32 conv
 // rounded once.  The bf16 products are exact in float32; the tensor cores
 // sum them in another order than cuDNN, so bf16 outputs agree within one
 // bf16 ulp of the output, plus float32 rounding near zero.  float32
-// outputs agree to float32 rounding.
+// outputs agree within a few 1e-6 of max|out| (the split's ~2^-21 per
+// product and another summation order).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,79 +94,188 @@ constexpr int kThreads = kTileH * kTileW;
 constexpr int kHaloH = kTileH + 3;
 constexpr int kHaloW = kTileW + 3;
 
-// ---- float32: plain FMAs ----------------------------------------------
+// ---- float32: split-TF32 mma.sync on the tensor cores -----------------
 
-constexpr int kWeightFloats = kTaps * kCout;     // [tap][o]
-constexpr int kHaloFloats = kCin * kHaloH * kHaloW;
-constexpr size_t kFmaSmemBytes =
-    static_cast<size_t>(kWeightFloats + kHaloFloats) * sizeof(float);
+constexpr int kF32TileH = 16;                    // 8 warps x 2 output rows
+constexpr int kF32HaloH = kF32TileH + 3;         // 19
+constexpr int kF32HaloRow = 36;                  // floats per halo row (35 used)
+constexpr int kF32HaloUsed = kCin * kF32HaloH * kHaloW;
+constexpr int kF32WRow = kTaps + 4;              // float2 per weight row: 196
+constexpr size_t kF32WeightBytes = static_cast<size_t>(kCout) * kF32WRow * 8;
+constexpr size_t kF32HaloBytes =
+    static_cast<size_t>(kCin) * kF32HaloH * kF32HaloRow * 4;
+constexpr size_t kTf32SmemBytes = kF32WeightBytes + 2 * kF32HaloBytes;
+static_assert(kF32WRow % 16 == 4, "weight rows: B fragments on distinct banks");
+static_assert(kF32WeightBytes % 16 == 0, "halo must start 16-byte aligned");
 
-__global__ void __launch_bounds__(kThreads, 2)
-    stem_s2d_fma_kernel(const float* __restrict__ x,
-                        const float* __restrict__ w2,
-                        float* __restrict__ out, int h, int w) {
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);   // [tap][o]
-  float* xs = ws + kWeightFloats;                // [c][row][col]
-  const int tid = threadIdx.x;
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kTileH;
-  const int x0 = blockIdx.x * kTileW;
+__device__ __forceinline__ float to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
 
-  // weights: neighbouring threads take neighbouring output channels, so the
-  // shared-memory stores are conflict-free
-  for (int k = tid; k < kWeightFloats; k += kThreads) {
-    const int o = k % kCout, t = k / kCout;
-    ws[k] = w2[o * kTaps + t];
-  }
-  // input halo tile, zero outside the image (the conv's padding)
+// v = hi + lo, both TF32 (rounded to nearest, ties away from zero); lo is 0
+// where hi is not finite, so an infinite input stays infinite
+__device__ __forceinline__ float2 split_tf32(float v) {
+  const float hi = to_tf32(v);
+  return make_float2(hi, isfinite(hi) ? to_tf32(v - hi) : 0.f);
+}
+
+// not volatile: the compiler may interleave the products with the loads
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct F32Tile {
+  int b, y0, x0;
+};
+
+__device__ __forceinline__ F32Tile f32_tile(int tile, int h, int w) {
+  const int tiles_w = (w + kTileW - 1) / kTileW;
+  const int tiles_h = (h + kF32TileH - 1) / kF32TileH;
+  const int per_image = tiles_w * tiles_h;
+  const int r = tile % per_image;
+  return {tile / per_image, (r / tiles_w) * kF32TileH, (r % tiles_w) * kTileW};
+}
+
+// the raw float32 halo of one tile, [c][row][col], by 4-byte cp.async;
+// zero-filled outside the image (the conv's padding)
+__device__ __forceinline__ void f32_stage_halo(const float* __restrict__ x,
+                                               uint32_t dst_base, int tile,
+                                               int h, int w) {
+  const F32Tile t = f32_tile(tile, h, w);
   const size_t plane = static_cast<size_t>(h) * w;
-  const float* xb = x + static_cast<size_t>(b) * kCin * plane;
-  for (int k = tid; k < kHaloFloats; k += kThreads) {
-    const int col = k % kHaloW;
-    const int row = (k / kHaloW) % kHaloH;
-    const int c = k / (kHaloW * kHaloH);
-    const int gy = y0 + row - 2, gx = x0 + col - 2;
-    float v = 0.f;
-    if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
-      v = xb[c * plane + static_cast<size_t>(gy) * w + gx];
-    }
-    xs[k] = v;
+  const float* xb = x + static_cast<size_t>(t.b) * kCin * plane;
+  for (int e = threadIdx.x; e < kF32HaloUsed; e += kThreads) {
+    const int col = e % kHaloW;
+    const int row = (e / kHaloW) % kF32HaloH;
+    const int c = e / (kHaloW * kF32HaloH);
+    const int gy = t.y0 + row - 2, gx = t.x0 + col - 2;
+    const bool inside = gy >= 0 && gy < h && gx >= 0 && gx < w;
+    const float* src =
+        inside ? xb + c * plane + static_cast<size_t>(gy) * w + gx : x;
+    const uint32_t dst =
+        dst_base + ((c * kF32HaloH + row) * kF32HaloRow + col) * 4;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(inside ? 4 : 0));
   }
-  __syncthreads();
+}
 
-  const int ty = tid / kTileW, tx = tid % kTileW;
-  float acc[kCout];
+__global__ void __launch_bounds__(kThreads, 1)
+    stem_s2d_tf32_kernel(const float* __restrict__ x,
+                         const float* __restrict__ w2,
+                         float* __restrict__ out, int n_tiles, int h, int w) {
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  float2* ws = reinterpret_cast<float2*>(smem);            // [o][k] (hi, lo)
+  const float* halo = reinterpret_cast<const float*>(smem + kF32WeightBytes);
+  const uint32_t halo_base =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem + kF32WeightBytes));
+  const int tid = threadIdx.x;
+
+  f32_stage_halo(x, halo_base, blockIdx.x, h, w);
+  asm volatile("cp.async.commit_group;\n" ::);
+  // the weight, split once per block; neighbouring threads take
+  // neighbouring taps (coalesced reads, conflict-free 8-byte stores)
+  for (int e = tid; e < kCout * kTaps; e += kThreads) {
+    ws[(e / kTaps) * kF32WRow + e % kTaps] = split_tf32(__ldg(w2 + e));
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const size_t plane = static_cast<size_t>(h) * w;
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    // the next tile's halo is in flight while this one is multiplied
+    const int next = tile + gridDim.x;
+    if (next < n_tiles) {
+      f32_stage_halo(x, halo_base + (buf ^ 1) * kF32HaloBytes, next, h, w);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();
+
+    float acc[4][8][4];
 #pragma unroll
-  for (int o = 0; o < kCout; ++o) acc[o] = 0.f;
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
 
+    // m tile m: output row 2 * warp + (m >> 1), columns (m & 1) * 16 + 0..15;
+    // k-step ks: channel ks / 2, tap rows i0 = (ks & 1) * 2 and i0 + 1;
+    // fragment column tig is tap (i0, tig), column tig + 4 is (i0 + 1, tig)
+    const float* hb = halo + buf * (kF32HaloBytes / 4) +
+                      warp * 2 * kF32HaloRow + g + tig;
 #pragma unroll 1
-  for (int c = 0; c < kCin; ++c) {
+    for (int ks = 0; ks < kTaps / 8; ++ks) {
+      const float* p =
+          hb + ((ks >> 1) * kF32HaloH + (ks & 1) * 2) * kF32HaloRow;
+      uint32_t ahi[4][4], alo[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+      for (int m = 0; m < 4; ++m) {
+        const float* q = p + (m >> 1) * kF32HaloRow + (m & 1) * 16;
+        const float v[4] = {q[0], q[8], q[kF32HaloRow], q[kF32HaloRow + 8]};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float v = xs[(c * kHaloH + ty + i) * kHaloW + tx + j];
-        const float4* wv =
-            reinterpret_cast<const float4*>(ws + (c * 16 + i * 4 + j) * kCout);
+        for (int r = 0; r < 4; ++r) {
+          const float2 s = split_tf32(v[r]);
+          ahi[m][r] = __float_as_uint(s.x);
+          alo[m][r] = __float_as_uint(s.y);
+        }
+      }
+      // all eight B fragments first, then the three products pass by pass:
+      // 32 independent accumulators between two products into the same one
+      uint32_t bh[8][2], bl[8][2];
 #pragma unroll
-        for (int q = 0; q < kCout / 4; ++q) {
-          const float4 wq = wv[q];
-          acc[4 * q + 0] = fmaf(v, wq.x, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(v, wq.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(v, wq.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(v, wq.w, acc[4 * q + 3]);
+      for (int n = 0; n < 8; ++n) {
+        const float2* wb = ws + (n * 8 + g) * kF32WRow + ks * 8 + tig;
+        const float2 b0 = wb[0], b1 = wb[4];
+        bh[n][0] = __float_as_uint(b0.x);
+        bl[n][0] = __float_as_uint(b0.y);
+        bh[n][1] = __float_as_uint(b1.x);
+        bl[n][1] = __float_as_uint(b1.y);
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) mma_tf32(acc[m][n], alo[m], bh[n][0], bh[n][1]);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) mma_tf32(acc[m][n], ahi[m], bl[n][0], bl[n][1]);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) mma_tf32(acc[m][n], ahi[m], bh[n][0], bh[n][1]);
+    }
+
+    // stores straight from the fragments: a warp's store covers 8
+    // consecutive pixels of 4 channel rows
+    const F32Tile t = f32_tile(tile, h, w);
+    float* ob = out + static_cast<size_t>(t.b) * kCout * plane;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int y = t.y0 + warp * 2 + (m >> 1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int xo = t.x0 + (m & 1) * 16 + g + (e >> 1) * 8;
+        if (y < h && xo < w) {
+          float* dst = ob + static_cast<size_t>(y) * w + xo;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            dst[(n * 8 + tig * 2 + (e & 1)) * plane] = acc[m][n][e];
+          }
         }
       }
     }
+    __syncthreads();    // everyone is done with this halo buffer
+    buf ^= 1;
   }
-
-  const int y = y0 + ty, xo = x0 + tx;
-  if (y >= h || xo >= w) return;
-  float* dst = out + static_cast<size_t>(b) * kCout * plane +
-               static_cast<size_t>(y) * w + xo;
-#pragma unroll
-  for (int o = 0; o < kCout; ++o) dst[o * plane] = acc[o];
 }
 
 // ---- bfloat16: mma.sync on the tensor cores -----------------------------
@@ -316,6 +450,39 @@ int launch(void (*kernel)(const T*, const T*, T*, int, int), size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
+// float32: a persistent grid of as many blocks as fit on the card (one per
+// SM: 162 KB of shared memory each), each walking tiles gridDim.x apart
+int launch_tf32(const void* x, const void* w2, void* out, int b, int h, int w,
+                cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      stem_s2d_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kTf32SmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, stem_s2d_tf32_kernel, kThreads, kTf32SmemBytes);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long n_tiles = static_cast<long long>(b) *
+                            ((h + kF32TileH - 1) / kF32TileH) *
+                            ((w + kTileW - 1) / kTileW);
+  if (n_tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long grid = n_tiles < static_cast<long long>(sms) * per_sm
+                             ? n_tiles
+                             : static_cast<long long>(sms) * per_sm;
+  stem_s2d_tf32_kernel<<<static_cast<unsigned>(grid), kThreads,
+                         kTf32SmemBytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w2),
+      static_cast<float*>(out), static_cast<int>(n_tiles), h, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (x, w2 and out alike).  In bfloat16 w2 must
@@ -325,8 +492,7 @@ extern "C" int yolact_stem_s2d_conv(const void* x, const void* w2, void* out,
                                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(stem_s2d_fma_kernel, kFmaSmemBytes, x, w2, out, b,
-                         h, w, s);
+    return launch_tf32(x, w2, out, b, h, w, s);
   }
   if (dtype == 1) {
     return launch<__nv_bfloat16>(stem_s2d_mma_kernel, kMmaSmemBytes, x, w2,

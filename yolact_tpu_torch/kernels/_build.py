@@ -74,9 +74,9 @@ SIGNATURES = {
     # g_cols [b*ho*wo, k^2*c], x [b, h, w, c] (NHWC), offset [b, 2k^2, ho,
     # wo] f32, mask [b, k^2, ho, wo], grad_x [b, h, w, c] f32 (zeroed),
     # grad_offset f32, grad_mask, dtype (0 f32, 1 bf16), b, c, h, w, ho, wo,
-    # k, stride, pad, dil, stream
+    # k, stride, pad, dil, vec (1: 16-byte channel vectors), stream
     'yolact_dcn_col2im': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _I, _P),
+                          _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

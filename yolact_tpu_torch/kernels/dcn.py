@@ -43,10 +43,16 @@ for tensors on the CPU.  For CUDA tensors they launch the kernel or raise.
 Gradients.  On the card :func:`dcn_columns` runs the sampling kernel inside
 :class:`DCNColumns`, whose backward is a second hand-written kernel,
 ``csrc/dcn_col2im.cu`` (:func:`dcn_col2im`): from the columns' gradient it
-scatters ``grad_x`` with float32 ``atomicAdd`` into an NHWC buffer (rounded
-once to x's dtype) and reduces the offset and mask gradients over the
-channels in the same pass.  It stands for the JAX package's hand-written XLA
-backward (``yolact_tpu/kernels/dcn.py:_bilinear_gather_bwd`` and the mask
+accumulates ``grad_x`` per tile of output pixels over the tile's window of
+input pixels, in float32, and adds each window pixel into an NHWC buffer
+(rounded once to x's dtype) with 16-byte reductions; corners outside the
+window go straight to the buffer.  The offset and mask gradients are
+reduced over the channels in the same pass.  The kernel plans its own
+launch (tiles, windows, channel chunks); :func:`col2im_corners` and
+:func:`col2im_reductions` say, from its constants, where each corner goes
+and how many global reductions that costs.  It stands for the JAX
+package's hand-written XLA backward
+(``yolact_tpu/kernels/dcn.py:_bilinear_gather_bwd`` and the mask
 product's VJP), which is not a Pallas kernel.  The GEMM's gradients stay
 ``torch.matmul``'s own.  The plain version of the backward,
 :func:`dcn_col2im_plain`, is autograd through :func:`dcn_columns_plain`
@@ -64,7 +70,10 @@ not bit for bit.  The plain versions also take float64 (for
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import os
+import re
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -214,6 +223,143 @@ def _launch_im2col(xh, offset, mask, dims) -> torch.Tensor:
     return cols
 
 
+class Col2imGeometry(NamedTuple):
+    """The tiles and windows of csrc/dcn_col2im.cu (see
+    :func:`col2im_geometry`)."""
+    tile: int         # output pixels per side of a block's tile
+    halo: int         # input pixels of the window beyond the receptive field
+    window: int       # input pixels per side of the window
+    cap: int          # corners listed per window pixel (more: global path)
+
+
+_COL2IM_SOURCE = os.path.join(_build.CSRC, 'dcn_col2im.cu')
+
+
+@functools.lru_cache(maxsize=None)
+def _col2im_constants() -> dict:
+    """kTile, kHalo and kCapSpare as csrc/dcn_col2im.cu defines them."""
+    with open(_COL2IM_SOURCE) as f:
+        text = f.read()
+    found = dict(re.findall(r'^constexpr int (kTile|kHalo|kCapSpare) = '
+                            r'(\d+);', text, re.M))
+    if len(found) != 3:
+        raise RuntimeError(f'{_COL2IM_SOURCE}: kTile, kHalo and kCapSpare '
+                           f'not all found ({found})')
+    return {k: int(v) for k, v in found.items()}
+
+
+def col2im_geometry(k: int = 3, stride: int = 1,
+                    dilation: int = 1) -> Col2imGeometry:
+    """The backward kernel's tile and window for a k x k DCN, from its
+    source's constants as its launch computes them: a window is the
+    receptive field of the tile's output pixels (with the bottom-right
+    corner of the last tap) and kHalo more input pixels on each side, so
+    offsets within +-kHalo keep every corner in it; a window pixel lists
+    4 k^2 / stride^2 corners (about as many as offsets near 0 put there)
+    plus kCapSpare.  For the diagnostics below; the kernel plans its own
+    launch."""
+    c = _col2im_constants()
+    tile, halo = c['kTile'], c['kHalo']
+    return Col2imGeometry(
+        tile, halo, stride * (tile - 1) + (k - 1) * dilation + 2 + 2 * halo,
+        4 * k * k // (stride * stride) + c['kCapSpare'])
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _top_left_corners(offset, h, w, k, stride, padding, dilation):
+    """The forward's integer top-left corner of every sample: (y0, x0),
+    each int64 [B, Ho, Wo, K*K] (floor, clamped, NaN to 0)."""
+    b, _, ho, wo = offset.shape
+    kk = k * k
+    dev = offset.device
+    tap = torch.arange(kk, device=dev)
+    base_y = ((torch.arange(ho, device=dev) * stride - padding)[:, None, None]
+              + tap // k * dilation).to(offset.dtype)
+    base_x = ((torch.arange(wo, device=dev) * stride - padding)[None, :, None]
+              + tap % k * dilation).to(offset.dtype)
+    off = offset.view(b, kk, 2, ho, wo).permute(0, 3, 4, 1, 2)
+    return (_corner_index(torch.floor(base_y + off[..., 0]), h),
+            _corner_index(torch.floor(base_x + off[..., 1]), w))
+
+
+_CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))
+
+
+def col2im_corners(offset: torch.Tensor, h: int, w: int, k: int = 3,
+                   stride: int = 1, padding: int = 1, dilation: int = 1,
+                   geometry: Optional[Col2imGeometry] = None
+                   ) -> torch.Tensor:
+    """Where the backward kernel sends each corner's grad_x contribution:
+    int8 [B, Ho, Wo, K*K, 4] (corners top-left, top-right, bottom-left,
+    bottom-right), 0 for a corner outside the map (no contribution, as in
+    the plain scatter), 1 for one inside its tile's window (listed in
+    shared memory and summed by the pixel's lanes), 2 for one outside it
+    (the global path; the kernel also sends a corner there when its
+    pixel's list is full).  `geometry`: the kernel's by default."""
+    b, _, ho, wo = offset.shape
+    geo = geometry or col2im_geometry(k, stride, dilation)
+    y0, x0 = _top_left_corners(offset, h, w, k, stride, padding, dilation)
+    dev = offset.device
+    win_y = ((torch.arange(ho, device=dev) // geo.tile) * geo.tile * stride
+             - padding - geo.halo)[:, None, None]
+    win_x = ((torch.arange(wo, device=dev) // geo.tile) * geo.tile * stride
+             - padding - geo.halo)[None, :, None]
+    out = []
+    for dy, dx in _CORNERS:
+        yi, xi = y0 + dy, x0 + dx
+        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        inside = ((yi - win_y >= 0) & (yi - win_y < geo.window)
+                  & (xi - win_x >= 0) & (xi - win_x < geo.window))
+        out.append(torch.where(valid, torch.where(inside, 1, 2), 0))
+    return torch.stack(out, -1).to(torch.int8)
+
+
+def col2im_reductions(offset: torch.Tensor, c: int, h: int, w: int,
+                      k: int = 3, stride: int = 1, padding: int = 1,
+                      dilation: int = 1, vec: bool = True,
+                      geometry: Optional[Col2imGeometry] = None) -> dict:
+    """Global reductions into grad_x per call, reckoned from the offsets and
+    the kernel's geometry: 'scalar', one float per valid corner and channel
+    (a kernel with one atomicAdd each); and the tiled kernel's
+    'window_v4', at most one 16-byte reduction per 4 channels of each
+    window pixel a listed corner reached (pixels whose sum is exactly 0
+    are skipped), and 'fallback', one per 4 channels of each corner on the global path (per
+    channel without 16-byte vectors, `vec` False): outside its window or
+    beyond its pixel's full list.  'fallback_share' is their share of the
+    valid corners."""
+    b, _, ho, wo = offset.shape
+    geo = geometry or col2im_geometry(k, stride, dilation)
+    where = col2im_corners(offset, h, w, k, stride, padding, dilation, geo)
+    valid = int((where > 0).sum())
+    y0, x0 = _top_left_corners(offset, h, w, k, stride, padding, dilation)
+    dev = offset.device
+    tile = ((torch.arange(ho, device=dev) // geo.tile)[:, None]
+            * _ceil(wo, geo.tile)
+            + (torch.arange(wo, device=dev) // geo.tile)[None, :])
+    tiles = _ceil(ho, geo.tile) * _ceil(wo, geo.tile)
+    block = (torch.arange(b, device=dev)[:, None, None] * tiles
+             + tile)[..., None]
+    keys = torch.cat([(block * (h * w) + (y0 + dy) * w + x0 + dx)
+                      [where[..., q] == 1]
+                      for q, (dy, dx) in enumerate(_CORNERS)])
+    _, counts = torch.unique(keys, return_counts=True)
+    fallback = (int((where == 2).sum())
+                + int((counts - geo.cap).clamp(min=0).sum()))
+    return dict(scalar=valid * c, window_v4=int(counts.numel()) * _ceil(c, 4),
+                fallback=fallback * (_ceil(c, 4) if vec else c),
+                fallback_share=fallback / valid if valid else 0.0)
+
+
+def col2im_vec(c: int, itemsize: int, *tensors: torch.Tensor) -> bool:
+    """16-byte accesses hold for every channel vector: C a multiple of the
+    vector and every pointer 16-byte aligned."""
+    return (c % (16 // itemsize) == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
 def _launch_col2im(g_cols, xh, offset, mask, dims):
     """The backward kernel on checked CUDA tensors (xh NHWC): (grad_xh NHWC
     in xh's dtype, grad_offset float32, grad_mask in xh's dtype)."""
@@ -222,13 +368,14 @@ def _launch_col2im(g_cols, xh, offset, mask, dims):
     grad_mask = torch.empty_like(mask)
     if g_cols.numel() == 0:
         return grad_x.to(xh.dtype), grad_offset.zero_(), grad_mask.zero_()
+    vec = col2im_vec(dims[1], xh.element_size(), g_cols, xh, grad_x)
     lib = _build.load()
     global col2im_launches
     with _build.device_guard(xh.device):
         _build.check(lib.yolact_dcn_col2im(
             g_cols.data_ptr(), xh.data_ptr(), offset.data_ptr(),
             mask.data_ptr(), grad_x.data_ptr(), grad_offset.data_ptr(),
-            grad_mask.data_ptr(), _DTYPE_CODES[xh.dtype], *dims,
+            grad_mask.data_ptr(), _DTYPE_CODES[xh.dtype], *dims, int(vec),
             _build.stream_ptr(xh.device)), 'yolact_dcn_col2im')
     col2im_launches += 1
     return grad_x.to(xh.dtype), grad_offset, grad_mask

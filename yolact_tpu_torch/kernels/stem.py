@@ -8,14 +8,16 @@ ResNet's 7x7/s2/p3 stem.  Layouts are the port's NCHW: ``x [B, 12, H, W]``,
 ``w2 [64, 12, 4, 4]`` -> ``[B, 64, H, W]``, summed in float32 and returned
 in the input dtype (float32 or bfloat16).
 
-The kernel (``csrc/stem_s2d.cu``) takes one block per tile of 8 rows x 32
-columns of output pixels and all 64 output channels, with the input halo
-tile and the whole weight in shared memory.  In bfloat16 it is an implicit
-GEMM on the tensor cores (``mma.sync`` m16n8k16, float32 sums): at
-yolact_base 550 b8 the conv is 14.9 GFLOP against 92 MB of traffic, so it
-is bound by its 77.4 MB output write.  In float32 it keeps plain FMAs, as
-TF32 tensor cores would round the inputs.  Only the stem's shape is taken:
-12 input and 64 output channels.
+The kernel (``csrc/stem_s2d.cu``) is an implicit GEMM on the tensor cores
+(M = output pixels, N = 64 channels, K = 192 taps), with the input halo
+tile and the whole weight in shared memory.  In bfloat16 (``mma.sync``
+m16n8k16, float32 sums, a block per tile of 8 x 32 pixels) it is bound by
+its 77.4 MB output write at yolact_base 550 b8.  In float32 (``mma.sync``
+m16n8k8 in TF32, a persistent block per SM walking tiles of 16 x 32) each
+product is split in three, hi*hi + hi*lo + lo*hi with hi and lo TF32, so
+the sums keep ~2^-21 of each product where one TF32 pass would keep 2^-11
+(``tests/test_torch_stem_tf32.py`` models it).  Only the stem's shape is
+taken: 12 input and 64 output channels.
 
 :func:`stem_conv_s2d` takes the plain version only for a tensor on the CPU.
 For a CUDA tensor it launches the kernel or raises.
