@@ -23,6 +23,7 @@ from yolact_tpu_torch.convert import backbone_import as bb
 from yolact_tpu_torch.convert.from_jax import config_from_jax as P
 from yolact_tpu_torch.convert.from_jax import jax_variables_to_state_dict
 from yolact_tpu_torch.infer import random_state_dict
+from yolact_tpu_torch.models.yolact import Yolact
 
 
 def _torchvision_sd(sd, seed=0):
@@ -56,7 +57,8 @@ def setup(tmp_path_factory):
 
 def test_backbone_merge_matches_jax(setup):
     cfg, v, sd, path = setup
-    got = bb.merge_backbone(sd, bb.load_backbone_weights(P(cfg), path))
+    got = bb.merge_backbone(sd, bb.load_backbone_weights(P(cfg), path),
+                            P(cfg))
     want = jax_variables_to_state_dict(
         P(cfg), jax_bb.merge_backbone(
             v, jax_bb.load_backbone_weights(cfg, path)))
@@ -90,21 +92,26 @@ def test_backbone_merge_raises(setup, tmp_path):
     cfg, _, sd, path = setup
     weights = bb.load_backbone_weights(P(cfg), path)
     with pytest.raises(ValueError, match='zero'):
-        bb.merge_backbone(sd, {})
+        bb.merge_backbone(sd, {}, P(cfg))
     short = dict(weights)
     del short['backbone.layers.2.0.bn3.running_mean']
     with pytest.raises(ValueError, match='unmatched'):
-        bb.merge_backbone(sd, short)
+        bb.merge_backbone(sd, short, P(cfg))
     with pytest.raises(ValueError, match='lacks'):
         bb.merge_backbone(sd, dict(weights, **{'backbone.extra.weight':
-                                               torch.zeros(1)}))
+                                               torch.zeros(1)}), P(cfg))
     bad = dict(weights)
     bad['backbone.conv1.weight'] = torch.zeros(1, 3, 7, 7)
     with pytest.raises(ValueError, match='shapes'):
-        bb.merge_backbone(sd, bad)
+        bb.merge_backbone(sd, bad, P(cfg))
+    # a ResNet file into another family's model
     for name in ('yolact_vgg16', 'yolact_darknet53'):
-        with pytest.raises(NotImplementedError, match='A8'):
-            bb.load_backbone_weights(P(J.get_config(name)), path)
+        other = P(J.get_config(name))
+        with torch.device('meta'):
+            other_sd = Yolact(other).state_dict()
+        with pytest.raises(ValueError, match='lacks'):
+            bb.merge_backbone(other_sd, bb.load_backbone_weights(other, path),
+                              other)
 
 
 def test_fresh_run_loads_backbone(setup, tmp_path):

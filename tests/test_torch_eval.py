@@ -389,8 +389,7 @@ def test_cli_cuda_without_a_card_raises(pth, tmp_path):
         cli.main([f'--trained_model={pth}', '--cuda=True'])
 
 
-@pytest.mark.parametrize('kw,match', [({'n_devices': 2}, 'A9'),
-                                      ({'device_mask_iou': True}, 'A5')])
+@pytest.mark.parametrize('kw,match', [({'n_devices': 2}, 'A9')])
 def test_evaluate_unported_options_raise(setup, kw, match):
     cfg, _, sd, dataset = setup
     with pytest.raises(NotImplementedError, match=match):

@@ -18,7 +18,10 @@ to the smoke script's inputs does not move the unit tests.
   one float32 ulp apart, or equal in their float32 cross products.
 - :class:`SyntheticEvalSet` is an in-memory eval dataset of seeded frames
   with boxes and masks, for ``evaluate_dataset`` where no image files or
-  cv2 are at hand; :class:`SyntheticTrainSet` the training counterpart, raw
+  cv2 are at hand; :class:`SizedEvalSet` the same at COCO's image sizes
+  with one crowd annotation per image, and :class:`OraclePipeline` answers
+  its frames with detections made from the gt (a non-zero mAP from any
+  weights); :class:`SyntheticTrainSet` the training counterpart, raw
   frames of mixed sizes through a training transform, for ``cli/train``.
 - :func:`make_train_batch` is a seeded training batch in the contract of
   ``data/coco.py:pad_batch`` (boxes, labels with one crowd per image and
@@ -286,6 +289,102 @@ class SyntheticEvalSet:
         return self.raw[index]
 
 
+def _ellipses(rng, k, h, w):
+    """k seeded elliptic masks [k, h, w] and their boxes [k, 4] (absolute
+    x1, y1, x2, y2, each mask inside its box)."""
+    yy, xx = np.mgrid[:h, :w] + 0.5
+    xy1 = np.stack([rng.randint(0, w // 2, k), rng.randint(0, h // 2, k)], 1)
+    wh = np.stack([rng.randint(w // 8, w // 2, k),
+                   rng.randint(h // 8, h // 2, k)], 1)
+    xy2 = xy1 + wh
+    cx, cy = (xy1 + xy2).T / 2
+    rx, ry = wh.T / 2
+    masks = ((((xx[None] - cx[:, None, None]) / rx[:, None, None]) ** 2
+              + ((yy[None] - cy[:, None, None]) / ry[:, None, None]) ** 2)
+             <= 1).astype(np.float32)
+    return masks, np.hstack([xy1, xy2]).astype(np.float64)
+
+
+class SizedEvalSet:
+    """``n`` seeded eval items at image sizes ``sizes`` (h, w), taken in
+    turn, in the COCODetection item contract: 1-3 objects of random
+    foreground classes and, last, one crowd annotation, elliptic masks
+    ``[k + 1, h, w]``.  The network input stands for the frame after
+    ``BaseTransform``: a seeded random frame at ``max_size`` x
+    ``max_size``, normalized as :class:`SyntheticEvalSet`'s (no image
+    files, no resize, no cv2)."""
+
+    def __init__(self, n, sizes, max_size, num_classes, seed=0):
+        rng = np.random.RandomState(seed)
+        self.ids = list(range(1, n + 1))
+        self.items = []
+        for i in range(n):
+            h, w = sizes[i % len(sizes)]
+            k = rng.randint(1, 4)
+            masks, boxes = _ellipses(rng, k + 1, h, w)
+            labels = rng.randint(0, num_classes - 1, k + 1)
+            gt = np.hstack([boxes / [w, h, w, h], labels[:, None]])
+            raw = rng.randint(0, 256, (max_size, max_size, 3))
+            img = ((raw - np.float32(MEANS)) / np.float32(STD))[..., ::-1]
+            self.items.append((np.ascontiguousarray(img, np.float32), gt,
+                               masks, h, w, 1))
+
+    def __len__(self):
+        return len(self.items)
+
+    def pull_item(self, index):
+        return self.items[index]
+
+
+class OraclePipeline:
+    """Stands in for ``infer.Pipeline`` in ``evaluate_dataset`` over an
+    eval set: answers each frame with detections made from its own gt,
+    recognised by the frame's bytes.  Per gt object (the crowd included) a
+    detection of its class, its box moved by a few pixels and its mask
+    averaged down to the prototypes' ``proto_hw`` (so that the upsample
+    and the 0.5 threshold give back about the gt), plus two false
+    positives; seeded scores, at most ``max_num_detections``, the rest
+    invalid.  ``masks`` live on ``device``."""
+
+    def __init__(self, dataset, cfg, proto_hw, device='cpu', seed=0):
+        self.device = torch.device(device)
+        self.cfg = cfg
+        self.by_frame = {}
+        rng = np.random.RandomState(seed)
+        d = cfg.max_num_detections
+        hp, wp = proto_hw
+        for img, gt, masks, h, w, _ in dataset.items:
+            fp_masks, fp_boxes = _ellipses(rng, 2, h, w)
+            boxes = np.vstack([gt[:, :4] * [w, h, w, h]
+                               + rng.randint(-3, 4, (len(gt), 4)), fp_boxes])
+            m = torch.from_numpy(np.concatenate([masks, fp_masks]))
+            small = torch.nn.functional.interpolate(
+                m[None], size=(hp, wp), mode='area')[0]
+            n = min(len(boxes), d)
+            out = dict(boxes=np.zeros((d, 4), np.float32),
+                       classes=np.zeros(d, np.int32),
+                       scores=np.zeros(d, np.float32),
+                       masks=torch.zeros(d, hp, wp),
+                       valid=np.zeros(d, bool))
+            out['boxes'][:n] = (boxes / [w, h, w, h])[:n]
+            out['classes'][:n] = np.concatenate(
+                [gt[:, 4], rng.randint(0, cfg.num_classes - 1, 2)])[:n]
+            out['scores'][:n] = np.sort(rng.uniform(0.1, 1, n))[::-1]
+            out['masks'][:n] = small[:n]
+            out['valid'][:n] = True
+            self.by_frame[img.tobytes()] = out
+
+    def __call__(self, images):
+        from yolact_tpu_torch.infer import InferenceOutput
+        outs = [self.by_frame[np.asarray(f, np.float32).tobytes()]
+                for f in images]
+        stack = {k: torch.as_tensor(np.stack([o[k] for o in outs]))
+                 for k in ('boxes', 'classes', 'scores', 'valid')}
+        masks = torch.stack([o['masks'] for o in outs]).to(self.device)
+        return InferenceOutput(stack['boxes'], stack['classes'],
+                               stack['scores'], masks, stack['valid'])
+
+
 class SyntheticTrainSet:
     """``n`` seeded raw BGR uint8 frames of ``sizes`` (in turn), each with
     1-3 objects of random foreground classes and one crowd, with
@@ -353,6 +452,24 @@ def test_synthetic_eval_set_is_seeded_and_consistent():
     # normalized RGB: channel 0 holds the raw frame's R (BGR index 2)
     np.testing.assert_allclose(a.items[0][0][..., 0] * STD[2] + MEANS[2],
                                a.raw[0][..., 2], rtol=0, atol=1e-3)
+
+
+def test_sized_eval_set_and_oracle_pipeline():
+    data = SizedEvalSet(4, ((48, 64), (64, 48), (43, 64)), 32, 5, seed=1)
+    cfg = C.get_config('yolact_base').copy(max_num_detections=4)
+    pipe = OraclePipeline(data, cfg, (8, 8))
+    for i, (img, gt, masks, h, w, crowds) in enumerate(data.items):
+        assert (h, w) == ((48, 64), (64, 48), (43, 64))[i % 3]
+        assert img.shape == (32, 32, 3) and crowds == 1
+        assert masks.shape == (len(gt), h, w) and masks.any(axis=(1, 2)).all()
+        assert ((0 <= gt[:, :4]) & (gt[:, :4] <= 1)).all()
+    out = pipe(np.stack([it[0] for it in data.items[:2]]))
+    assert tuple(out.masks.shape) == (2, 4, 8, 8)
+    n = min(len(data.items[0][1]) + 2, 4)
+    assert out.valid[0].tolist() == [True] * n + [False] * (4 - n)
+    assert out.classes[0, 0] == int(data.items[0][1][0, 4])
+    assert float(out.masks[0, 0].max()) > 0.5
+    assert (np.diff(out.scores[0, :n].numpy()) <= 0).all()
 
 
 def test_dcn_inputs_cover_every_offset_kind():

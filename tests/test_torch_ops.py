@@ -57,8 +57,13 @@ def test_yolact_base_prior_count_and_square_anchors():
 
 
 def test_other_backbones_not_ported():
-    with pytest.raises(NotImplementedError, match='A8'):
-        anchors.generate_priors(C.get_config('yolact_darknet53'))
+    """Every family of the configs has its feature sizes (the prior counts
+    of all of them: tests/test_torch_backbones.py); a backbone type outside
+    them raises, naming it."""
+    cfg = C.get_config('yolact_darknet53')
+    cfg = cfg.copy(backbone=cfg.backbone.copy(type='mobilenet'))
+    with pytest.raises(ValueError, match='mobilenet'):
+        anchors.generate_priors(P(cfg))
 
 
 def _boxes(rng, *shape):

@@ -322,8 +322,9 @@ def test_port_imports_no_jax_flax_or_cv2():
 PORT_SOURCES = sorted(
     os.path.relpath(path, REPO) for path in
     glob.glob(os.path.join(REPO, 'yolact_tpu_torch', '**', '*.py'),
-              recursive=True)) + ['chip_smoke.py', 'probe_dcn.py',
-                                  'probe_host.py', 'probe_small_kernels.py']
+              recursive=True)) + ['chip_smoke.py', 'probe_cells.py',
+                                  'probe_dcn.py', 'probe_host.py',
+                                  'probe_small_kernels.py']
 
 
 @pytest.mark.parametrize('path', PORT_SOURCES)

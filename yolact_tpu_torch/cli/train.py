@@ -145,7 +145,7 @@ def _init_fresh(cfg, state, save_folder):
     bb_path = os.path.join(save_folder, cfg.backbone.path)
     if os.path.exists(bb_path):
         print(f'Initializing weights from {bb_path}...')
-        sd = merge_backbone(sd, load_backbone_weights(cfg, bb_path))
+        sd = merge_backbone(sd, load_backbone_weights(cfg, bb_path), cfg)
     else:
         print(f'Backbone weights {bb_path} not found; training the '
               'backbone from random init (the reference errors here — '

@@ -5,7 +5,13 @@
 the port has: flax paths become the reference's torch
 ``state_dict`` keys, conv kernels (and a DCN layer's 4-D ``weight``) go
 HWIO -> OIHW, and batch norm ``scale`` / ``bias`` / ``mean`` / ``var``
-become ``weight`` / ``bias`` / ``running_mean`` / ``running_var``.  The
+become ``weight`` / ``bias`` / ``running_mean`` / ``running_var`` (group
+norm's ``scale`` / ``bias`` under its flax wrapper ``gn`` likewise).  The
+flax wrappers ``conv`` / ``bn`` / ``gn`` that the torch layers lack are
+dropped, except in DarkNet, whose torch layers are ``Sequential``s (conv,
+batch norm): there a ``DarkConv``'s ``conv`` and ``bn`` (each wrapping a
+flax module of the same name) are its indices ``0`` and ``1``, and
+``preconv`` is ``_preconv``.  The
 YOLACT++ mask scorer, a separate ``MaskIoUHead`` tree in JAX
 (``{'params': {'maskiou': {'maskiou_net': ...}}}``), is read from the
 ``'maskiou'`` entry, where ``convert_state_dict`` puts it, and becomes
@@ -54,7 +60,9 @@ from yolact_tpu_torch.models.yolact import init_train_heads
 _LEAF = {'kernel': 'weight', 'weight': 'weight', 'bias': 'bias',
          'scale': 'weight', 'mean': 'running_mean', 'var': 'running_var'}
 # flax wrapper modules that the torch layers do not have
-_WRAPPERS = {'conv', 'bn'}
+_WRAPPERS = {'conv', 'bn', 'gn'}
+# a DarkConv's children, which the torch Sequential indexes
+_SEQUENTIAL = {'conv': '0', 'bn': '1'}
 
 
 def _walk(tree, prefix: Tuple[str, ...] = ()
@@ -72,6 +80,8 @@ def _module_name(part: str) -> str:
         return 'downsample.0'
     if part == 'downsample_bn':
         return 'downsample.1'
+    if part == 'preconv':                            # DarkNet's first conv
+        return '_preconv'
     m = re.fullmatch(r'layers_(\d+)_(\d+)', part)    # backbone stage/block
     if m:
         return f'layers.{m.group(1)}.{m.group(2)}'
@@ -92,7 +102,14 @@ def _torch_key(path: Tuple[str, ...]) -> str:
         mods = mods[1:]
     elif mods and mods[0] == 'maskiou':   # MaskIoUHead's FastMaskIoUNet
         mods = ['maskiou_net'] + mods[1:]
-    names = [_module_name(p) for p in mods if p not in _WRAPPERS]
+    names = []
+    for i, part in enumerate(mods):
+        if part in _WRAPPERS:
+            # a wrapper around a wrapper of the same name: a DarkConv child
+            if i + 1 < len(mods) and mods[i + 1] == part:
+                names.append(_SEQUENTIAL[part])
+            continue
+        names.append(_module_name(part))
     return '.'.join(names + [_LEAF[leaf]])
 
 

@@ -1,5 +1,5 @@
 """COCO run-length-encoding mask codec (pycocotools-free): the port's copy
-of ``yolact_tpu/data/rle.py`` (``area`` left out: the port does not use it).
+of ``yolact_tpu/data/rle.py``.
 
 Implements the COCO compressed-RLE string format (the LEB128-style varint
 encoding used by pycocotools' maskApi) plus polygon rasterisation via cv2.
@@ -140,3 +140,9 @@ def ann_to_mask(segm, h: int, w: int) -> np.ndarray:
         return rle_to_mask(segm)
     raise TypeError(type(segm))
 
+
+def area(rle: RLEObj) -> int:
+    counts = rle['counts']
+    if isinstance(counts, (str, bytes)):
+        counts = decode_counts(counts)
+    return int(np.asarray(counts, np.int64)[1::2].sum())

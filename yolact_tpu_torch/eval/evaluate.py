@@ -10,10 +10,14 @@ then per image the greedy AP matching into ``APDataObject``s and the final
 ``calc_map`` table, or COCO / web JSON, or ``--benchmark`` timings.  The
 host-side pieces are the port's copies of the JAX package's (the
 evaluator, the JSON writer, the COCO dataset, the progress bar and the
-timer).  The mask upsample to image size runs on the device
-(``detect/postprocess.py:finish_masks``); mask IoU runs on the host.
-``eval/device_metrics.py`` and multi-device evaluation are not ported yet
-(ROADMAP A5, A9).
+timer).  The mask upsample to image size runs on the device.  For the mAP
+table on a CUDA device the mask IoU runs there too
+(``eval/device_metrics.py``, ``device_mask_iou``): each image's gt masks
+go to the card and only the ``[D, G]`` IoU matrices come back.  Otherwise
+(the CPU, ``--output_coco_json``, ``--display``) the ``[D, h, w]`` masks
+come to the host (``detect/postprocess.py:finish_masks``) and the
+evaluator computes the IoU there.  Multi-device evaluation is not ported
+yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from yolact_tpu_torch.config import YolactConfig
 from yolact_tpu_torch.data.coco import COCODetection
 from yolact_tpu_torch.detect.postprocess import finish_masks
 from yolact_tpu_torch.eval.coco_json import DetectionsWriter
+from yolact_tpu_torch.eval.device_metrics import mask_iou_device
 from yolact_tpu_torch.eval.evaluator import (badhash, calc_map,
                                              make_ap_data, prep_metrics)
 from yolact_tpu_torch.eval.traditional import TraditionalPipeline
@@ -122,14 +127,13 @@ def evaluate_dataset(cfg: YolactConfig, state_dict: Dict[str, torch.Tensor],
     ``state_dict`` holds the port's weights (the mask scorer's included,
     for YOLACT++ configs); the model runs on ``device`` in
     ``compute_dtype`` (default ``cfg.compute_dtype``).  ``dataset`` gives
-    host-transformed images (``make_eval_dataset``)."""
+    host-transformed images (``make_eval_dataset``).  ``device_mask_iou``
+    computes the mask IoU of the mAP table on the pipeline's device
+    (default: when that device is CUDA); the JSON and display modes need
+    the masks on the host and do not take it."""
     if n_devices != 1:
         raise NotImplementedError(
             'multi-device evaluation is not ported yet (ROADMAP A9)')
-    if device_mask_iou:
-        raise NotImplementedError(
-            'device mask IoU (eval/device_metrics.py) is not ported yet '
-            '(ROADMAP A5); the host path computes the same metrics')
     if fast_nms:
         pipeline = Pipeline(cfg, state_dict, device, compute_dtype,
                             use_cross_class_nms=cross_class_nms,
@@ -160,6 +164,10 @@ def evaluate_dataset(cfg: YolactConfig, state_dict: Dict[str, torch.Tensor],
     dataset_indices = dataset_indices[:dataset_size]
 
     compute_map = not output_coco_json and not benchmark
+    if device_mask_iou is None:
+        device_mask_iou = pipeline.device.type == 'cuda'
+    # the port builds lincomb masks only (canvas-global, as the IoU needs)
+    use_dev_miou = device_mask_iou and compute_map and not display
     ap_data = make_ap_data(len(cfg.dataset.class_names))
     detections = DetectionsWriter(cfg)
 
@@ -240,9 +248,16 @@ def evaluate_dataset(cfg: YolactConfig, state_dict: Dict[str, torch.Tensor],
                     mask_scores = box_scores
                 boxes_rel = boxes_all[bi, :n]
 
+                miou_full = crowd_full = masks_full = None
                 with timer.env('Postprocess'):
                     boxes_abs = sanitize_boxes_np(boxes_rel, w, h)
-                    masks_full = finish_masks(out.masks[bi, :n], w, h)
+                    if use_dev_miou and gt is not None:
+                        miou, crowd, _ = mask_iou_device(
+                            out.masks[bi, :n], np.asarray(gt_masks), h, w)
+                        miou_full = miou.cpu().numpy()
+                        crowd_full = crowd.cpu().numpy()
+                    elif not use_dev_miou:
+                        masks_full = finish_masks(out.masks[bi, :n], w, h)
                 # NOTE: cfg.discard_mask_area is TRAINING-only in the
                 # reference (maskiou gt filter, multibox_loss.py:630-632);
                 # eval never drops detections by mask area
@@ -285,7 +300,10 @@ def evaluate_dataset(cfg: YolactConfig, state_dict: Dict[str, torch.Tensor],
                         prep_metrics(ap_data, classes, box_scores,
                                      mask_scores, boxes_abs, masks_full,
                                      gt_boxes, gt[:, 4].astype(int),
-                                     np.asarray(gt_masks), num_crowd)
+                                     None if miou_full is not None
+                                     else np.asarray(gt_masks), num_crowd,
+                                     mask_iou_full=miou_full,
+                                     crowd_mask_iou_full=crowd_full)
 
                 if not quiet and not no_bar:
                     fps = 1 / frame_times.get_avg() if len(frame_times) \

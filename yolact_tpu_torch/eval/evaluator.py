@@ -1,6 +1,5 @@
 """Custom mAP evaluator — COCOEval-parity, pycocotools-free: the port's
-copy of ``yolact_tpu/eval/evaluator.py`` (host mask IoU only; the device
-IoU inputs of ``prep_metrics`` come with ``eval/device_metrics.py``).
+copy of ``yolact_tpu/eval/evaluator.py``.
 
 Behavioural port of the reference evaluator (``eval.py:386-581,1006-1045``):
 per-class / per-IoU(0.5:0.95) score-sorted PR curves with 101-point
@@ -13,7 +12,7 @@ matching rules exist precisely to reproduce pycocotools' COCOeval numbers
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -103,13 +102,18 @@ def _np_mask_iou(a: np.ndarray, b: np.ndarray, iscrowd=False) -> np.ndarray:
 
 def prep_metrics(ap_data, classes: Sequence[int],
                  box_scores: Sequence[float], mask_scores: Sequence[float],
-                 boxes: np.ndarray, masks: np.ndarray,
+                 boxes: np.ndarray, masks: Optional[np.ndarray],
                  gt_boxes: np.ndarray, gt_classes: Sequence[int],
-                 gt_masks: np.ndarray, num_crowd: int) -> None:
+                 gt_masks: Optional[np.ndarray], num_crowd: int,
+                 mask_iou_full: Optional[np.ndarray] = None,
+                 crowd_mask_iou_full: Optional[np.ndarray] = None) -> None:
     """Greedy AP matching for one image (eval.py:386-510).
 
     All coordinates absolute pixels; masks/gt_masks are [n, h, w] (bool or
     float); crowd annotations are the LAST `num_crowd` gt entries.
+
+    When `mask_iou_full` ([num_pred, num_gt_total]) is given (computed on
+    device — eval/device_metrics.py), masks/gt_masks may be None.
     """
     classes = [int(c) for c in classes]
     num_pred = len(classes)
@@ -126,14 +130,32 @@ def prep_metrics(ap_data, classes: Sequence[int],
 
     boxes_f = np.asarray(boxes, np.float32).reshape(num_pred, 4)
 
-    gt_masks = np.asarray(gt_masks, np.float32).reshape(n_gt_total, -1)
-    if num_crowd > 0:
-        crowd_masks, gt_masks = gt_masks[-num_crowd:], gt_masks[:-num_crowd]
-    hw = int(np.prod(np.asarray(masks).shape[1:])) if num_pred else 1
-    masks_f = np.asarray(masks, np.float32).reshape(num_pred, hw)
-    mask_iou_cache = _np_mask_iou(masks_f, gt_masks)
-    crowd_mask_iou = _np_mask_iou(masks_f, crowd_masks, iscrowd=True) \
-        if num_crowd > 0 else None
+    if mask_iou_full is not None:
+        miou = np.asarray(mask_iou_full)[:num_pred, :n_gt_total]
+        if num_crowd > 0:
+            if crowd_mask_iou_full is None:
+                # crowd IoU divides by det area only (always >= union
+                # IoU); silently substituting the union matrix would
+                # under-ignore crowd detections and deflate mAP
+                raise ValueError(
+                    'crowd_mask_iou_full is required when the image has '
+                    'crowd annotations (see eval/device_metrics.py)')
+            cmiou = np.asarray(
+                crowd_mask_iou_full)[:num_pred, :n_gt_total]
+            mask_iou_cache = miou[:, :-num_crowd]
+            crowd_mask_iou = cmiou[:, -num_crowd:]
+        else:
+            mask_iou_cache = miou
+            crowd_mask_iou = None
+    else:
+        gt_masks = np.asarray(gt_masks, np.float32).reshape(n_gt_total, -1)
+        if num_crowd > 0:
+            crowd_masks, gt_masks = gt_masks[-num_crowd:], gt_masks[:-num_crowd]
+        hw = int(np.prod(np.asarray(masks).shape[1:])) if num_pred else 1
+        masks_f = np.asarray(masks, np.float32).reshape(num_pred, hw)
+        mask_iou_cache = _np_mask_iou(masks_f, gt_masks)
+        crowd_mask_iou = _np_mask_iou(masks_f, crowd_masks, iscrowd=True) \
+            if num_crowd > 0 else None
 
     bbox_iou_cache = _np_box_iou(boxes_f, gt_boxes)
     crowd_bbox_iou = _np_box_iou(boxes_f, crowd_boxes, iscrowd=True) \

@@ -121,6 +121,21 @@ class BatchNorm2d(nn.Module):
         return out
 
 
+class GroupNorm(nn.GroupNorm):
+    """Group norm (32 groups, eps 1e-5) behind the batch-norm call
+    signature ``(x, train)``, whose ``train`` it ignores: it holds no
+    running statistics (JAX ``layers.py:GroupNorm``).  As flax's, it
+    computes in float32 whatever the input dtype and returns the input's
+    dtype."""
+
+    def __init__(self, num_channels: int, num_groups: int = 32):
+        super().__init__(num_groups, num_channels, eps=1e-5)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
 def commit_batch_stats(model: nn.Module) -> int:
     """Write every batch norm's pending running statistics (left by a
     ``train=True`` forward) to its buffers and clear them; returns how many
@@ -144,7 +159,11 @@ def drop_batch_stats(model: nn.Module) -> None:
 
 def max_pool(x: torch.Tensor, kernel: int, stride: int, padding: int = 0,
              ceil_mode: bool = False) -> torch.Tensor:
-    """torch-style max pool (pads with -inf; floor or ceil output size)."""
+    """torch-style max pool (pads with -inf; floor or ceil output size).
+    JAX's version pads the right edge for ``ceil_mode``, which keeps a last
+    window starting in the right padding that torch drops; the two agree
+    where ``ceil_mode`` is off or ``padding`` is 0 (every pool of the
+    configs)."""
     return F.max_pool2d(x, kernel, stride, padding, ceil_mode=ceil_mode)
 
 

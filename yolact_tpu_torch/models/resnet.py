@@ -3,9 +3,10 @@
 Port of ``yolact_tpu/models/resnet.py`` (``Bottleneck``, ``_stage_plan``,
 ``ResNetBackbone``) with the reference's parameter names
 (``layers.{stage}.{block}.conv1.weight``, ``...downsample.0.weight``).
-Atrous stages, SSD-style extra stages, DCNv2 blocks (YOLACT++) and the
-space-to-depth stem are kept.  Group norm (ResNet-GN, ROADMAP A8) is not
-ported.
+Atrous stages, SSD-style extra stages, DCNv2 blocks (YOLACT++), the
+space-to-depth stem and group norm (``norm='gn'``, ResNet-GN: every
+``bn*`` and ``downsample.1`` is a ``models/layers.py:GroupNorm`` under the
+same name) are kept.
 """
 
 from __future__ import annotations
@@ -18,10 +19,17 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from yolact_tpu_torch.kernels import dcn, stem
-from yolact_tpu_torch.models.layers import (BatchNorm2d, Conv2d, max_pool,
-                                            s2d_stem_kernel)
+from yolact_tpu_torch.models.layers import (BatchNorm2d, Conv2d, GroupNorm,
+                                            max_pool, s2d_stem_kernel)
 
 EXPANSION = 4
+
+
+def make_norm(norm: str, channels: int) -> nn.Module:
+    """'bn' (batch norm) or 'gn' (group norm, 32 groups)."""
+    if norm not in ('bn', 'gn'):
+        raise ValueError(f'norm={norm!r}: expected bn or gn')
+    return GroupNorm(channels) if norm == 'gn' else BatchNorm2d(channels)
 
 
 class DCNLayer(nn.Module):
@@ -62,11 +70,11 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, use_dcn: bool = False,
-                 has_downsample: bool = False):
+                 has_downsample: bool = False, norm: str = 'bn'):
         super().__init__()
         self.conv1 = Conv2d(inplanes, planes, 1, bias=False,
                             dilation=dilation)
-        self.bn1 = BatchNorm2d(planes)
+        self.bn1 = make_norm(norm, planes)
         if use_dcn:
             self.conv2 = DCNLayer(planes, planes, 3, stride=stride,
                                   padding=dilation, dilation=dilation)
@@ -74,14 +82,14 @@ class Bottleneck(nn.Module):
             self.conv2 = Conv2d(planes, planes, 3, stride=stride,
                                 padding=dilation, dilation=dilation,
                                 bias=False)
-        self.bn2 = BatchNorm2d(planes)
+        self.bn2 = make_norm(norm, planes)
         self.conv3 = Conv2d(planes, planes * EXPANSION, 1, bias=False,
                             dilation=dilation)
-        self.bn3 = BatchNorm2d(planes * EXPANSION)
+        self.bn3 = make_norm(norm, planes * EXPANSION)
         self.downsample = nn.Sequential(
             Conv2d(inplanes, planes * EXPANSION, 1, stride=stride,
                    bias=False, dilation=dilation),
-            BatchNorm2d(planes * EXPANSION)) if has_downsample else None
+            make_norm(norm, planes * EXPANSION)) if has_downsample else None
 
     @property
     def use_dcn(self) -> bool:
@@ -164,15 +172,16 @@ class ResNetBackbone(nn.Module):
     def __init__(self, layers: Sequence[int],
                  dcn_layers: Sequence[int] = (0, 0, 0, 0),
                  dcn_interval: int = 1, atrous_layers: Sequence[int] = (),
-                 num_stages: Optional[int] = None, stem_s2d: bool = False):
+                 num_stages: Optional[int] = None, stem_s2d: bool = False,
+                 norm: str = 'bn'):
         super().__init__()
         extra = max(0, (num_stages or len(layers)) - len(layers))
         plans = _stage_plan(layers, dcn_layers, dcn_interval, atrous_layers,
                             extra)
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = BatchNorm2d(64)
+        self.bn1 = make_norm(norm, 64)
         self.layers = nn.ModuleList(
-            nn.Sequential(*[Bottleneck(**blk) for blk in stage])
+            nn.Sequential(*[Bottleneck(**blk, norm=norm) for blk in stage])
             for stage in plans)
         self.stem_s2d = stem_s2d
         self._w2 = None    # (conv1.weight's storage, its version, 4x4 weight)

@@ -1,25 +1,27 @@
 """Top-level YOLACT model, eval forward: backbone -> FPN -> (protonet ‖ heads).
 
-Port of ``yolact_tpu/models/yolact.py:Yolact`` for the ResNet + FPN +
-lincomb configurations (``yolact_base``, and ``yolact_plus_base`` with its
-DCN blocks).  With ``cfg.use_maskiou`` the model also holds the YOLACT++
-mask scorer as ``maskiou_net`` (the JAX package keeps it in a separate
-``MaskIoUHead`` tree); ``forward`` does not run it, ``infer`` does, on the
-assembled masks.  Prototypes-as-features and the other backbones are not
-ported yet.
+Port of ``yolact_tpu/models/yolact.py:Yolact`` for the lincomb
+configurations with a feature-map protonet source: every backbone family
+(ResNet, ResNet-GN, DarkNet-53, VGG-16), with an FPN or without one
+(``yolact_vgg16``: the selected backbone outputs go straight to the
+protonet and to one prediction head per level, each at its level's width).
+With ``cfg.use_maskiou`` the model also holds the YOLACT++ mask scorer as
+``maskiou_net`` (the JAX package keeps it in a separate ``MaskIoUHead``
+tree); ``forward`` does not run it, ``infer`` does, on the assembled masks.
+Prototypes-as-features and direct masks are not ported yet.
 
 ``forward(x, train=True)`` is the training forward: batch norm on batch
 statistics unless ``cfg.freeze_bn`` (the new running statistics are left
 pending, ``models/layers.py:commit_batch_stats``), ``cfg.train_remat``
-checkpointing of the bottlenecks, and two more outputs.  The training-only
-heads ``semantic_seg_conv`` and ``class_existence_fc`` carry the
-reference's names, so a reference ``.pth`` loads; the eval forward does not
-run them.
+checkpointing of the ResNet bottlenecks, and two more outputs.  The
+training-only heads ``semantic_seg_conv`` and ``class_existence_fc`` carry
+the reference's names, so a reference ``.pth`` loads; the eval forward does
+not run them.
 
 Input is NCHW, already preprocessed (``infer.preprocess_device``); with
-``cfg.stem_s2d`` it is the 2x2 space-to-depth ``[B, 12, S/2, S/2]``
-(``infer.preprocess_device_s2d``) and the trunk's first conv is the s2d
-stem kernel.
+``cfg.stem_s2d`` (ResNets only) it is the 2x2 space-to-depth
+``[B, 12, S/2, S/2]`` (``infer.preprocess_device_s2d``) and the trunk's
+first conv is the s2d stem kernel.
 Output dict, in the JAX package's layouts:
   loc    [B, P, 4]       raw box regressions
   conf   [B, P, C]       raw class logits
@@ -27,27 +29,38 @@ Output dict, in the JAX package's layouts:
   priors [P, 4]          center-size anchors, float32
   proto  [B, Hp, Wp, Md] prototypes
 and with ``train=True``:
-  segm    [B, Hs, Ws, C-1] semantic-segmentation logits on the finest FPN
+  segm    [B, Hs, Ws, C-1] semantic-segmentation logits on the first head
                            level (``cfg.use_semantic_segmentation_loss``)
-  classes [B, C-1]         class-existence logits
+  classes [B, C-1]         class-existence logits on the last
                            (``cfg.use_class_existence_loss``)
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
 
 from yolact_tpu_torch.config import MaskType, YolactConfig, backbone_channels
+from yolact_tpu_torch.models.darknet import DarkNetBackbone
 from yolact_tpu_torch.models.fpn import FPN
 from yolact_tpu_torch.models.heads import (FastMaskIoUNet, PredictionHead,
                                            ProtoNet)
 from yolact_tpu_torch.models.layers import Conv2d, Linear
 from yolact_tpu_torch.models.resnet import DCNLayer, ResNetBackbone
+from yolact_tpu_torch.models.vgg import VGGBackbone
 from yolact_tpu_torch.ops.anchors import generate_priors
+
+
+def head_in_channels(cfg: YolactConfig) -> Tuple[int, ...]:
+    """Channels of each prediction level, in head order: the FPN's width
+    on every level, or without an FPN each selected backbone output's."""
+    if cfg.fpn is not None:
+        return (cfg.fpn.num_features,) * cfg.num_heads
+    chans = backbone_channels(cfg.backbone)
+    return tuple(chans[i] for i in cfg.backbone.selected_layers)
 
 
 def init_train_heads(cfg: YolactConfig, generator: torch.Generator
@@ -57,36 +70,45 @@ def init_train_heads(cfg: YolactConfig, generator: torch.Generator
     a xavier-uniform ``semantic_seg_conv``, flax's Dense default for
     ``class_existence_fc`` (truncated normal at 2 std, variance 1/fan_in),
     zero biases.  For weights that come without them (a JAX eval tree)."""
-    nf, n = cfg.fpn.num_features, cfg.num_classes - 1
+    widths, n = head_in_channels(cfg), cfg.num_classes - 1
     heads = {}
     if cfg.use_semantic_segmentation_loss:
         heads['semantic_seg_conv.weight'] = nn.init.xavier_uniform_(
-            torch.empty(n, nf, 1, 1), generator=generator)
+            torch.empty(n, widths[0], 1, 1), generator=generator)
         heads['semantic_seg_conv.bias'] = torch.zeros(n)
     if cfg.use_class_existence_loss:
-        std = math.sqrt(1.0 / nf) / .87962566103423978
+        std = math.sqrt(1.0 / widths[-1]) / .87962566103423978
         heads['class_existence_fc.weight'] = nn.init.trunc_normal_(
-            torch.empty(n, nf), std=std, a=-2 * std, b=2 * std,
+            torch.empty(n, widths[-1]), std=std, a=-2 * std, b=2 * std,
             generator=generator)
         heads['class_existence_fc.bias'] = torch.zeros(n)
     return heads
 
 
-def _build_backbone(cfg: YolactConfig) -> ResNetBackbone:
+def _build_backbone(cfg: YolactConfig) -> nn.Module:
+    """The backbone of ``cfg.backbone.type`` (JAX ``_build_backbone``)."""
     bb = cfg.backbone
-    if cfg.stem_s2d and bb.type not in ('resnet', 'resnet_gn'):
+    num_stages = max(bb.selected_layers) + 1
+    if bb.type in ('resnet', 'resnet_gn'):
+        layers = tuple(bb.args[0])
+        return ResNetBackbone(
+            layers=layers,
+            dcn_layers=tuple(bb.args[1]) if len(bb.args) > 1 else (0, 0, 0, 0),
+            dcn_interval=bb.args[2] if len(bb.args) > 2 else 1,
+            atrous_layers=tuple(bb.args[3]) if len(bb.args) > 3 else (),
+            num_stages=max(num_stages, len(layers)),
+            stem_s2d=cfg.stem_s2d,
+            norm='gn' if bb.type == 'resnet_gn' else 'bn')
+    if cfg.stem_s2d:
         raise ValueError('stem_s2d is only supported for ResNet backbones')
-    if bb.type != 'resnet':
-        raise NotImplementedError(
-            f'backbone type {bb.type!r} is not ported yet (ROADMAP A8)')
-    layers = tuple(bb.args[0])
-    return ResNetBackbone(
-        layers=layers,
-        dcn_layers=tuple(bb.args[1]) if len(bb.args) > 1 else (0, 0, 0, 0),
-        dcn_interval=bb.args[2] if len(bb.args) > 2 else 1,
-        atrous_layers=tuple(bb.args[3]) if len(bb.args) > 3 else (),
-        num_stages=max(max(bb.selected_layers) + 1, len(layers)),
-        stem_s2d=cfg.stem_s2d)
+    if bb.type == 'darknet':
+        layers = tuple(bb.args[0])
+        return DarkNetBackbone(layers, num_stages=max(num_stages, len(layers)))
+    if bb.type == 'vgg':
+        arch, extra_args, norm_layers = bb.args
+        return VGGBackbone(arch, extra_args, tuple(norm_layers),
+                           num_stages=max(num_stages, len(arch)))
+    raise ValueError(f'unknown backbone type {bb.type!r}')
 
 
 class Yolact(nn.Module):
@@ -96,31 +118,33 @@ class Yolact(nn.Module):
                 and cfg.eval_mask_branch and cfg.mask_proto_src is None):
             raise ValueError('stem_s2d cannot feed the protonet the raw '
                              'image (mask_proto_src=None)')
-        if cfg.mask_type != MaskType.LINCOMB or cfg.mask_proto_src is None \
-                or cfg.fpn is None:
+        if cfg.mask_type != MaskType.LINCOMB or cfg.mask_proto_src is None:
             raise NotImplementedError(
-                'only FPN + lincomb configs with a feature-map protonet '
-                'source (yolact_base and its variants) are ported')
+                'only lincomb configs with a feature-map protonet source '
+                'are ported (direct masks: ROADMAP A8)')
         if cfg.mask_proto_prototypes_as_features:
             raise NotImplementedError(
                 'mask_proto_prototypes_as_features is not ported')
         self.cfg = cfg
         self.compute_dtype = torch.float32
         self.backbone = _build_backbone(cfg)
-        chans = backbone_channels(cfg.backbone)
-        self.fpn = FPN(cfg.fpn, [chans[i] for i in cfg.backbone.selected_layers])
-        nf = cfg.fpn.num_features
+        self.fpn = None
+        if cfg.fpn is not None:
+            chans = backbone_channels(cfg.backbone)
+            self.fpn = FPN(cfg.fpn,
+                           [chans[i] for i in cfg.backbone.selected_layers])
+        widths = head_in_channels(cfg)
         if cfg.eval_mask_branch:
-            self.proto_net = ProtoNet(cfg, nf)
+            self.proto_net = ProtoNet(cfg, cfg.proto_in_channels)
         n_heads = 1 if cfg.share_prediction_module else cfg.num_heads
         self.prediction_layers = nn.ModuleList(
-            PredictionHead(cfg, nf, self._priors_per_pos(i))
+            PredictionHead(cfg, widths[i], self._priors_per_pos(i))
             for i in range(n_heads))
         self.maskiou_net = FastMaskIoUNet(cfg) if cfg.use_maskiou else None
         if cfg.use_class_existence_loss:
-            self.class_existence_fc = Linear(nf, cfg.num_classes - 1)
+            self.class_existence_fc = Linear(widths[-1], cfg.num_classes - 1)
         if cfg.use_semantic_segmentation_loss:
-            self.semantic_seg_conv = Conv2d(nf, cfg.num_classes - 1, 1)
+            self.semantic_seg_conv = Conv2d(widths[0], cfg.num_classes - 1, 1)
         self._priors = {}
 
     def _priors_per_pos(self, idx: int) -> int:
@@ -171,7 +195,9 @@ class Yolact(nn.Module):
         outs = self.backbone(x, use_kernels,
                              bn_train=train and not cfg.freeze_bn,
                              remat=cfg.train_remat if train else 'none')
-        outs = self.fpn([outs[i] for i in cfg.backbone.selected_layers])
+        outs = [outs[i] for i in cfg.backbone.selected_layers]
+        if self.fpn is not None:
+            outs = self.fpn(outs)
 
         preds = []
         for idx, head_x in enumerate(outs):

@@ -5,9 +5,8 @@ center-size prior tensor is computed once on the host per config and input
 size, in the iteration order the heads' conv outputs flatten to
 (row-major pixels, then aspect-ratio group, scale, ratio), including the
 reference's ``use_square_anchors`` bug-compat flag.  The result equals the
-JAX package's bit for bit.
-
-Only the ResNet backbone family is ported (ROADMAP A8 adds the others).
+JAX package's bit for bit, for every backbone family (ResNet, ResNet-GN,
+DarkNet, VGG).
 """
 
 from __future__ import annotations
@@ -21,8 +20,12 @@ import numpy as np
 from yolact_tpu_torch.config import YolactConfig
 
 
-def _conv_out(size: int, k: int, s: int, p: int, d: int = 1) -> int:
-    return (size + 2 * p - (d * (k - 1) + 1)) // s + 1
+def _conv_out(size: int, k: int, s: int, p: int, d: int = 1,
+              ceil_mode: bool = False) -> int:
+    num = size + 2 * p - (d * (k - 1) + 1)
+    if ceil_mode:
+        return -(-num // s) + 1
+    return num // s + 1
 
 
 def _resnet_sizes(img: int, num_layers: int, atrous_layers=()) -> List[int]:
@@ -38,14 +41,62 @@ def _resnet_sizes(img: int, num_layers: int, atrous_layers=()) -> List[int]:
     return sizes
 
 
+def _darknet_sizes(img: int, num_layers: int) -> List[int]:
+    """Each DarkNet stage opens with a stride-2 3x3 conv (the preconv is
+    stride 1)."""
+    s = img
+    sizes = []
+    for _ in range(num_layers):
+        s = _conv_out(s, 3, 2, 1)
+        sizes.append(s)
+    return sizes
+
+
+def _vgg_sizes(img: int, arch, extra_args, num_layers: int) -> List[int]:
+    """VGG group sizes with the pools' own parameters, then the SSD extra
+    stages (``models/vgg.py``)."""
+    s = img
+    sizes = []
+    for group in arch:
+        for v in group:
+            kw = {}
+            if isinstance(v, tuple):
+                kw = dict(v[1])
+                v = v[0]
+            if v == 'M':
+                s = _conv_out(s, kw.get('kernel_size', 2),
+                              kw.get('stride', 2), kw.get('padding', 0),
+                              ceil_mode=kw.get('ceil_mode', False))
+            else:
+                # the 3x3/p1 default holds only for an entry without kwargs
+                if not kw:
+                    kw = {'kernel_size': 3, 'padding': 1}
+                s = _conv_out(s, kw.get('kernel_size', 3),
+                              kw.get('stride', 1), kw.get('padding', 0),
+                              kw.get('dilation', 1))
+        sizes.append(s)
+    extras = list(extra_args)
+    while len(sizes) < num_layers and extras:
+        _, downsample = extras.pop(0)
+        s = _conv_out(s, 1, 1, 0)
+        s = _conv_out(s, 3, downsample, 1 if downsample > 1 else 0)
+        sizes.append(s)
+    return sizes
+
+
 def _feature_sizes_1d(cfg: YolactConfig, img: int) -> List[int]:
     bb = cfg.backbone
-    if bb.type != 'resnet':
-        raise NotImplementedError(
-            f'backbone type {bb.type!r} is not ported yet (ROADMAP A8)')
     n_backbone = max(bb.selected_layers) + 1
-    atrous = bb.args[3] if len(bb.args) > 3 else ()
-    sizes = _resnet_sizes(img, max(n_backbone, len(bb.args[0])), atrous)
+    if bb.type in ('resnet', 'resnet_gn'):
+        atrous = bb.args[3] if len(bb.args) > 3 else ()
+        sizes = _resnet_sizes(img, max(n_backbone, len(bb.args[0])), atrous)
+    elif bb.type == 'darknet':
+        sizes = _darknet_sizes(img, max(n_backbone, len(bb.args[0])))
+    elif bb.type == 'vgg':
+        arch, extra_args, _ = bb.args
+        sizes = _vgg_sizes(img, arch, extra_args, n_backbone)
+    else:
+        raise ValueError(f'unknown backbone type {bb.type!r}')
     selected = [sizes[i] for i in bb.selected_layers]
     if cfg.fpn is not None:
         for _ in range(cfg.fpn.num_downsample):
