@@ -13,7 +13,9 @@ Phases, each of which raises on failure:
    mask assembly at b8 and b1 (B x 100, 138x138, Md 32), a ragged D and a
    NaN coefficient row, within 1e-5 with the same zeros and NaNs (its max
    error printed); the IoU max bit for bit at [640,200], [80,200], K = 37,
-   rows of near ties and of identical boxes; the DCN sampling at the five yolact_plus_base DCN shapes and one with
+   rows of near ties and of identical boxes; mask assembly also at phase
+   9's options shapes (b8, b1 and D = 37 over 70x70 prototypes, Md 33:
+   the kernel's copy branch for Md % 4 != 0); the DCN sampling at the five yolact_plus_base DCN shapes and one with
    Cin % 8 != 0, in bf16 at b8 and in f32 at b1, with integer, fractional,
    far out-of-bounds and non-finite offsets, bit for bit, from NCHW and
    channels_last inputs; the s2d stem conv at the yolact_base shapes (bf16
@@ -90,6 +92,31 @@ Phases, each of which raises on failure:
    kernel step are recorded, held against the plain version as in phase 3
    and timed alone (beside the kernel's time inside the step), with the
    global reductions per step
+9. model options and video (run after phase 4b): yolact_base with direct
+   masks (mask_size 16: 256 values per prior, no protonet) and with every
+   lincomb option the reference builds together (OPTIONS: 33 prototypes
+   with the bias channel on P4 with data/grid.npy's 32 grid channels,
+   prototypes as features, coefficient gate, mask scoring, instance
+   coefficients, DSSD prediction module, YOLO regressors, an extra head
+   net with a 'cat' and transposed convs), each at 550x550 in its sparse
+   cell, b8 bf16 and b1 f32, kernels against plain versions as phase 4
+   holds its paths (launches counted: the IoU max and the stem on both,
+   mask assembly at Md 33 on the options path only); the direct masks
+   pasted into their boxes (finish_masks_direct), kernel and plain pastes
+   equal on >= 99.9% of pixels; e2e and device busy at b8 bf16; three
+   train steps of each at 550 b8 f32 with the s2d stem, kernels against
+   plain versions by phase 6's rule (losses within 1e-4 relative; conv1's,
+   the heads' and the protonet's first gradients within
+   STEM_BATCH_STATS_LIMIT under batch statistics and within 1e-3 with
+   frozen batch norm; the stem once a step); then eval/video.py:evalvideo at
+   yolact_base on 64 in-memory 720x1280 frames, 4 a batch, fast NMS, float32,
+   masks drawn (no cv2 on the card for boxes and text), with the plain
+   versions and with the kernels: launches one per batch each, the drawn
+   frames equal on >= 99.9% of their pixels, the first batch's detections
+   by phase 4's float32 rule, frames/s with the card's name and power
+   limit, and apart the step, the masks' upsample and copy to the host and
+   one frame's compositing (VIDEO_CELL and shape_masks give the random
+   model detections and masks to draw)
 8. trainer (run between phases 6 and 7): cli/train.train with in-memory
    data, 24 raw BGR frames of 480x640, 640x480 and 600x600 with boxes,
    labels, one crowd and rectangular or elliptic masks each, through the
@@ -124,7 +151,8 @@ Phases, each of which raises on failure:
 
 Each phase prints its seconds, and the end of the run all of them.
 The line before the last is a JSON object with each kernel's launches
-(and, as trainer_launches, its launches in the trainer's runs), error,
+(and, as trainer_launches, its launches in the trainer's runs, and as
+option_launches in phase 9's runs by path), error,
 times and bound; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -147,13 +175,16 @@ import torch.nn.functional as F
 
 from yolact_tpu_torch import MEANS, STD, get_config
 from yolact_tpu_torch.cli import train as train_cli
-from yolact_tpu_torch.config import RESNET101_GN_BACKBONE, register_config
+from yolact_tpu_torch.config import (RESNET101_GN_BACKBONE, MaskType,
+                                     register_config)
 from yolact_tpu_torch.data.augmentations import SSDAugmentation
 from yolact_tpu_torch.detect import detection
 from yolact_tpu_torch.cli import coco_eval as coco_eval_cli
 from yolact_tpu_torch.data import rle as rle_codec
-from yolact_tpu_torch.detect.postprocess import finish_masks
-from yolact_tpu_torch.eval import device_metrics, evaluate, evaluator
+from yolact_tpu_torch.detect.postprocess import (finish_masks,
+                                                 finish_masks_direct,
+                                                 upsample_masks_device)
+from yolact_tpu_torch.eval import device_metrics, evaluate, evaluator, video
 from yolact_tpu_torch.eval.coco_json import inverse_label_map
 from yolact_tpu_torch.eval.evaluate import evaluate_dataset
 from yolact_tpu_torch.infer import (InferenceOutput, Pipeline,
@@ -254,8 +285,44 @@ PATHS = {
         kernels=('fast_nms_iou_max', 'mask_assembly', 'stem_s2d'),
         calibrated_match=True),
 }
-# the phase-4b paths, after the phase-4 ones in PATHS
+# phase 9, the model options: yolact_base with direct masks, and with
+# every lincomb option the reference builds together (OPTIONS); b8 bf16
+# and b1 f32, the sparse cell (its scale and bias from probe_cells.py on
+# these seeded weights and frames)
+OPTION_RUNS = (('b8 bf16', 'bfloat16', 8), ('b1 f32', 'float32', 1))
+PATHS.update({
+    'yolact_base_direct': dict(
+        config='yolact_base_direct', cells=(('sparse', 3.0, 9.5, 'pruned'),),
+        runs=OPTION_RUNS, kernels=('fast_nms_iou_max', 'stem_s2d')),
+    'yolact_base_options': dict(
+        config='yolact_base_options', cells=(('sparse', 1.0, 4.0, 'pruned'),),
+        runs=OPTION_RUNS,
+        kernels=('fast_nms_iou_max', 'mask_assembly', 'stem_s2d')),
+})
+# the phase-4b paths, after the phase-4 ones in PATHS; then phase 9's
 OTHER_BACKBONES = ('yolact_darknet53', 'yolact_vgg16', 'yolact_base_gn')
+OPTION_PATHS = ('yolact_base_direct', 'yolact_base_options')
+PAD1 = (('padding', 1),)
+# Every lincomb option of the reference that builds with the others, on
+# yolact_base: 33 prototypes (32 and the bias channel; mask assembly's
+# Md % 4 != 0 branch), the prototypes (without the bias) as features of
+# every head, the coefficient gate, mask scoring, instance coefficients,
+# DSSD's prediction module (batch statistics in the heads), YOLO
+# regressors, the grid prototypes of data/grid.npy ([32, 35, 35]: the
+# stride-16 level at 550, so the protonet reads P4 and its prototypes are
+# 70 x 70), and an extra head net with a 'cat' of a conv and a transposed
+# conv pair, then a stride-1 transposed conv.  Split prototypes by head
+# needs a mask_dim the five heads divide: the CPU tests hold it.
+OPTIONS = dict(
+    mask_proto_bias=True, mask_proto_prototypes_as_features=True,
+    mask_proto_coeff_gate=True, use_mask_scoring=True,
+    use_instance_coeff=True, use_prediction_module=True,
+    use_yolo_regressors=True, mask_proto_use_grid=True,
+    mask_proto_grid_file='data/grid.npy', mask_proto_src=1,
+    extra_head_net=(('cat', (((128, 3, PAD1),),
+                             ((64, -2, (('stride', 2),)),
+                              (128, 2, (('stride', 2),))))),
+                    (256, -3, PAD1)))
 # The 11 DCN blocks of yolact_plus_base at 550x550: (blocks, how many per
 # batch, Cin = Cout, H, stride); 3x3, padding 1, dilation 1 everywhere
 DCN_SHAPES = (('layers.1 block 0', 1, 128, 138, 2),
@@ -289,9 +356,15 @@ EVAL_SIZES = ((480, 640), (640, 480), (427, 640))
 
 
 def config_named(name):
-    """A registered config, or 'yolact_base_gn': yolact_base with
-    RESNET101_GN_BACKBONE's type and args (the repo registers no GN model
-    config)."""
+    """A registered config, or one of yolact_base's variants: 'yolact_base_gn'
+    with RESNET101_GN_BACKBONE's type and args (the repo registers no GN
+    model config), 'yolact_base_direct' with direct masks (mask_size 16),
+    'yolact_base_options' with OPTIONS."""
+    if name == 'yolact_base_direct':
+        return get_config('yolact_base').copy(name=name,
+                                              mask_type=MaskType.DIRECT)
+    if name == 'yolact_base_options':
+        return get_config('yolact_base').copy(name=name, **OPTIONS)
     if name != 'yolact_base_gn':
         return get_config(name)
     cfg = get_config('yolact_base')
@@ -929,10 +1002,15 @@ def kernel_vs_plain(dev):
     the main-path shapes per kernel."""
     gen = torch.Generator().manual_seed(0)
     errs = {}
-    # (B, D, NaN coefficient row): b8 and b1 at yolact_base, a ragged D
-    for b, d, nan_row in ((8, 100, False), (1, 100, False), (2, 37, False),
-                          (2, 100, True)):
-        args = mask_inputs(gen, dev, b, d, nan_row=nan_row)
+    # (B, D, Hp, Md, NaN coefficient row): b8 and b1 at yolact_base, a
+    # ragged D, a NaN row; b8, b1 and a ragged D at phase 9's options path
+    # (70 x 70 prototypes, Md 33: the copy branch for Md % 4 != 0)
+    for b, d, hw, md, nan_row in (
+            (8, 100, 138, 32, False), (1, 100, 138, 32, False),
+            (2, 37, 138, 32, False), (2, 100, 138, 32, True),
+            (8, 100, 70, 33, False), (1, 100, 70, 33, False),
+            (2, 37, 70, 33, False)):
+        args = mask_inputs(gen, dev, b, d, hw=hw, md=md, nan_row=nan_row)
         got = mask_assembly.assemble_masks(*args)
         want = mask_assembly.assemble_masks_plain(*args)
         torch.cuda.synchronize()
@@ -940,7 +1018,7 @@ def kernel_vs_plain(dev):
         same_nan = bool(torch.equal(got.isnan(), nan))
         err = float((got - want)[~nan].abs().max())
         same_crop = bool(torch.equal(got == 0, want == 0))
-        print(f'mask_assembly B={b} D={d} 138x138 Md=32'
+        print(f'mask_assembly B={b} D={d} {hw}x{hw} Md={md}'
               f'{" NaN row" if nan_row else ""}: max_abs_err={err!r} '
               f'same_crop={same_crop} same_nan={same_nan} '
               f'nan_outputs={int(nan.sum())}')
@@ -1000,6 +1078,16 @@ def shape_conf(sd, num_classes, scale, bg_bias):
     return sd
 
 
+def shape_masks(sd, bias=1.0):
+    """Add `bias` to every lincomb coefficient (the mask heads' bias): the
+    random coefficients then lean positive over the non-negative
+    prototypes, so an assembled mask is above 0.5 over much of its box,
+    as a trained model's is over its object.  Random heads leave many
+    masks empty, and a drawn frame would not show them."""
+    return {k: v + bias if k.endswith('.mask_layer.bias') else v
+            for k, v in sd.items()}
+
+
 def seed_offsets_state_dict(sd, gen, w_scale=0.05, b_scale=2.0):
     """Seeded non-zero weights for every DCN offset/mask conv: the zero
     init would put every sample on a grid point and leave the kernel's
@@ -1026,7 +1114,9 @@ def check_output(tag, out, cfg, batch):
     d = cfg.max_num_detections
     check(tuple(out.boxes.shape) == (batch, d, 4),
           f'{tag}: boxes shape {tuple(out.boxes.shape)}')
-    check(tuple(out.masks.shape) == (batch, d) + proto_size(cfg),
+    hw = (cfg.mask_size,) * 2 if cfg.mask_type == MaskType.DIRECT \
+        else proto_size(cfg)
+    check(tuple(out.masks.shape) == (batch, d) + hw,
           f'{tag}: masks shape {tuple(out.masks.shape)}')
     names = ['boxes', 'scores', 'masks']
     if cfg.use_maskiou:
@@ -1190,8 +1280,9 @@ def main_path(name, sd, frames8, dev):
     # cuDNN may sum the stem's products in another order than the float32
     # kernel: near ties may swap
     ties_ok = cfg.stem_s2d
-    runs = [('b1 bf16', 'bfloat16', 1), ('b8 bf16', 'bfloat16', 8),
-            ('b1 f32', 'float32', 1)]
+    runs = path.get('runs', (('b1 bf16', 'bfloat16', 1),
+                             ('b8 bf16', 'bfloat16', 8),
+                             ('b1 f32', 'float32', 1)))
     weights = [(wname, shape_conf(sd, cfg.num_classes, scale, bias), branch)
                for wname, scale, bias, branch in path['cells']]
 
@@ -1944,6 +2035,18 @@ def small_kernel_timing(dev, card):
                 out[name] = dict(ms=dev_ms, plain_ms=plain_dev,
                                  bound=(b_ms, b_by))
         del margs, boxes
+    # phase 9's options path: 33 prototypes at 70 x 70 (Md % 4 != 0)
+    margs = mask_inputs(gen, dev, 8, 100, hw=70, md=33)
+    b_ms, b_by = small_kernel_bounds(
+        margs, iou_inputs(gen, dev, 8, 200))['mask_assembly']
+    dev_ms = device_times(lambda: mask_assembly.assemble_masks(*margs),
+                          'mask_assembly_kernel')[1]
+    plain_dev = device_times(
+        lambda: mask_assembly.assemble_masks_plain(*margs))[0]
+    print(f'kernel mask_assembly b8 B=8 D=100 70x70 Md=33 (the options '
+          f'path): device {dev_ms!r} ms (bound {b_ms!r} by {b_by}: '
+          f'{b_ms / dev_ms!r} of it), plain device {plain_dev!r} ms '
+          f'(torch.profiler kernel events, 20 calls) [{card}]')
     return out
 
 # ---- phase 6: the train step ---------------------------------------------
@@ -2397,6 +2500,264 @@ def col2im_timing(dev, card):
     return line
 
 
+# ---- phase 9: model options and video -------------------------------------
+
+# the first-step gradients each option path's train check reads: conv1
+# behind the stem kernel, and in the heads and the protonet
+OPTION_TRAIN_GRADS = {
+    'yolact_base_direct': ('backbone.conv1.weight',
+                           'prediction_layers.0.mask_layer.weight'),
+    'yolact_base_options': ('backbone.conv1.weight',
+                            'prediction_layers.0.block.conv1.weight',
+                            'prediction_layers.0.gate_layer.weight',
+                            'proto_net.0.weight'),
+}
+VIDEO_FRAMES = 64
+VIDEO_HW = (720, 1280)
+VIDEO_MULTIFRAME = 4
+# the video's conf cell (shape_conf): the frames, squeezed from 720x1280 to
+# 550x550 by a bilinear resize without antialiasing, are smoother than
+# phase 4's, and the sparse cell's +7 leaves no candidate on them; +5
+# leaves 276-328 an image (probe_cells.py --paths video on the card)
+VIDEO_CELL = (3.0, 5.0)
+
+
+def pasted(out, b, w, h):
+    """Image b's direct masks pasted into a w x h frame on the host."""
+    n = int(out.valid[b].sum())
+    boxes = evaluate.sanitize_boxes_np(out.boxes[b, :n].cpu().numpy(), w, h)
+    return boxes, finish_masks_direct(out.masks[b, :n], boxes, w, h)
+
+
+def direct_paste_check(tag, got, want):
+    """finish_masks_direct on the direct path's b1 f32 outputs (kernels and
+    plain versions, whose detections phase 4's rule held equal): each mask
+    inside its box, the two pastes equal on >= 99.9% of the pixels (patch
+    values within 1e-4 may straddle 0.5)."""
+    t0 = time.perf_counter()
+    boxes, masks = pasted(got, 0, 550, 550)
+    ms = (time.perf_counter() - t0) * 1e3
+    _, plain = pasted(want, 0, 550, 550)
+    check(masks.shape == plain.shape and masks.dtype == bool,
+          f'{tag}: pasted masks {masks.shape} against {plain.shape}')
+    inside = np.zeros_like(masks)
+    for j, (x1, y1, x2, y2) in enumerate(boxes):
+        inside[j, y1:y2, x1:x2] = True
+    check(not (masks & ~inside).any(), f'{tag}: a mask outside its box')
+    share = float((masks == plain).mean()) if masks.size else 1.0
+    print(f'{tag} finish_masks_direct: {masks.shape[0]} masks, '
+          f'{int(masks.sum())} pixels set, kernels against plain versions '
+          f'{share!r} of pixels equal; {ms!r} ms on the host')
+    check(masks.shape[0] > 0 and masks.any(), f'{tag}: no direct masks')
+    check(share >= 0.999, f'{tag}: pasted masks differ')
+
+
+def option_train(name, sd, dev, card):
+    """TRAIN_STEPS steps of a phase-9 path at 550 b8 f32 with the s2d stem,
+    kernels against plain versions as phase 6 holds yolact_base (the same
+    tamed weights, schedule, batch and draws, deterministic algorithms):
+    every loss within 1e-4 relative per step, the stem launched once a
+    step, and the first-step gradients of OPTION_TRAIN_GRADS within
+    STEM_BATCH_STATS_LIMIT of their largest entry under batch statistics
+    (the stem kernel's rounding reaches every one of them through a batch
+    norm on batch statistics: conv1's, and the heads' through the DSSD
+    block's) and within 1e-3 with frozen batch norm.  Returns the kernel
+    run's summed launches."""
+    base = config_named(name).copy(lr=1e-4, lr_warmup_init=1e-7,
+                                   stem_s2d=True)
+    sd = tame_residuals(sd)
+    names = OPTION_TRAIN_GRADS[name]
+    for cfg, rel in ((base, STEM_BATCH_STATS_LIMIT),
+                     (base.copy(freeze_bn=True), 1e-3)):
+        batch = make_train_batch(cfg)
+        tag = f'train_{name} 550 b8 f32' + (' (frozen batch norm)'
+                                            if cfg.freeze_bn else '')
+        with deterministic_library():
+            _, plain_losses, plain_grads, plain_launches = run_train_steps(
+                cfg, sd, batch, dev, False, names)
+            check(not any(n for step in plain_launches
+                          for n in step.values()),
+                  f'{tag}: the plain path launched a kernel')
+            state, losses, grads, launches = run_train_steps(
+                cfg, sd, batch, dev, True, names)
+        print(f'{tag} launches per step: {json.dumps(launches)}')
+        for step in launches:
+            check(step == dict(stem_s2d=1, dcn=0, dcn_col2im=0),
+                  f'{tag}: launches per step {step}')
+        for i, (got, want) in enumerate(zip(losses, plain_losses)):
+            print(f'{tag} step {i}: kernels {json.dumps(got)}; plain '
+                  f'versions {json.dumps(want)}')
+            check(got['finite'] and want['finite'] and 'M' in got,
+                  f'{tag}: step {i} skipped or without a mask loss')
+            for k in got:
+                check(np.isfinite(got[k]) and
+                      abs(got[k] - want[k]) <= 1e-4 * abs(want[k]),
+                      f'{tag}: step {i} loss {k} {got[k]!r} against the '
+                      f'plain versions\' {want[k]!r}')
+        grad_checks(tag, names, grads, plain_grads, rel)
+        if not cfg.freeze_bn:
+            total = {k: sum(step[k] for step in launches)
+                     for k in TRAIN_KERNELS}
+            gen = torch.Generator(device=dev).manual_seed(12)
+            torch.cuda.reset_peak_memory_stats()
+            ms, p90 = time_ms(lambda: train_step(state, batch, gen), runs=5,
+                              warmup=1)
+            print(f'{tag} step: median {ms!r} ms, p90 {p90!r} (5 steps, '
+                  f'CUDA events; {8000.0 / ms!r} images/s); peak memory '
+                  f'allocated {torch.cuda.max_memory_allocated() / 2 ** 30!r}'
+                  f' GiB [{card}]')
+        del state, grads, plain_grads
+    return total
+
+
+def video_frames(n=VIDEO_FRAMES, hw=VIDEO_HW, seed=5):
+    """`n` seeded BGR uint8 frames: one noise frame (uniform, as phase 4's
+    frames) with two bright rectangles, shifted a little further each
+    frame."""
+    rng = np.random.RandomState(seed)
+    base = rng.randint(0, 256, hw + (3,)).astype(np.uint8)
+    base[200:420, 300:640] = 230
+    base[380:620, 700:1000] = (40, 200, 90)
+    return np.stack([np.roll(base, (3 * i, 8 * i), axis=(0, 1))
+                     for i in range(n)])
+
+
+def video_phase(sd, dev, card):
+    """eval/video.py:evalvideo on VIDEO_FRAMES in-memory frames of
+    VIDEO_HW at yolact_base (VIDEO_CELL, masks shaped by shape_masks,
+    the config's float32, fast
+    NMS, VIDEO_MULTIFRAME frames a batch, masks upsampled on the card; the
+    frames drawn with their masks: no cv2 here for boxes and text), with
+    the plain versions and then with the kernels, the launches counted
+    from 0 just before the kernel run.  The drawn frames agree on >= 99.9%
+    of their pixels, and the first batch's detections by phase 4's f32
+    rule.  Returns (the kernel run's launches, frames/s)."""
+    cfg = config_named('yolact_base')
+    wsd = shape_masks(shape_conf(sd, cfg.num_classes, *VIDEO_CELL))
+    frames = video_frames()
+    kw = dict(video_multiframe=VIDEO_MULTIFRAME, score_threshold=0.0,
+              top_k=15, display_fps=False, display_bboxes=False,
+              display_text=False, device=dev)
+    drawn, rates = {}, {}
+    for label, use_kernels in (('plain versions', False), ('kernels', True)):
+        drawn[label] = []
+        if use_kernels:
+            reset_launches()
+        t0 = time.perf_counter()
+        fps = video.evalvideo(cfg, wsd, frames, use_kernels=use_kernels,
+                              sink=drawn[label].append, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if use_kernels:
+            launches = read_launches(KERNELS)
+        rates[label] = VIDEO_FRAMES / wall
+        print(f'video yolact_base {VIDEO_HW[0]}x{VIDEO_HW[1]} f32 '
+              f'multiframe {VIDEO_MULTIFRAME}, {label}: {VIDEO_FRAMES} frames '
+              f'in {wall!r} s, {rates[label]!r} frames/s (evalvideo\'s '
+              f'moving average {fps!r}, pipeline built in the time) [{card}]')
+    print(f'video launches: {json.dumps(launches)}')
+    batches = -(-VIDEO_FRAMES // VIDEO_MULTIFRAME)
+    for k in ('fast_nms_iou_max', 'mask_assembly', 'stem_s2d'):
+        check(launches[k] == batches, f'video: {k} launched {launches[k]} '
+              f'times for {batches} batches')
+    check(launches['dcn'] == launches['dcn_col2im'] == 0,
+          'video: a DCN kernel was launched')
+    # the detections of the first batch, by phase 4's float32 rule
+    outs = [Pipeline(cfg, wsd, dev, use_kernels=k)(
+        frames[:VIDEO_MULTIFRAME].astype(np.float32)) for k in (True, False)]
+    compare('video first batch f32', *outs, exact=True, ties_ok=True)
+    print(f'video first batch: valid detections per frame '
+          f'{outs[0].valid.sum(1).tolist()}, drawn: those with the top '
+          f'{kw["top_k"]} scores')
+    got, want = drawn['kernels'], drawn['plain versions']
+    check(len(got) == len(want) == VIDEO_FRAMES,
+          f'video: {len(got)} and {len(want)} frames drawn')
+    shares = [float((a == b).all(-1).mean()) for a, b in zip(got, want)]
+    changed = [float((a != f).any(-1).mean()) for a, f in zip(got, frames)]
+    print(f'video drawn frames, kernels against plain versions: the least '
+          f'share of equal pixels {min(shares)!r}, mean '
+          f'{float(np.mean(shares))!r}; pixels drawn over per frame '
+          f'{min(changed)!r}-{max(changed)!r}')
+    check(min(shares) >= 0.999, 'video: drawn frames differ')
+    check(min(changed) > 0, 'video: a frame with nothing drawn')
+    pipe = Pipeline(cfg, wsd, dev)
+    x = torch.from_numpy(frames[:VIDEO_MULTIFRAME].astype(np.float32)).to(dev)
+    ms, p90 = time_ms(lambda: pipe(x), runs=20, warmup=3)
+    print(f'video step alone: Pipeline on {VIDEO_MULTIFRAME} frames of '
+          f'{VIDEO_HW[0]}x{VIDEO_HW[1]} on the card, median {ms!r} ms '
+          f'(p90 {p90!r}; 20 calls, CUDA events), '
+          f'{VIDEO_MULTIFRAME * 1000.0 / ms!r} frames/s [{card}]')
+    # the drawer's share: each batch's masks upsampled to the frame and
+    # copied to the host, then one frame composited with its masks
+    out = pipe(x)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        masks = upsample_masks_device(out.masks, VIDEO_HW).cpu().numpy()
+    copy_ms = (time.perf_counter() - t0) / 5 * 1e3
+    n = int(out.valid[0].sum())
+    boxes = evaluate.sanitize_boxes_np(out.boxes[0, :n].cpu().numpy(),
+                                       VIDEO_HW[1], VIDEO_HW[0])
+    t0 = time.perf_counter()
+    for _ in range(5):
+        video.draw_detections(cfg, frames[0], out.classes[0, :n].cpu().numpy(),
+                              out.scores[0, :n].cpu().numpy(), boxes,
+                              masks[0, :n], top_k=15, display_bboxes=False,
+                              display_text=False)
+    draw_ms = (time.perf_counter() - t0) / 5 * 1e3
+    print(f'video host work: masks {list(masks.shape)} upsampled on the card '
+          f'and copied to the host {copy_ms!r} ms a batch, one frame '
+          f'drawn with its top 15 masks {draw_ms!r} ms (host clock, 5 '
+          f'calls each) [{card}]')
+    return launches, rates['kernels']
+
+
+def options_phase(sds, frames8, dev, card):
+    """Phase 9 (see the module docstring).  Returns ({path: launch counts},
+    video frames/s)."""
+    launches = {}
+    for name in OPTION_PATHS:
+        t0 = time.perf_counter()
+        sds[name] = random_state_dict(config_named(name),
+                                      torch.Generator().manual_seed(0))
+        print(f'{name} weights: {time.perf_counter() - t0:.2f} s')
+        launches[name], outs, pipe = main_path(name, sds[name], frames8, dev)
+        cfg = path_config(name)
+        if cfg.mask_type == MaskType.DIRECT:
+            wsd = shape_conf(sds[name], cfg.num_classes,
+                             *PATHS[name]['cells'][0][1:3])
+            plain = make_pipeline(name, wsd, dev, 'float32',
+                                  use_kernels=False)(frames8[:1])
+            direct_paste_check(f'{name} sparse b1 f32',
+                               outs['sparse', 'b1 f32'], plain)
+        else:
+            print(f'{name}: {cfg.mask_dim} prototypes at '
+                  f'{proto_size(cfg)}, the heads read '
+                  f'{pipe.model.prediction_layers[0].bbox_layer.in_channels}'
+                  f' channels')
+            check(cfg.mask_dim % 4 != 0, f'{name}: Md {cfg.mask_dim} takes '
+                  f'mask assembly\'s 16-byte branch')
+        x = frames8
+        ms, p90 = time_ms(lambda: pipe(x), runs=50)
+        prof = profile_kernels(lambda: pipe(x))
+        busy = ('busy not measured (the profiler recorded no kernel)'
+                if prof is None else f'busy {prof[0]!r} ms per batch, idle '
+                f'share {prof[1]!r} (torch.profiler kernel events, 20 '
+                f'batches)')
+        print(f'e2e {name} 550 bf16 b8: median {ms!r} ms/batch '
+              f'({8000.0 / ms!r} frames/s), p90 {p90!r} (50 calls, CUDA '
+              f'events); {busy} [{card}]')
+        if prof is not None:
+            top = sorted(prof[2].items(), key=lambda kv: -kv[1])[:6]
+            print(f'device {name} b8 top kernels ms per batch: '
+                  + '; '.join(f'{n[:60]} {t!r}' for n, t in top))
+        del pipe, outs
+    for name in OPTION_PATHS:
+        train = option_train(name, sds[name], dev, card)
+        launches[f'train_{name}'] = train
+    launches['video'], fps = video_phase(sds['yolact_base'], dev, card)
+    return launches, fps
+
+
 # ---- phase 8: the trainer ------------------------------------------------
 
 # Raw frames of mixed sizes, 3 batches of 8 an epoch
@@ -2806,6 +3167,8 @@ def main():
                                .astype(np.float32)).to(dev)
     pipes, launches, outs, sds = {}, {}, {}, {}
     for name in PATHS:
+        if name in OPTION_PATHS:
+            continue
         if name == OTHER_BACKBONES[0]:
             phase_done('4 main paths')
         config = PATHS[name]['config']
@@ -2829,6 +3192,10 @@ def main():
                       for name in ('yolact_base_s2d', 'yolact_base'))
         match(f's2d vs plain stem {cell} b8 bf16', s2d, plain)
     del outs
+
+    # ---- phase 9: model options and video ----
+    option_launches, video_fps = options_phase(sds, frames8, dev, card)
+    phase_done('9 model options and video')
 
     # ---- phase 5: eval ----
     eval_rates = eval_phase(sds['yolact_base'], dev, card)
@@ -2902,12 +3269,17 @@ def main():
                        'replaces': info['replaces'],
                        'launches': launches[info['path']][name],
                        'trainer_launches': trainer_launches.get(name, 0),
+                       'option_launches': {
+                           path: counts[name]
+                           for path, counts in option_launches.items()
+                           if counts.get(name)},
                        'max_abs_err': errs[name], 'ms': t['ms'],
                        'plain_ms': t['plain_ms'], 'bound_ms': t['bound'][0],
                        'bound_by': t['bound'][1],
                        'library_ms': t.get('library_ms')})
     phase_done('7 timing')
-    print(f'eval frames/s: {json.dumps(eval_rates)}')
+    print(f'eval frames/s: {json.dumps(eval_rates)}; video frames/s '
+          f'{video_fps!r} [{card}]')
     print(f'phase seconds: {json.dumps(phases)}; '
           f'{time.perf_counter() - t_run:.1f} s after the device check')
     print(f'torch.profiler lost kernel events in '

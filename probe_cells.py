@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""The conf-head cells of chip_smoke.py's phase-4b paths (and of
-yolact_base's sparse cell, to compare), and how far each path's detections
-move under stem noise of the kernels' size.
+"""The conf-head cells of chip_smoke.py's phase-4b and phase-9 paths and
+of its video frames (``--paths video``: yolact_base on
+``chip_smoke.video_frames``), of yolact_base's sparse cell, to compare,
+and how far each path's detections move under stem noise of the kernels'
+size.
 
     python3 probe_cells.py [--device cpu|cuda] [--paths NAME ...]
 
@@ -47,6 +49,10 @@ GRID = {
     'yolact_darknet53': ((1.0, (7.75, 7.85, 7.9, 7.95, 8.0)),),
     'yolact_vgg16': ((1.0, (3.75, 4.0, 4.25)),),
     'yolact_base_gn': ((1.0, (11.5, 12.0, 12.5)), (0.5, (6.5, 7.0, 7.5))),
+    'yolact_base_direct': ((3.0, (9.0, 9.25, 9.5, 9.75)),),
+    'yolact_base_options': ((1.0, (3.5, 4.0, 4.5)),),
+    # phase 9's video: yolact_base on chip_smoke.video_frames
+    'video': ((3.0, (4.0, 5.0, 5.5, 6.0, 6.5, 7.0)),),
 }
 
 
@@ -123,14 +129,19 @@ def main():
         print(torch.cuda.get_device_name(0))
     frames = torch.from_numpy(np.random.RandomState(0).randint(
         0, 256, (8, 550, 550, 3)).astype(np.float32)).to(dev)
+    video = torch.from_numpy(cs.video_frames(8).astype(np.float32)).to(dev)
     for name in args.paths:
-        cfg = cs.config_named(cs.PATHS[name]['config'])
+        cfg = cs.config_named('yolact_base' if name == 'video'
+                              else cs.PATHS[name]['config'])
         sd = random_state_dict(cfg, torch.Generator().manual_seed(0))
         for dtype in ('float32', 'bfloat16'):
-            for cell, n in candidates(cfg, sd, frames, dev, dtype,
-                                      GRID[name]).items():
+            for cell, n in candidates(cfg, sd,
+                                      video if name == 'video' else frames,
+                                      dev, dtype, GRID[name]).items():
                 print(f'{name} {dtype} cell {cell}: candidates per image '
                       f'{min(n)}-{max(n)} {json.dumps(n)}')
+        if name == 'video':
+            continue
         path = cs.PATHS[name]
         if not path.get('plain_stem') and cs.path_config(name).stem_s2d:
             for scale, biases in GRID[name]:

@@ -41,8 +41,10 @@ import numpy as np
 
 from test_torch_inputs import (SyntheticEvalSet, bf16_ulp, dcn_inputs,
                                make_train_batch, near_tie_boxes,
-                               seed_offsets_state_dict, tiny_plus_config,
-                               tiny_resnet_config, ulp_distance)
+                               seed_offsets_state_dict, tiny_option_overrides,
+                               tiny_plus_config, tiny_resnet_config,
+                               ulp_distance, write_grid)
+from yolact_tpu_torch.config import MaskType
 from yolact_tpu_torch.eval.evaluate import evaluate_dataset
 from yolact_tpu_torch.infer import (Pipeline, forward_and_detect, load_model,
                                     random_state_dict)
@@ -103,6 +105,8 @@ def _iou_inputs(gen, dev, n, k):
     (8, 100, 138, 32), (1, 100, 138, 32),         # yolact_base b8, b1
     (2, 1, 16, 8), (2, 113, 16, 40),              # D = 1; two D passes
     (1, 37, 69, 8), (2, 37, 7, 40),               # Hp*Wp % 4 != 0
+    (8, 100, 70, 33), (1, 100, 70, 33),           # the options path, Md 33
+    (2, 37, 16, 33), (2, 113, 16, 9),             # Md % 4 != 0, ragged D
 ])
 def test_mask_assembly_kernel_matches_plain(cuda, b, d, hw, md):
     args = _mask_inputs(torch.Generator().manual_seed(d), cuda, b, d, hw, md)
@@ -537,6 +541,70 @@ def test_device_guard_switches_only_for_another_device(cuda):
 TINY_STEM_BATCH_STATS_ATOL = 5e-4
 
 
+def _option_config(name, tmp_path, **kw):
+    """The tiny direct-mask config, or every lincomb option at once."""
+    if name == 'direct':
+        return tiny_resnet_config(mask_type=MaskType.DIRECT, **kw)
+    return tiny_resnet_config(**kw).copy(**tiny_option_overrides(
+        write_grid(tmp_path / 'grid.npy')))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['direct', 'options'])
+def test_tiny_option_pipelines_kernels_match_plain(cuda, tmp_path, name):
+    """Pipeline (the s2d stem) of the tiny direct config and of the tiny
+    config with every lincomb option, f32, with and without the kernels:
+    as the other tiny pipelines; the IoU max and the stem launched on both,
+    mask assembly on the options path only (9 prototypes: Md % 4 != 0);
+    direct masks pasted into their boxes agree on >= 99.9% of pixels."""
+    from yolact_tpu_torch.detect.postprocess import finish_masks_direct
+    from yolact_tpu_torch.eval.evaluate import sanitize_boxes_np
+    cfg = _option_config(name, tmp_path)
+    sd = random_state_dict(cfg, torch.Generator().manual_seed(0))
+    frames = torch.randint(0, 256, (2, 128, 128, 3),
+                           generator=torch.Generator().manual_seed(1)
+                           ).float().to(cuda)
+    want = Pipeline(cfg, sd, cuda, 'float32', use_kernels=False)(frames)
+    counts = (nms.launches, mask_assembly.launches, stem.launches)
+    got = Pipeline(cfg, sd, cuda, 'float32')(frames)
+    torch.cuda.synchronize()
+    counts = [b - a for a, b in zip(counts, (
+        nms.launches, mask_assembly.launches, stem.launches))]
+    assert counts == [1, 0 if name == 'direct' else 1, 1]
+    assert bool(got.valid.any())
+    assert torch.equal(got.valid, want.valid)
+    assert torch.equal(got.classes, want.classes)
+    torch.testing.assert_close(got.scores, want.scores, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.boxes, want.boxes, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.masks, want.masks, rtol=0, atol=1e-4)
+    if name == 'direct':
+        n = int(got.valid[0].sum())
+        boxes = sanitize_boxes_np(got.boxes[0, :n].cpu().numpy(), 160, 120)
+        a = finish_masks_direct(got.masks[0, :n], boxes, 160, 120)
+        b = finish_masks_direct(want.masks[0, :n], boxes, 160, 120)
+        assert a.shape == (n, 120, 160) and (a == b).mean() >= 0.999
+    else:
+        assert got.masks.shape[2:] == (32, 32) and cfg.mask_dim == 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['direct', 'options'])
+def test_tiny_option_train_steps_kernels_match_plain(cuda, tmp_path, name):
+    """Two train steps of the tiny direct and options configs with the s2d
+    stem and frozen batch norm (the batch-statistics heads run at full size
+    in chip_smoke.py's phase 9), kernels against plain versions as
+    test_tiny_train_steps_kernels_match_plain holds base_s2d_frozen_bn."""
+    from yolact_tpu_torch.train.step import create_train_state, train_step
+    cfg = _option_config(name, tmp_path, stem_s2d=True, freeze_bn=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        _tiny_train_steps(cuda, name, create_train_state, train_step, cfg)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('name', ['base_s2d', 'base_s2d_frozen_bn', 'plus',
                                   'plus_no_remat'])
@@ -563,15 +631,18 @@ def _tf32_round(t):
     return t + (((bits + 0x1000) & -0x2000).view(torch.float32) - t).detach()
 
 
-def _tiny_train_steps(cuda, name, create_train_state, train_step):
+def _tiny_train_steps(cuda, name, create_train_state, train_step,
+                      cfg=None):
+    """Two steps of `cfg` (or of the config `name` stands for) with the
+    kernels and with their plain versions (see the test above)."""
     atol = 1e-6
-    if name.startswith('base_s2d'):
+    n_dcn = 0
+    if cfg is None and name.startswith('base_s2d'):
         cfg = tiny_resnet_config(stem_s2d=True,
                                  freeze_bn=name == 'base_s2d_frozen_bn')
-        n_dcn = 0
         if name == 'base_s2d':
             atol = TINY_STEM_BATCH_STATS_ATOL
-    else:
+    elif cfg is None:
         # frozen batch norm: the tiny DCN config's last stage would
         # normalise over 8 values per channel, which amplifies the order
         # of the float32 atomics until the two runs part

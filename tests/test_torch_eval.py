@@ -375,9 +375,12 @@ def test_cli_images(setup, pth, tmp_path, flags):
     assert os.path.exists(inp / 'a_lincomb.png')
 
 
-@pytest.mark.parametrize('flags', [['--video=in.mp4'], ['--eval_devices=2'],
+@pytest.mark.parametrize('flags', [['--video=in.mp4', '--eval_devices=2'],
+                                   ['--eval_devices=2'],
                                    ['--eval_devices=0']])
 def test_cli_unported_modes_raise(pth, tmp_path, flags):
+    """Evaluation on more than one device (A9), video included; one-device
+    video runs (tests/test_torch_video.py)."""
     with pytest.raises(NotImplementedError, match='A9'):
         _main(pth, tmp_path, *flags)
 

@@ -33,7 +33,10 @@ to the smoke script's inputs does not move the unit tests.
 - :func:`tiny_resnet_config` and :func:`tiny_plus_config` are
   ``tests/_tiny.py``'s small configs built with the port's own config
   module (``test_torch_config.py`` holds them equal to ``_tiny.py``'s), for
-  the tests that import nothing of the JAX package.
+  the tests that import nothing of the JAX package;
+  :func:`tiny_option_overrides` turns on every lincomb head and protonet
+  option of the reference at once (with a grid from :func:`write_grid`
+  and ``CAT_DECONV_HEAD``).
 """
 
 import numpy as np
@@ -97,6 +100,40 @@ def tiny_plus_config(**kw):
         maskiou_net=((8, 3, (('stride', 2),)), (16, 3, (('stride', 2),)),
                      (32, 3, (('stride', 2),))),
         **kw)
+
+
+PAD1 = (('padding', 1),)
+# an extra head net with a 'cat' of a conv and a transposed conv + conv
+# pair that keeps the size, then a stride-1 transposed conv (k3, p1)
+CAT_DECONV_HEAD = (('cat', (((6, 3, PAD1),),
+                            ((4, -2, (('stride', 2),)),
+                             (6, 2, (('stride', 2),))))),
+                   (16, -3, PAD1))
+
+
+def write_grid(path, hw=16, channels=3):
+    """A ``mask_proto_grid_file`` at the tiny config's P3 size (128 / 8):
+    smooth [g, h, w] coordinate features, as ``scripts/make_grid.py
+    --basis`` writes them.  Returns the path."""
+    y, x = np.meshgrid(np.linspace(0, 1, hw), np.linspace(0, 1, hw),
+                       indexing='ij')
+    grid = np.stack([x, y, np.hypot(x - 0.5, y - 0.5)][:channels])
+    np.save(path, grid.astype(np.float32))
+    return str(path)
+
+
+def tiny_option_overrides(grid_file):
+    """Every lincomb option the reference builds together, for the tiny
+    config (as chip_smoke.py's OPTIONS at full size): 9 prototypes with the
+    bias channel, the grid, prototypes as features, the coefficient gate,
+    mask scoring, instance coefficients, the DSSD prediction module, YOLO
+    regressors and ``CAT_DECONV_HEAD``."""
+    return dict(mask_proto_bias=True, mask_proto_prototypes_as_features=True,
+                mask_proto_coeff_gate=True, use_mask_scoring=True,
+                use_instance_coeff=True, use_prediction_module=True,
+                use_yolo_regressors=True, mask_proto_use_grid=True,
+                mask_proto_grid_file=grid_file,
+                extra_head_net=CAT_DECONV_HEAD)
 
 
 def make_train_batch(rng, cfg, B=2, G=6, n=3):

@@ -216,7 +216,8 @@ def test_maskiou_loss_matches_jax(overrides):
 def test_precomputed_mask_targets_match_full_res(rng):
     """``gt_masks_proto`` / ``gt_masks_seg`` (what ``pad_batch(multires=)``
     gives) in place of full-resolution masks: the same losses; packed
-    targets, direct masks raise naming their ROADMAP items."""
+    targets raise naming their ROADMAP item, and direct masks, which need
+    the full-resolution masks, raise as JAX's loss does."""
     from yolact_tpu_torch.data.coco import _resize_bilinear
     cfg = P(tiny_resnet_config())
     preds, batch = _inputs(cfg, seed=1)
@@ -237,9 +238,10 @@ def test_precomputed_mask_targets_match_full_res(rng):
         assert float(got[k]) == float(want[k]), k
     with pytest.raises(NotImplementedError, match='A6b'):
         loss.multibox_loss(cfg, tp, dict(pre, gt_masks_proto_packed=0), pri)
+    # direct masks need the full-resolution gt masks (JAX's guard)
     from yolact_tpu_torch.config import MaskType
-    with pytest.raises(NotImplementedError, match='A8'):
-        loss.multibox_loss(cfg.copy(mask_type=MaskType.DIRECT), tp, tb, pri)
+    with pytest.raises(ValueError, match='full-res gt_masks'):
+        loss.multibox_loss(cfg.copy(mask_type=MaskType.DIRECT), tp, pre, pri)
 
 
 def test_slot_ties_go_to_the_lowest_index():

@@ -24,7 +24,8 @@ from yolact_tpu.models import resnet as jax_resnet
 from yolact_tpu.models.yolact import MaskIoUHead
 from yolact_tpu.models.yolact import Yolact as JaxYolact
 from yolact_tpu_torch.convert.from_jax import config_from_jax as P
-from yolact_tpu_torch.convert.from_jax import jax_variables_to_state_dict
+from yolact_tpu_torch.convert.from_jax import (_torch_key, _walk,
+                                               jax_variables_to_state_dict)
 from yolact_tpu_torch.detect.detection import Detections
 from yolact_tpu_torch.detect.postprocess import rescore_with_maskiou
 from yolact_tpu_torch.infer import preprocess_device
@@ -266,31 +267,76 @@ def _train_variables(cfg, seed=0):
     return v
 
 
+def _jax_train_forward(cfg, v, x, bn_train, float64=False):
+    """JAX's forward(train=True) -> (outputs, new batch_stats) as float64
+    numpy; `float64` runs it in float64 (x64 on, weights and input widened,
+    compute dtype float64)."""
+    variables = {k: v[k] for k in ('params', 'batch_stats')}
+    mutable = ['batch_stats'] if bn_train else False
+    if not float64:
+        out = JaxYolact(cfg).apply(variables, jnp.asarray(x), train=True,
+                                   mutable=mutable)
+    else:
+        with jax.enable_x64(True):
+            variables = jax.tree_util.tree_map(
+                lambda a: np.asarray(a, np.float64), variables)
+            out = JaxYolact(cfg.copy(compute_dtype='float64')).apply(
+                variables, jnp.asarray(x, jnp.float64), train=True,
+                mutable=mutable)
+    want, stats = out if bn_train else (out, v)
+    as64 = lambda t: jax.tree_util.tree_map(      # noqa: E731
+        lambda a: np.asarray(a, np.float64), t)
+    return as64(dict(want)), as64(stats['batch_stats'])
+
+
+def _hold_to_float64(name, got, want, got64, want64):
+    """The float64 yardstick of the train-forward test, per output: the two
+    float64 runs agree within 1e-6 of the output's largest entry (the
+    formulas are the same: a wrong epsilon, variance or layout fails
+    here), and the float32 port lies within twice JAX float32's own
+    distance from the float64 result, plus 1e-6 of that largest entry (its
+    rounding is no worse than JAX's)."""
+    got, want, got64, want64 = (np.asarray(a, np.float64)
+                                for a in (got, want, got64, want64))
+    top = float(np.abs(got64).max())
+    formula = float(np.abs(want64 - got64).max())
+    d_port = float(np.abs(got - got64).max())
+    d_jax = float(np.abs(want - got64).max())
+    assert formula <= 1e-6 * top, (name, formula, top)
+    assert d_port <= 2 * d_jax + 1e-6 * top, (name, d_port, d_jax, top)
+
+
 @pytest.mark.parametrize('make_cfg,overrides', [
     (tiny_resnet_config, {}),
     (tiny_resnet_config, {'use_class_existence_loss': True}),
     (tiny_resnet_config, {'freeze_bn': True}),
     (tiny_plus_config, {}),
 ], ids=['base', 'class_existence', 'freeze_bn', 'plus'])
-def test_train_forward_matches_jax(rng, make_cfg, overrides):
+def test_train_forward_matches_jax(rng, make_cfg, overrides, monkeypatch):
     """forward(train=True): batch-statistics batch norm (running statistics
     under freeze_bn), the segm and classes outputs in JAX's layouts, and the
     next running statistics (flax stores the biased batch variance; so does
-    the port), all within the eval forward's 1e-4.  The tiny DCN config
-    is held to 5e-4 instead (found 1.4e-4): its last stages normalise 8
-    values per channel behind DCN blocks, which amplifies float32 rounding
-    on both sides."""
+    the port).
+
+    The yardstick is measured here, not fixed: the same weights and input
+    run through the port and JAX in float64 as well
+    (``_hold_to_float64``).  A fixed 1e-4 failed on some hosts: flax
+    computes the batch variance in one pass, E[x^2] - E[x]^2, which loses
+    about (mean / std)^2 float32 ulps, so JAX float32 lies about four
+    times further from the float64 result than the port does (segm 1.04e-4
+    against 2.5e-5 of a largest entry near 8 on the tiny base config), and
+    one segm element near 0.016 once came 1.0484e-4 from the port.  The
+    tiny DCN config is held by the same rule (its float64 runs agree within
+    2e-7 of the largest entry: JAX samples at float32 offsets)."""
     from yolact_tpu_torch.models.layers import (BatchNorm2d,
                                                 commit_batch_stats)
     cfg = make_cfg(**overrides)
-    tol = 5e-4 if cfg.use_maskiou else 1e-4
     v = _train_variables(cfg, seed=4)
     x = rng.randn(2, 128, 128, 3).astype(np.float32)
     bn_train = not cfg.freeze_bn
-    out = JaxYolact(cfg).apply(
-        {k: v[k] for k in ('params', 'batch_stats')}, jnp.asarray(x),
-        train=True, mutable=['batch_stats'] if bn_train else False)
-    want, new_stats = out if bn_train else (out, v)
+    want, new_stats = _jax_train_forward(cfg, v, x, bn_train)
+    want64, new_stats64 = _jax_train_forward(cfg, v, x, bn_train,
+                                             float64=True)
     assert ('classes' in want) == cfg.use_class_existence_loss
     assert want['segm'].shape == (2, 16, 16, cfg.num_classes - 1)
 
@@ -301,12 +347,20 @@ def test_train_forward_matches_jax(rng, make_cfg, overrides):
     assert ('class_existence_fc.weight' in sd) == \
         cfg.use_class_existence_loss
     got = model(torch.from_numpy(x).permute(0, 3, 1, 2), train=True)
+    model64 = Yolact(P(cfg))
+    model64.load_state_dict(sd, strict=True)
+    model64.double().set_compute_dtype(torch.float64, cast_weights=False)
+    with monkeypatch.context() as patch:
+        # the port widens to float32 by name (DCN offsets); here that is
+        # float64
+        patch.setattr(torch.Tensor, 'float', torch.Tensor.double)
+        got64 = model64(torch.from_numpy(x.astype(np.float64))
+                        .permute(0, 3, 1, 2), train=True)
     assert set(got) == set(want)
     for k in want:
         assert tuple(got[k].shape) == want[k].shape, k
-        np.testing.assert_allclose(got[k].detach().numpy(),
-                                   np.asarray(want[k]), rtol=tol, atol=tol,
-                                   err_msg=k)
+        _hold_to_float64(k, got[k].detach(), want[k], got64[k].detach(),
+                         want64[k])
     # the forward leaves the new statistics pending; the buffers move on
     # commit, and not at all under freeze_bn
     before = {k: t.clone() for k, t in model.state_dict().items()}
@@ -314,13 +368,14 @@ def test_train_forward_matches_jax(rng, make_cfg, overrides):
                for k, t in model.state_dict().items())
     n_bn = sum(isinstance(m, BatchNorm2d) for m in model.modules())
     assert commit_batch_stats(model) == (n_bn if bn_train else 0)
-    want_sd = jax_variables_to_state_dict(
-        P(cfg), {'batch_stats': new_stats['batch_stats']})
-    after = model.state_dict()
+    commit_batch_stats(model64)
+    # the converter's keys, the values as they are (it casts to float32)
+    want_sd, want_sd64 = ({_torch_key(path): a for path, a in _walk(s)}
+                          for s in (new_stats, new_stats64))
+    after, after64 = model.state_dict(), model64.state_dict()
     moved = 0
-    for k, w in want_sd.items():
-        np.testing.assert_allclose(after[k].numpy(), w.numpy(), rtol=tol,
-                                   atol=tol / 10, err_msg=k)
+    for k in want_sd:
+        _hold_to_float64(k, after[k], want_sd[k], after64[k], want_sd64[k])
         moved += not torch.equal(after[k], before[k])
     assert moved == (len(want_sd) if bn_train else 0)
     assert commit_batch_stats(model) == 0

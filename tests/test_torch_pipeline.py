@@ -301,7 +301,10 @@ def test_pipeline_cuda_raises_without_gpu():
 def test_port_imports_no_jax_flax_or_cv2():
     """Every module of the port, and chip_smoke.py (its imports; main()
     does not run on import), in a fresh interpreter: no module of JAX,
-    flax, cv2 or the JAX package (``yolact_tpu``) is loaded."""
+    flax, cv2 or the JAX package (``yolact_tpu``) is loaded, and the
+    modules that came with the video entry point and the model options
+    (eval/video.py, utils/nvinfo.py, ops/resize.py) are among those
+    imported."""
     code = ('import importlib, pkgutil, sys\n'
             'import yolact_tpu_torch\n'
             'for m in pkgutil.walk_packages(yolact_tpu_torch.__path__,\n'
@@ -311,8 +314,10 @@ def test_port_imports_no_jax_flax_or_cv2():
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in\n'
             '             ("jax", "flax", "cv2", "yolact_tpu"))\n'
             'n = sum(m.startswith("yolact_tpu_torch.") for m in sys.modules)\n'
-            'print(bad, n)\n'
-            'sys.exit(1 if bad or n < 30 else 0)\n')
+            'new = {"yolact_tpu_torch.eval.video", "yolact_tpu_torch.utils.nvinfo",\n'
+            '       "yolact_tpu_torch.ops.resize"} - set(sys.modules)\n'
+            'print(bad, n, new)\n'
+            'sys.exit(1 if bad or new or n < 30 else 0)\n')
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

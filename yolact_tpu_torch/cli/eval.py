@@ -4,6 +4,7 @@
 python -m yolact_tpu_torch.cli.eval --trained_model=weights/yolact_base_54_800000.pth
 python -m yolact_tpu_torch.cli.eval --trained_model=... --output_coco_json
 python -m yolact_tpu_torch.cli.eval --trained_model=... --image=in.jpg:out.png
+python -m yolact_tpu_torch.cli.eval --trained_model=... --video=in.mp4:out.mp4
 
 Weights are reference ``.pth`` state dicts (``train/checkpoint.py``).  The
 model runs on ``cuda:0`` (``--cuda=False``: on the CPU, with the kernels'
@@ -11,9 +12,10 @@ plain PyTorch versions); a CUDA request without a card raises.  Raw frames
 through the fast-NMS pipeline (``--image``, ``--images``) take the
 space-to-depth stem kernel where the config supports it, as JAX's
 ``Pipeline`` does; otherwise the stem is the plain 7x7/s2 conv unless
-``--stem_s2d`` asks for the s2d one.  ``--video`` and ``--eval_devices``
-other than 1 are not ported yet (ROADMAP A9).  cv2 is imported only where
-images are read, drawn or written.
+``--stem_s2d`` asks for the s2d one.  ``--video=in.mp4[:out.mp4]`` runs
+``eval/video.py:evalvideo`` on one device (reading and writing files needs
+cv2).  ``--eval_devices`` other than 1 is not ported yet (ROADMAP A9).
+cv2 is imported only where images are read, drawn or written.
 """
 
 from __future__ import annotations
@@ -139,8 +141,10 @@ def evalimage(cfg, args, pipeline, path: str, save_path=None):
     import cv2
     import numpy as np
     import torch
+    from yolact_tpu_torch.config import MaskType
     from yolact_tpu_torch.eval.display import draw_detections
-    from yolact_tpu_torch.detect.postprocess import finish_masks
+    from yolact_tpu_torch.detect.postprocess import (finish_masks,
+                                                     finish_masks_direct)
     from yolact_tpu_torch.eval.evaluate import sanitize_boxes_np
 
     img = cv2.imread(path)
@@ -150,7 +154,10 @@ def evalimage(cfg, args, pipeline, path: str, save_path=None):
     frame = img.astype(np.float32)[None]
     out = pipeline(frame)
 
-    if args.display_lincomb:
+    if args.display_lincomb and cfg.mask_type == MaskType.DIRECT:
+        print('--display_lincomb: direct-mask config has no prototype '
+              'combination to display; skipping')
+    elif args.display_lincomb:
         # prototype-combination debug view (output_utils.py:147-189)
         from yolact_tpu_torch.eval.display import display_lincomb
         from yolact_tpu_torch.detect.detection import detect
@@ -170,7 +177,12 @@ def evalimage(cfg, args, pipeline, path: str, save_path=None):
     if out.mask_scores is not None and cfg.rescore_mask:
         scores = out.mask_scores[0, :n]
     boxes_abs = sanitize_boxes_np(out.boxes[0, :n].cpu().numpy(), w, h)
-    masks = finish_masks(out.masks[0, :n], w, h)
+    if cfg.mask_type == MaskType.DIRECT:
+        # box-local patches, not canvas-global proto masks
+        # (output_utils.py:101-120)
+        masks = finish_masks_direct(out.masks[0, :n], boxes_abs, w, h)
+    else:
+        masks = finish_masks(out.masks[0, :n], w, h)
     drawn = draw_detections(
         cfg, img, out.classes[0, :n].cpu().numpy(), scores.cpu().numpy(),
         boxes_abs, masks,
@@ -195,8 +207,6 @@ def evalimages(cfg, state_dict, device, args, inp: str, out: str):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.video is not None:
-        raise NotImplementedError('--video is not ported yet (ROADMAP A9)')
     if args.eval_devices != 1:
         raise NotImplementedError(
             f'--eval_devices={args.eval_devices}: multi-device evaluation is '
@@ -219,6 +229,22 @@ def main(argv=None):
         inp, out = args.images.split(':')
         evalimages(cfg, state_dict, device, args, inp, out)
         return
+    if args.video is not None:
+        from yolact_tpu_torch.eval.video import evalvideo
+        inp, out = (args.video.split(':') if ':' in args.video
+                    else (args.video, None))
+        return evalvideo(cfg, state_dict, inp, out,
+                         video_multiframe=args.video_multiframe,
+                         score_threshold=args.score_threshold,
+                         top_k=args.top_k, display_fps=args.display_fps,
+                         emulate_playback=args.emulate_playback,
+                         display=args.display, fast_nms=args.fast_nms,
+                         cross_class_nms=args.cross_class_nms,
+                         crop_masks=args.crop, device=device,
+                         display_masks=args.display_masks,
+                         display_bboxes=args.display_bboxes,
+                         display_text=args.display_text,
+                         display_scores=args.display_scores)
 
     from yolact_tpu_torch.eval.evaluate import (calc_map_from_file,
                                                 evaluate_dataset,

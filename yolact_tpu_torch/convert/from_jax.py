@@ -15,7 +15,14 @@ flax module of the same name) are its indices ``0`` and ``1``, and
 YOLACT++ mask scorer, a separate ``MaskIoUHead`` tree in JAX
 (``{'params': {'maskiou': {'maskiou_net': ...}}}``), is read from the
 ``'maskiou'`` entry, where ``convert_state_dict`` puts it, and becomes
-``maskiou_net.maskiou_net.{i}``.  The training-only heads convert like the
+``maskiou_net.maskiou_net.{i}``.  A make_net ``'cat'`` branch
+``layers_{i}_cat_{j}`` is the reference's ``Concat`` child ``{i}.nets.{j}``;
+a transposed conv's flax kernel (HWOI with ``transpose_kernel``) goes to
+torch's IOHW by the same axis permutation as a conv's; the prediction
+head's DSSD module keeps ``block`` and takes the reference's ``conv`` and
+``bn`` for flax's ``pm_conv`` and ``pm_bn`` (JAX's own importer maps no
+names for it); ``gate_layer``, ``score_layer`` and ``inst_layer`` keep
+their names.  The training-only heads convert like the
 rest: flax ``semantic_seg_conv`` (a conv) and ``class_existence_fc`` (a
 Dense, kernel transposed) become the reference's keys of the same names.
 Inputs are nested dicts of numpy arrays, so this module needs no JAX.
@@ -63,6 +70,10 @@ _LEAF = {'kernel': 'weight', 'weight': 'weight', 'bias': 'bias',
 _WRAPPERS = {'conv', 'bn', 'gn'}
 # a DarkConv's children, which the torch Sequential indexes
 _SEQUENTIAL = {'conv': '0', 'bn': '1'}
+# the DSSD prediction module's 1x1 branch: flax pm_conv / pm_bn, the
+# reference's PredictionModule.conv / .bn (yolact.py:97-100 of the
+# reference; its bottleneck is `block` in both)
+_PREDICTION_MODULE = {'pm_conv': 'conv', 'pm_bn': 'bn'}
 
 
 def _walk(tree, prefix: Tuple[str, ...] = ()
@@ -82,14 +93,17 @@ def _module_name(part: str) -> str:
         return 'downsample.1'
     if part == 'preconv':                            # DarkNet's first conv
         return '_preconv'
+    if part in _PREDICTION_MODULE:
+        return _PREDICTION_MODULE[part]
+    m = re.fullmatch(r'layers_(\d+)_cat_(\d+)', part)  # make_net 'cat'
+    if m:
+        return f'{m.group(1)}.nets.{m.group(2)}'
     m = re.fullmatch(r'layers_(\d+)_(\d+)', part)    # backbone stage/block
     if m:
         return f'layers.{m.group(1)}.{m.group(2)}'
     m = re.fullmatch(r'layers_(\d+)', part)          # make_net index
     if m:
         return m.group(1)
-    if '_cat_' in part:
-        raise NotImplementedError(f'make_net parallel branch {part!r}')
     m = re.fullmatch(r'(\w+?)_(\d+)', part)          # lat_layers_0, ...
     if m:
         return f'{m.group(1)}.{m.group(2)}'
@@ -116,7 +130,7 @@ def _torch_key(path: Tuple[str, ...]) -> str:
 def _to_torch(path: Tuple[str, ...], value) -> torch.Tensor:
     a = np.asarray(value, dtype=np.float32)
     if path[-1] in ('kernel', 'weight') and a.ndim == 4:
-        a = a.transpose(3, 2, 0, 1)       # HWIO -> OIHW
+        a = a.transpose(3, 2, 0, 1)       # HWIO -> OIHW (HWOI -> IOHW)
     elif path[-1] == 'kernel' and a.ndim == 2:
         a = a.T                           # Dense IO -> OI
     return torch.tensor(a)               # a contiguous, writable copy
@@ -149,7 +163,7 @@ def _from_torch(path: Tuple[str, ...], value) -> np.ndarray:
     """The inverse of :func:`_to_torch`."""
     a = np.asarray(value, dtype=np.float32)
     if path[-1] in ('kernel', 'weight') and a.ndim == 4:
-        a = a.transpose(2, 3, 1, 0)       # OIHW -> HWIO
+        a = a.transpose(2, 3, 1, 0)       # OIHW -> HWIO (IOHW -> HWOI)
     elif path[-1] == 'kernel' and a.ndim == 2:
         a = a.T
     return np.ascontiguousarray(a)

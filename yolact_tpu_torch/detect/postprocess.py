@@ -1,8 +1,8 @@
 """Mask assembly at prototype resolution, YOLACT++ mask re-scoring and the
 upsample to image size.  Port of ``yolact_tpu/detect/postprocess.py``
 (``postprocess_device``, ``select_class_maskiou``, ``rescore_with_maskiou``,
-``upsample_masks_device``, ``finish_masks`` for lincomb masks; the port
-builds no direct-mask config).
+``upsample_masks_device``, ``finish_masks`` for lincomb masks and
+``finish_masks_direct`` for direct ones).
 
 The standard sigmoid + crop configuration runs the fused CUDA kernel of
 ``kernels/mask_assembly.py`` (under the same condition as the JAX package
@@ -24,6 +24,7 @@ from yolact_tpu_torch.kernels.mask_assembly import (assemble_masks,
                                                     assemble_masks_plain)
 from yolact_tpu_torch.models.heads import FastMaskIoUNet
 from yolact_tpu_torch.ops.boxes import crop
+from yolact_tpu_torch.ops.resize import resize_bilinear_np
 
 
 def _threshold(dets: Detections, score_threshold: float) -> Detections:
@@ -107,3 +108,27 @@ def finish_masks(masks: torch.Tensor, w: int, h: int) -> np.ndarray:
     if masks.shape[0] == 0:
         return np.zeros((0, h, w), dtype=bool)
     return upsample_masks_device(masks[None], (h, w))[0].cpu().numpy()
+
+
+def finish_masks_direct(masks, boxes_abs: np.ndarray, w: int,
+                        h: int) -> np.ndarray:
+    """Direct masks (``MaskType.DIRECT``) on the host: ``masks`` [D, S, S]
+    sigmoid patches (tensor or array, any device), ``boxes_abs`` [D, 4]
+    sanitised absolute integer boxes (``eval/evaluate.py:
+    sanitize_boxes_np``) -> binary [D, h, w] numpy masks.  Each patch is
+    resized to its box by the reference's bilinear (``F.interpolate``,
+    half-pixel centres, ``output_utils.py:101-120``) in JAX's separable
+    host form (``ops/resize.py``), binarised at 0.5 and pasted into a zero
+    canvas; a box with no area is skipped, as the reference's guard
+    does."""
+    masks = torch.as_tensor(masks).detach().float().cpu().numpy()
+    boxes_abs = np.asarray(boxes_abs)
+    full = np.zeros((masks.shape[0], h, w), dtype=bool)
+    for j in range(masks.shape[0]):
+        x1, y1, x2, y2 = (int(v) for v in boxes_abs[j])
+        mask_w, mask_h = x2 - x1, y2 - y1
+        if mask_w * mask_h <= 0 or mask_w < 0:
+            continue
+        patch = resize_bilinear_np(masks[j:j + 1], (mask_h, mask_w))[0]
+        full[j, y1:y2, x1:x2] = patch > 0.5
+    return full

@@ -4,7 +4,8 @@ The port's copy of ``yolact_tpu/eval/display.py``.
 
 Alpha-composites instance masks with per-detection colors using the same
 cumulative-product formulation as the reference, then draws boxes/labels with
-cv2.  Pure numpy — the mask compositing cost is trivial next to the network.
+cv2 (imported only for those).  Pure numpy — the mask compositing cost is
+trivial next to the network.
 """
 
 from __future__ import annotations
@@ -76,9 +77,9 @@ def draw_detections(cfg: YolactConfig, img_bgr: np.ndarray,
                     display_scores: bool = True,
                     class_color: bool = False,
                     fps_str: str = '') -> np.ndarray:
-    """img_bgr: uint8 [h, w, 3]; masks: bool/float [n, h, w] full size."""
-    import cv2
-
+    """img_bgr: uint8 [h, w, 3]; masks: bool/float [n, h, w] full size.
+    The masks are composited in numpy; boxes, text and ``fps_str`` are
+    drawn with cv2, imported only when there are some to draw."""
     order = np.argsort(-scores)[:top_k]
     n = 0
     for j in order:
@@ -102,6 +103,7 @@ def draw_detections(cfg: YolactConfig, img_bgr: np.ndarray,
     img_numpy = (img * 255).astype(np.uint8)
 
     if fps_str:
+        import cv2
         font = cv2.FONT_HERSHEY_DUPLEX
         tw, th = cv2.getTextSize(fps_str, font, 0.6, 1)[0]
         img_numpy[0:th + 8, 0:tw + 8] = (
@@ -113,6 +115,7 @@ def draw_detections(cfg: YolactConfig, img_bgr: np.ndarray,
         return img_numpy
 
     if display_text or display_bboxes:
+        import cv2
         for rank in reversed(range(n)):
             j = order[rank]
             x1, y1, x2, y2 = (int(v) for v in boxes_abs[j])

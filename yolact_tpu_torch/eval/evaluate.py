@@ -16,8 +16,10 @@ table on a CUDA device the mask IoU runs there too
 go to the card and only the ``[D, G]`` IoU matrices come back.  Otherwise
 (the CPU, ``--output_coco_json``, ``--display``) the ``[D, h, w]`` masks
 come to the host (``detect/postprocess.py:finish_masks``) and the
-evaluator computes the IoU there.  Multi-device evaluation is not ported
-yet (ROADMAP A9).
+evaluator computes the IoU there.  Direct masks (``MaskType.DIRECT``) are
+box-local patches: they always take the host paste
+(``finish_masks_direct``), on the card too, as in JAX.  Multi-device
+evaluation is not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -34,9 +36,10 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
-from yolact_tpu_torch.config import YolactConfig
+from yolact_tpu_torch.config import MaskType, YolactConfig
 from yolact_tpu_torch.data.coco import COCODetection
-from yolact_tpu_torch.detect.postprocess import finish_masks
+from yolact_tpu_torch.detect.postprocess import (finish_masks,
+                                                 finish_masks_direct)
 from yolact_tpu_torch.eval.coco_json import DetectionsWriter
 from yolact_tpu_torch.eval.device_metrics import mask_iou_device
 from yolact_tpu_torch.eval.evaluator import (badhash, calc_map,
@@ -166,8 +169,10 @@ def evaluate_dataset(cfg: YolactConfig, state_dict: Dict[str, torch.Tensor],
     compute_map = not output_coco_json and not benchmark
     if device_mask_iou is None:
         device_mask_iou = pipeline.device.type == 'cuda'
-    # the port builds lincomb masks only (canvas-global, as the IoU needs)
-    use_dev_miou = device_mask_iou and compute_map and not display
+    # the device IoU upsamples canvas-global proto-resolution masks; direct
+    # masks are box-local patches and take the host paste
+    use_dev_miou = (device_mask_iou and compute_map and not display
+                    and cfg.mask_type == MaskType.LINCOMB)
     ap_data = make_ap_data(len(cfg.dataset.class_names))
     detections = DetectionsWriter(cfg)
 
@@ -256,6 +261,9 @@ def evaluate_dataset(cfg: YolactConfig, state_dict: Dict[str, torch.Tensor],
                             out.masks[bi, :n], np.asarray(gt_masks), h, w)
                         miou_full = miou.cpu().numpy()
                         crowd_full = crowd.cpu().numpy()
+                    elif cfg.mask_type == MaskType.DIRECT:
+                        masks_full = finish_masks_direct(
+                            out.masks[bi, :n], boxes_abs, w, h)
                     elif not use_dev_miou:
                         masks_full = finish_masks(out.masks[bi, :n], w, h)
                 # NOTE: cfg.discard_mask_area is TRAINING-only in the

@@ -8,7 +8,8 @@ filter, greedy suppression with +1-convention pixel areas (boxes scaled by
 max_size), global score sort capped at ``max_num_detections``.  The O(n^2)
 suppression loop runs in the native helper (``yolact_tpu_torch/native``)
 where it builds, else in numpy.  :func:`infer.forward_raw` runs on the
-card; the kept detections are assembled into masks on the host, padded to
+card; the kept detections are assembled into masks on the host (direct
+masks: their patches as they are), padded to
 ``max_num_detections`` and, for YOLACT++ configs, re-scored by the mask
 scorer on the card.
 """
@@ -20,7 +21,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from yolact_tpu_torch.config import YolactConfig
+from yolact_tpu_torch.config import MaskType, YolactConfig
 from yolact_tpu_torch.detect.postprocess import select_class_maskiou
 from yolact_tpu_torch.infer import (InferenceOutput, check_device,
                                     forward_raw, load_model)
@@ -148,7 +149,12 @@ class TraditionalPipeline:
         boxes, scores, coeffs = (t.cpu().numpy() for t in raw[:3])
         proto = raw[3].cpu().numpy() if raw[3] is not None else None
         B, D = boxes.shape[0], cfg.max_num_detections
-        hp, wp = (1, 1) if proto is None else proto.shape[1:3]
+        # direct masks: the mask rows are the sigmoid patches themselves
+        direct = cfg.mask_type == MaskType.DIRECT
+        if direct:
+            hp = wp = cfg.mask_size
+        else:
+            hp, wp = (1, 1) if proto is None else proto.shape[1:3]
         ob = np.zeros((B, D, 4), np.float32)
         oc = np.zeros((B, D), np.int32)
         os_ = np.full((B, D), -1.0, np.float32)
@@ -163,14 +169,16 @@ class TraditionalPipeline:
             os_[b, :n] = sc[:n]
             ov[b, :n] = sc[:n] > self.score_threshold \
                 if self.score_threshold > 0 else True
-            if n and proto is not None:
+            if n and direct:
+                om[b, :n] = cc[:n].reshape(n, hp, wp)
+            elif n and proto is not None:
                 om[b, :n] = host_assemble_masks(proto[b], cc[:n], bb[:n],
                                                 crop=self.crop_masks)
         dev = self.device
         out = InferenceOutput(*(torch.from_numpy(a).to(dev)
                                 for a in (ob, oc, os_, om, ov)))
         net = self.model.maskiou_net
-        if net is not None and cfg.eval_mask_branch:
+        if net is not None and cfg.eval_mask_branch and not direct:
             # the reference re-scores in postprocess, after either NMS
             # (output_utils.py:79-88)
             with torch.inference_mode():

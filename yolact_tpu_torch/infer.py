@@ -238,7 +238,8 @@ class Pipeline:
 def random_state_dict(cfg: YolactConfig, generator: torch.Generator
                       ) -> Dict[str, torch.Tensor]:
     """Seeded random float32 weights in the JAX package's init scheme:
-    xavier-uniform conv kernels, zero biases, identity batch norm; a DCN
+    xavier-uniform conv kernels (transposed ones too, where flax has its
+    lecun-normal default), zero biases, identity batch norm; a DCN
     layer's offset/mask conv is all zero (offsets 0, mask 0.5) and its
     weight is flax's kaiming-normal (truncated normal, variance 2/fan_in);
     the class-existence layer is flax's Dense default (truncated normal,
@@ -248,7 +249,8 @@ def random_state_dict(cfg: YolactConfig, generator: torch.Generator
     # numbers whether or not a config has them
     with torch.no_grad():
         for name, m in model.named_modules():
-            if isinstance(m, nn.Conv2d) and name != 'semantic_seg_conv':
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) and \
+                    name != 'semantic_seg_conv':
                 nn.init.xavier_uniform_(m.weight, generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()

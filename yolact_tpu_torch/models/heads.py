@@ -2,20 +2,24 @@
 
 Port of ``yolact_tpu/models/heads.py`` (``ProtoNet``, ``PredictionHead``,
 ``FastMaskIoUNet``).  Parameter names are the reference's
-(``proto_net.{i}``, ``upfeature.{i}``, ``bbox_layer``, ``conf_layer``,
-``mask_layer``, ``maskiou_net.{i}``, ...).
+(``proto_net.{i}``, ``upfeature.{i}``, ``block``, ``conv``, ``bn``,
+``bbox_layer``, ``conf_layer``, ``mask_layer``, ``gate_layer``,
+``score_layer``, ``inst_layer``, ``maskiou_net.{i}``, ...).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolact_tpu_torch.config import YolactConfig
-from yolact_tpu_torch.models.layers import Conv2d, make_net
+from yolact_tpu_torch.config import MaskType, YolactConfig
+from yolact_tpu_torch.models.layers import BatchNorm2d, Conv2d, make_net
+from yolact_tpu_torch.models.resnet import Bottleneck
 
 
 def _activation(name: str):
@@ -28,22 +32,58 @@ def _activation(name: str):
     }[name]
 
 
+def _load_grid(path: str) -> np.ndarray:
+    """``mask_proto_grid_file`` as a float32 ``[g, h, w]`` array.  A relative
+    path that does not exist from the working directory resolves against
+    the repository root, as JAX's ``ProtoNet`` does (the reference resolves
+    against the working directory only)."""
+    if not os.path.isabs(path) and not os.path.exists(path):
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        cand = os.path.join(root, path)
+        if os.path.exists(cand):
+            path = cand
+    return np.load(path).astype(np.float32)
+
+
 class ProtoNet(nn.Sequential):
     """Mask prototype network.  An ``nn.Sequential`` of the make_net spec
     (so its parameters are ``proto_net.{i}``), followed by the prototype
-    activation.  NCHW in, NCHW out."""
+    activation.  NCHW in, NCHW out.
+
+    ``mask_proto_use_grid`` concatenates the grid file's channels to the
+    input (a buffer outside the state dict, as the reference keeps it);
+    ``mask_proto_bias`` appends a channel of ones after the activation."""
 
     def __init__(self, cfg: YolactConfig, in_channels: int):
-        if cfg.mask_proto_use_grid or cfg.mask_proto_bias:
-            raise NotImplementedError(
-                'mask_proto_use_grid / mask_proto_bias are not ported')
+        grid = None
+        if cfg.mask_proto_use_grid:
+            grid = torch.from_numpy(_load_grid(cfg.mask_proto_grid_file))
+            in_channels += grid.shape[0]
         net, _ = make_net(in_channels, cfg.mask_proto_net,
                           include_last_relu=False)
         super().__init__(*net)
         self.activation = cfg.mask_proto_prototype_activation
+        self.bias = cfg.mask_proto_bias
+        self.grid_file = cfg.mask_proto_grid_file
+        self.register_buffer('grid', grid, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _activation(self.activation)(super().forward(x))
+        if self.grid is not None:
+            if tuple(self.grid.shape[1:]) != tuple(x.shape[2:]):
+                raise ValueError(
+                    f'mask_proto_grid_file {self.grid_file!r} has spatial '
+                    f'shape {tuple(self.grid.shape[1:])} but the proto-net '
+                    f'input convout is {tuple(x.shape[2:])}; regenerate '
+                    f'with scripts/make_grid.py --size '
+                    f'{x.shape[2]},{x.shape[3]}')
+            grid = self.grid.to(x.dtype).expand(x.shape[0], -1, -1, -1)
+            x = torch.cat([x, grid], dim=1)
+        x = _activation(self.activation)(super().forward(x))
+        if self.bias:
+            x = torch.cat([x, x.new_ones((x.shape[0], 1) + x.shape[2:])],
+                          dim=1)
+        return x
 
 
 def _flatten(y: torch.Tensor, last: int) -> torch.Tensor:
@@ -52,29 +92,41 @@ def _flatten(y: torch.Tensor, last: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).reshape(y.shape[0], -1, last)
 
 
-# PredictionHead options of other configs that the port does not build yet
-_UNPORTED_HEAD_OPTIONS = ('use_prediction_module', 'use_yolo_regressors',
-                          'mask_proto_coeff_gate', 'use_mask_scoring',
-                          'use_instance_coeff',
-                          'mask_proto_split_prototypes_by_head')
-
-
 class PredictionHead(nn.Module):
-    """Head producing (loc, conf, mask-coeff) per anchor."""
+    """Head producing (loc, conf, mask) per anchor, plus ``score``
+    (``use_mask_scoring``) and ``inst`` (``use_instance_coeff``).
+
+    ``use_prediction_module`` is DSSD's module (c): a bottleneck
+    (``block``) plus a 1x1 conv and batch norm (``conv``, ``bn``), summed
+    after a ReLU of the second, with batch statistics in training.
+    ``use_yolo_regressors`` squashes the box centre to (-0.5, 0.5) of a
+    cell and divides by the conv grid.  The mask output is the sigmoid of
+    ``mask_size^2`` values for direct masks; for lincomb the coefficient
+    activation, times the sigmoid of ``gate_layer`` with
+    ``mask_proto_coeff_gate``.  With ``mask_proto_split_prototypes_by_head``
+    head ``head_index`` predicts ``mask_dim / num_heads`` coefficients and
+    pads them into its slice of the full ``mask_dim``."""
 
     def __init__(self, cfg: YolactConfig, in_channels: int, num_priors: int):
         super().__init__()
-        unported = [n for n in _UNPORTED_HEAD_OPTIONS if getattr(cfg, n)]
-        if unported:
-            raise NotImplementedError(f'head options not ported: {unported}')
         self.cfg = cfg
-        self.mask_dim = cfg.mask_dim
+        self.split = (cfg.mask_proto_split_prototypes_by_head
+                      and cfg.mask_type == MaskType.LINCOMB)
+        self.mask_dim = cfg.mask_dim // cfg.num_heads if self.split \
+            else cfg.mask_dim
 
         ch = in_channels
         self.upfeature = None
         if cfg.extra_head_net is not None:
             self.upfeature, ch = make_net(ch, cfg.extra_head_net,
                                           include_last_relu=True)
+        if cfg.use_prediction_module:
+            self.block = Bottleneck(ch, ch // 4)
+            self.conv = Conv2d(ch, ch, 1)
+            self.bn = BatchNorm2d(ch)
+            for m in self.modules():
+                if isinstance(m, BatchNorm2d):
+                    m.shared = cfg.share_prediction_module
 
         def extra(n_layers):
             mods = []
@@ -93,21 +145,56 @@ class PredictionHead(nn.Module):
         if cfg.eval_mask_branch:
             self.mask_layer = Conv2d(ch, num_priors * self.mask_dim, k,
                                      padding=p)
+            if cfg.mask_proto_coeff_gate and \
+                    cfg.mask_type == MaskType.LINCOMB:
+                self.gate_layer = Conv2d(ch, num_priors * self.mask_dim, 3,
+                                         padding=1)
+        if cfg.use_mask_scoring:
+            self.score_layer = Conv2d(ch, num_priors, k, padding=p)
+        if cfg.use_instance_coeff:
+            self.inst_layer = Conv2d(ch, num_priors * cfg.num_instance_coeffs,
+                                     k, padding=p)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, head_index: int = 0,
+                bn_train: bool = False) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         if self.upfeature is not None:
             x = self.upfeature(x)
+        if cfg.use_prediction_module:
+            a = self.block(x, bn_train=bn_train)
+            x = a + F.relu(self.bn(self.conv(x), bn_train))
         bbox = _flatten(self.bbox_layer(self.bbox_extra(x)), 4)
+        if cfg.use_yolo_regressors:
+            grid = torch.tensor([x.shape[3], x.shape[2]], dtype=bbox.dtype,
+                                device=bbox.device)
+            xy = (torch.sigmoid(bbox[..., :2]) - 0.5) / grid
+            bbox = torch.cat([xy, bbox[..., 2:]], dim=-1)
         conf = _flatten(self.conf_layer(self.conf_extra(x)), cfg.num_classes)
         if cfg.eval_mask_branch:
-            mask = _activation(cfg.mask_proto_coeff_activation)(
-                _flatten(self.mask_layer(self.mask_extra(x)), self.mask_dim))
+            mask = _flatten(self.mask_layer(self.mask_extra(x)),
+                            self.mask_dim)
+            if cfg.mask_type == MaskType.DIRECT:
+                mask = torch.sigmoid(mask)
+            else:
+                mask = _activation(cfg.mask_proto_coeff_activation)(mask)
+                if cfg.mask_proto_coeff_gate:
+                    mask = mask * torch.sigmoid(
+                        _flatten(self.gate_layer(x), self.mask_dim))
         else:
             # box-only mode: zero coefficients keep the output shapes
             mask = bbox.new_zeros((bbox.shape[0], bbox.shape[1],
                                    self.mask_dim))
-        return {'loc': bbox, 'conf': conf, 'mask': mask}
+        if self.split:
+            pad = (head_index * self.mask_dim,
+                   (cfg.num_heads - head_index - 1) * self.mask_dim)
+            mask = F.pad(mask, pad)
+        out = {'loc': bbox, 'conf': conf, 'mask': mask}
+        if cfg.use_mask_scoring:
+            out['score'] = _flatten(self.score_layer(x), 1)
+        if cfg.use_instance_coeff:
+            out['inst'] = _flatten(self.inst_layer(x),
+                                   cfg.num_instance_coeffs)
+        return out
 
 
 class FastMaskIoUNet(nn.Module):

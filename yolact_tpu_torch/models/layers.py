@@ -40,6 +40,23 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` in its input's dtype, as :class:`Conv2d`.
+    JAX's ``layers.py:ConvTranspose`` is flax's transposed conv with
+    ``transpose_kernel=True`` and padding ``k - 1 - p`` over the dilated
+    input, which is torch's output size and arithmetic for any kernel,
+    stride and padding without ``output_padding``
+    (``tests/test_torch_options.py`` holds k = s = 2, p = 0 and stride-1
+    cases)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` in its input's dtype, as :class:`Conv2d`."""
 
@@ -90,13 +107,19 @@ class BatchNorm2d(nn.Module):
     leaves them in ``pending``: :func:`commit_batch_stats` writes them to the
     buffers.  So a step that turns out non-finite can drop them, and a
     block replayed by activation checkpointing, which computes the same
-    pending values again, does not move the running statistics twice."""
+    pending values again, does not move the running statistics twice.
+
+    ``shared``: the layer runs more than once per forward (the prediction
+    head shared by every level, which activation checkpointing never
+    replays); each call then starts from the statistics the call before it
+    left, as the reference's in-place update and flax's do."""
 
     momentum = 0.1
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.shared = False
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer('running_mean', torch.zeros(num_features))
@@ -114,10 +137,11 @@ class BatchNorm2d(nn.Module):
                            self.eps)
         with torch.no_grad():
             n = x.numel() // x.shape[1]
+            start = self.pending if self.shared and self.pending else \
+                (self.running_mean, self.running_var)
             self.pending = (
-                torch.lerp(self.running_mean, mean, self.momentum),
-                torch.lerp(self.running_var, var * ((n - 1) / n),
-                           self.momentum))
+                torch.lerp(start[0], mean, self.momentum),
+                torch.lerp(start[1], var * ((n - 1) / n), self.momentum))
         return out
 
 
@@ -180,6 +204,20 @@ class InterpolateModule(nn.Module):
                              align_corners=False)
 
 
+class Concat(nn.Module):
+    """make_net's ``'cat'`` entry: parallel sub-nets over the same input,
+    concatenated on channels (the reference's ``Concat``, its sub-nets
+    under ``nets.{j}``; JAX's ``SpecNet`` names them
+    ``layers_{i}_cat_{j}``)."""
+
+    def __init__(self, nets):
+        super().__init__()
+        self.nets = nn.ModuleList(nets)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([net(x) for net in self.nets], dim=1)
+
+
 def make_net(in_channels: int, spec: Tuple[Tuple[Any, ...], ...],
              include_last_relu: bool = True) -> Tuple[nn.Sequential, int]:
     """Build a make_net layer spec as an ``nn.Sequential`` with a ReLU slot
@@ -187,23 +225,33 @@ def make_net(in_channels: int, spec: Tuple[Tuple[Any, ...], ...],
     reference's ``state_dict`` index.  Returns (net, out_channels).
 
     Entries are ``(channels, kernel, kwargs)``: a conv for kernel > 0, a
-    bilinear upsample by ``-kernel`` for channels None."""
+    transposed conv of kernel ``-kernel`` (stride 1 unless kwargs say, as
+    torch's default) for kernel < 0, a bilinear upsample by ``-kernel`` for
+    channels None, and ``('cat', (spec, ...))``: the sub-specs side by side
+    (:class:`Concat`), each with its last ReLU."""
     layers = []
     ch = in_channels
     for entry in spec:
         num, k = entry[0], entry[1]
         kw = dict(entry[2]) if len(entry) > 2 else {}
-        if isinstance(num, str) or (num is not None and k < 0):
-            raise NotImplementedError(
-                f'make_net entry {entry!r} (parallel branches or transposed '
-                f'conv) is not ported')
-        if k > 0:
+        if isinstance(num, str):
+            if num != 'cat':
+                raise ValueError(f'make_net entry {entry!r}: unknown {num!r}')
+            nets = [make_net(ch, sub, include_last_relu=True) for sub in k]
+            layers.append(Concat([net for net, _ in nets]))
+            ch = sum(c for _, c in nets)
+        elif k > 0:
             layers.append(Conv2d(ch, num, k, stride=kw.get('stride', 1),
                                  padding=kw.get('padding', 0),
                                  dilation=kw.get('dilation', 1)))
             ch = num
-        else:
+        elif num is None:
             layers.append(InterpolateModule(-k))
+        else:
+            layers.append(ConvTranspose2d(ch, num, -k,
+                                          stride=kw.get('stride', 1),
+                                          padding=kw.get('padding', 0)))
+            ch = num
         layers.append(nn.ReLU())
     if not include_last_relu and layers:
         layers = layers[:-1]

@@ -1,14 +1,19 @@
 """Top-level YOLACT model, eval forward: backbone -> FPN -> (protonet ‖ heads).
 
-Port of ``yolact_tpu/models/yolact.py:Yolact`` for the lincomb
-configurations with a feature-map protonet source: every backbone family
+Port of ``yolact_tpu/models/yolact.py:Yolact``: every backbone family
 (ResNet, ResNet-GN, DarkNet-53, VGG-16), with an FPN or without one
 (``yolact_vgg16``: the selected backbone outputs go straight to the
-protonet and to one prediction head per level, each at its level's width).
-With ``cfg.use_maskiou`` the model also holds the YOLACT++ mask scorer as
+protonet and to one prediction head per level, each at its level's width),
+lincomb masks from a feature map or from the image itself
+(``mask_proto_src=None``, not with the s2d stem) and direct masks
+(``MaskType.DIRECT``: no protonet, ``mask_size^2`` sigmoid values per
+prior).  With ``mask_proto_prototypes_as_features`` the activated
+prototypes (without the bias channel; detached under ``_no_grad``) are
+resized to each head level in turn, each from the previous level's
+resize as the reference does, and joined to that head's input.  With
+``cfg.use_maskiou`` the model also holds the YOLACT++ mask scorer as
 ``maskiou_net`` (the JAX package keeps it in a separate ``MaskIoUHead``
 tree); ``forward`` does not run it, ``infer`` does, on the assembled masks.
-Prototypes-as-features and direct masks are not ported yet.
 
 ``forward(x, train=True)`` is the training forward: batch norm on batch
 statistics unless ``cfg.freeze_bn`` (the new running statistics are left
@@ -25,9 +30,11 @@ first conv is the s2d stem kernel.
 Output dict, in the JAX package's layouts:
   loc    [B, P, 4]       raw box regressions
   conf   [B, P, C]       raw class logits
-  mask   [B, P, Md]      mask coefficients
+  mask   [B, P, Md]      mask coefficients (direct: [B, P, mask_size^2])
   priors [P, 4]          center-size anchors, float32
-  proto  [B, Hp, Wp, Md] prototypes
+  proto  [B, Hp, Wp, Md] prototypes (lincomb only)
+  score  [B, P, 1]       mask scores (``use_mask_scoring``)
+  inst   [B, P, Ni]      instance coefficients (``use_instance_coeff``)
 and with ``train=True``:
   segm    [B, Hs, Ws, C-1] semantic-segmentation logits on the first head
                            level (``cfg.use_semantic_segmentation_loss``)
@@ -41,6 +48,7 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from yolact_tpu_torch.config import MaskType, YolactConfig, backbone_channels
@@ -48,7 +56,7 @@ from yolact_tpu_torch.models.darknet import DarkNetBackbone
 from yolact_tpu_torch.models.fpn import FPN
 from yolact_tpu_torch.models.heads import (FastMaskIoUNet, PredictionHead,
                                            ProtoNet)
-from yolact_tpu_torch.models.layers import Conv2d, Linear
+from yolact_tpu_torch.models.layers import Conv2d, Linear, drop_batch_stats
 from yolact_tpu_torch.models.resnet import DCNLayer, ResNetBackbone
 from yolact_tpu_torch.models.vgg import VGGBackbone
 from yolact_tpu_torch.ops.anchors import generate_priors
@@ -114,17 +122,20 @@ def _build_backbone(cfg: YolactConfig) -> nn.Module:
 class Yolact(nn.Module):
     def __init__(self, cfg: YolactConfig):
         super().__init__()
-        if (cfg.stem_s2d and cfg.mask_type == MaskType.LINCOMB
-                and cfg.eval_mask_branch and cfg.mask_proto_src is None):
+        lincomb = (cfg.mask_type == MaskType.LINCOMB
+                   and cfg.eval_mask_branch)
+        if lincomb and cfg.stem_s2d and cfg.mask_proto_src is None:
             raise ValueError('stem_s2d cannot feed the protonet the raw '
                              'image (mask_proto_src=None)')
-        if cfg.mask_type != MaskType.LINCOMB or cfg.mask_proto_src is None:
-            raise NotImplementedError(
-                'only lincomb configs with a feature-map protonet source '
-                'are ported (direct masks: ROADMAP A8)')
-        if cfg.mask_proto_prototypes_as_features:
-            raise NotImplementedError(
-                'mask_proto_prototypes_as_features is not ported')
+        # prototypes-as-features: the activated prototypes without the bias
+        # channel join every head's input
+        self.proto_features = 0
+        if cfg.mask_type == MaskType.LINCOMB and \
+                cfg.mask_proto_prototypes_as_features:
+            if not lincomb:
+                raise ValueError('mask_proto_prototypes_as_features needs '
+                                 'the lincomb mask branch enabled')
+            self.proto_features = cfg.mask_dim - int(cfg.mask_proto_bias)
         self.cfg = cfg
         self.compute_dtype = torch.float32
         self.backbone = _build_backbone(cfg)
@@ -134,11 +145,12 @@ class Yolact(nn.Module):
             self.fpn = FPN(cfg.fpn,
                            [chans[i] for i in cfg.backbone.selected_layers])
         widths = head_in_channels(cfg)
-        if cfg.eval_mask_branch:
-            self.proto_net = ProtoNet(cfg, cfg.proto_in_channels)
+        self.proto_net = ProtoNet(cfg, cfg.proto_in_channels) if lincomb \
+            else None
         n_heads = 1 if cfg.share_prediction_module else cfg.num_heads
         self.prediction_layers = nn.ModuleList(
-            PredictionHead(cfg, widths[i], self._priors_per_pos(i))
+            PredictionHead(cfg, widths[i] + self.proto_features,
+                           self._priors_per_pos(i))
             for i in range(n_heads))
         self.maskiou_net = FastMaskIoUNet(cfg) if cfg.use_maskiou else None
         if cfg.use_class_existence_loss:
@@ -169,7 +181,8 @@ class Yolact(nn.Module):
             scorer = (set(self.maskiou_net.modules())
                       if self.maskiou_net is not None else set())
             for m in self.modules():
-                if isinstance(m, (nn.Conv2d, DCNLayer)) and m not in scorer:
+                if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, DCNLayer)) \
+                        and m not in scorer:
                     m.to(dtype)
         self.compute_dtype = dtype
         return self
@@ -192,24 +205,44 @@ class Yolact(nn.Module):
         h, w = x.shape[2] * scale, x.shape[3] * scale
         x = x.to(self.compute_dtype)
         # freeze_bn keeps batch norm on its running statistics in training
-        outs = self.backbone(x, use_kernels,
-                             bn_train=train and not cfg.freeze_bn,
+        bn_train = train and not cfg.freeze_bn
+        outs = self.backbone(x, use_kernels, bn_train=bn_train,
                              remat=cfg.train_remat if train else 'none')
+        if bn_train:
+            # a shared head's batch norms chain their statistics over the
+            # levels of this forward, from the buffers
+            drop_batch_stats(self.prediction_layers)
         outs = [outs[i] for i in cfg.backbone.selected_layers]
         if self.fpn is not None:
             outs = self.fpn(outs)
+
+        proto = None
+        if self.proto_net is not None:
+            proto = self.proto_net(x if cfg.mask_proto_src is None
+                                   else outs[cfg.mask_proto_src])
+        proto_feat = None
+        if self.proto_features:
+            proto_feat = proto[:, :self.proto_features]
+            if cfg.mask_proto_prototypes_as_features_no_grad:
+                proto_feat = proto_feat.detach()
 
         preds = []
         for idx, head_x in enumerate(outs):
             head = self.prediction_layers[
                 0 if cfg.share_prediction_module else idx]
-            preds.append(head(head_x))
+            if proto_feat is not None:
+                # the reference resizes the tensor resized for the level
+                # before, a progressive chain (JAX reproduces it)
+                proto_feat = F.interpolate(
+                    proto_feat, size=head_x.shape[2:], mode='bilinear',
+                    align_corners=False).to(head_x.dtype)
+                head_x = torch.cat([head_x, proto_feat], dim=1)
+            preds.append(head(head_x, head_index=idx, bn_train=bn_train))
         pred_outs = {k: torch.cat([p[k] for p in preds], dim=1)
                      for k in preds[0]}
         pred_outs['priors'] = self.priors(h, w, x.device)
-        if cfg.eval_mask_branch:
-            pred_outs['proto'] = self.proto_net(
-                outs[cfg.mask_proto_src]).permute(0, 2, 3, 1)
+        if proto is not None:
+            pred_outs['proto'] = proto.permute(0, 2, 3, 1)
         if train:
             if cfg.use_class_existence_loss:
                 pred_outs['classes'] = self.class_existence_fc(

@@ -163,17 +163,22 @@ def generate_priors(cfg: YolactConfig, img_size=None) -> np.ndarray:
 
 
 def spec_out_hw(spec, h: int, w: int) -> Tuple[int, int]:
-    """Static (h, w) through a make_net layer spec of convs and upsamples
-    (the entries ``models.layers.make_net`` builds)."""
+    """Static (h, w) through a make_net layer spec (the entries
+    ``models.layers.make_net`` builds)."""
     for entry in spec:
         num, k = entry[0], entry[1]
         kw = dict(entry[2]) if len(entry) > 2 else {}
-        if k > 0:                       # conv
+        if isinstance(num, str):        # 'cat': the branches' sizes agree
+            h, w = spec_out_hw(k[0], h, w)
+        elif k > 0:                     # conv
             s, p, d = kw.get('stride', 1), kw.get('padding', 0), \
                 kw.get('dilation', 1)
             h, w = _conv_out(h, k, s, p, d), _conv_out(w, k, s, p, d)
-        else:                           # bilinear upsample by -k
+        elif num is None:               # bilinear upsample by -k
             h, w = h * -k, w * -k
+        else:                           # transposed conv, torch's size
+            s, p = kw.get('stride', 1), kw.get('padding', 0)
+            h, w = (h - 1) * s - 2 * p - k, (w - 1) * s - 2 * p - k
     return h, w
 
 

@@ -1,5 +1,4 @@
-"""YOLACT multi-task loss.  Port of ``yolact_tpu/train/loss.py`` for the
-lincomb configurations.
+"""YOLACT multi-task loss.  Port of ``yolact_tpu/train/loss.py``.
 
 Loss letters match the reference: B box, C conf, M mask, S semantic seg,
 E class existence, D coeff diversity, I maskiou, P proto reg.
@@ -27,7 +26,9 @@ with ties to the lowest index, as ``jax.lax.top_k`` breaks them (all-zero
 priorities when an image has fewer positives than slots): a stable
 descending sort.
 
-``direct_mask_loss`` waits with the direct-mask head (ROADMAP A8).
+``direct_mask_loss`` takes ``mask_priorities`` the same way (JAX draws its
+own per image from the key it is given, with no split for the mask-IoU
+cap).
 """
 
 from __future__ import annotations
@@ -94,6 +95,16 @@ def _crop(masks: torch.Tensor, boxes: torch.Tensor,
     x1, x2, y1, y2 = (t[:, :, None, None] for t in (x1, x2, y1, y2))
     keep = (xs >= x1) & (xs < x2) & (ys >= y1) & (ys < y2)
     return masks * keep.to(masks.dtype)
+
+
+def _mask_slots(pos: torch.Tensor, mask_priorities: torch.Tensor,
+                n_slots: int) -> torch.Tensor:
+    """The ``n_slots`` mask slots of each image [B, M]: positives first,
+    by random priority, ties to the lowest index (``jax.lax.top_k``); the
+    top M reproduce "randperm subset" when an image has more positives."""
+    pri = torch.where(pos, mask_priorities + 1.0, 0.0)  # positives in (1, 2)
+    return torch.sort(pri, dim=1, descending=True,
+                      stable=True).indices[:, :n_slots]
 
 
 def ohem_conf_loss(cfg: YolactConfig, conf_data, conf_t, pos,
@@ -306,11 +317,7 @@ def lincomb_mask_loss(cfg: YolactConfig, m: MatchResult, loc_data, mask_data,
         reweight = (fg_norm * cfg.mask_proto_reweight_coeff + bg_norm) \
             * (hp * wp)                                 # [B, G, Hp, Wp]
 
-    # fixed-slot random sampling of positives: positives first, by random
-    # priority; the top M reproduce "randperm subset" when num_pos > M
-    pri = torch.where(pos, mask_priorities + 1.0, 0.0)  # positives in (1, 2)
-    slots = torch.sort(pri, dim=1, descending=True,
-                       stable=True).indices[:, :n_slots]       # [B, M]
+    slots = _mask_slots(pos, mask_priorities, n_slots)      # [B, M]
     slot_valid = torch.gather(pos, 1, slots)
     sel_idx_t = torch.gather(idx_t, 1, slots)           # gt index per slot
     sel_coef = _take(mask_data, slots)                  # [B, M, mask_dim]
@@ -407,6 +414,61 @@ def lincomb_mask_loss(cfg: YolactConfig, m: MatchResult, loc_data, mask_data,
     return losses, miou_targets
 
 
+def direct_mask_loss(cfg: YolactConfig, m: MatchResult,
+                     mask_data: torch.Tensor, gt_masks: torch.Tensor,
+                     mask_priorities: torch.Tensor) -> torch.Tensor:
+    """Direct-mask loss (``MaskType.DIRECT``; JAX ``direct_mask_loss``, the
+    reference's ``multibox_loss.py:152-161`` with its gt-box crop): binary
+    cross entropy between each slot's ``mask_size^2`` predictions and its
+    matched gt mask, cropped by the gt box on a fixed ``mask_size`` grid
+    of bilinear samples and binarised at 0.5.
+
+    ``mask_data`` [B, P, mask_size^2] float32 sigmoid outputs, clamped to
+    [0, 1] before the BCE; ``gt_masks`` [B, G, S, S] float.  As for the
+    lincomb loss, ``masks_to_train`` slots per image take the positives in
+    the order of ``mask_priorities`` [B, P] (JAX draws them per image from
+    its key), and an image with more positives than slots has its sum
+    scaled by positives / slots used, so its expectation is the uncapped
+    sum."""
+    b = m.pos.shape[0]
+    s = gt_masks.shape[-1]
+    ms = cfg.mask_size
+    slots = _mask_slots(m.pos, mask_priorities, cfg.masks_to_train)
+    slot_valid = torch.gather(m.pos, 1, slots)
+    sel_gt = torch.gather(m.idx_t, 1, slots)
+    sel_box = _take(m.gt_box_t, slots)                  # [B, M, 4]
+    sel_pred = _take(mask_data, slots)                  # [B, M, ms * ms]
+    gm = _take(gt_masks, sel_gt)                        # [B, M, S, S]
+    n = slots.shape[1]
+
+    # the fixed bilinear grid over each box, in pixels of the gt mask
+    x1, y1, x2, y2 = (sel_box[..., i] * s for i in range(4))
+    t = (torch.arange(ms, device=gm.device, dtype=gm.dtype) + 0.5) / ms
+    ys = y1[..., None] + (y2 - y1)[..., None] * t - 0.5     # [B, M, ms]
+    xs = x1[..., None] + (x2 - x1)[..., None] * t - 0.5
+    y0 = ys.floor().long().clamp(0, s - 1)
+    x0 = xs.floor().long().clamp(0, s - 1)
+    y1i = (y0 + 1).clamp(0, s - 1)
+    x1i = (x0 + 1).clamp(0, s - 1)
+    wy = (ys - y0).clamp(0, 1)[..., :, None]
+    wx = (xs - x0).clamp(0, 1)[..., None, :]
+
+    def at(yi, xi):
+        rows = torch.gather(gm, 2, yi[..., None].expand(b, n, ms, s))
+        return torch.gather(rows, 3, xi[..., None, :].expand(b, n, ms, ms))
+
+    mask_t = (at(y0, x0) * (1 - wy) * (1 - wx) + at(y0, x1i) * (1 - wy) * wx
+              + at(y1i, x0) * wy * (1 - wx) + at(y1i, x1i) * wy * wx)
+    mask_t = (mask_t > 0.5).float().reshape(b, n, -1)
+    bce = _TorchBCE.apply(sel_pred.clamp(0.0, 1.0), mask_t)
+    per_image = (bce.sum(dim=2) * slot_valid).sum(dim=1)
+    old_num_pos = m.pos.sum(dim=1)
+    num_sel = slot_valid.sum(dim=1)
+    scale = torch.where(old_num_pos > num_sel,
+                        old_num_pos / num_sel.clamp(min=1), 1.0)
+    return (per_image * scale).sum() * cfg.mask_alpha
+
+
 def mask_iou_loss(cfg: YolactConfig, maskiou_net: Callable,
                   t: MaskIoUTargets):
     """Mask re-scoring training loss (multibox_loss.py:684-694).
@@ -460,8 +522,11 @@ def multibox_loss(cfg: YolactConfig, predictions: Dict, batch: Dict,
 
     maskiou_targets = None
     if cfg.train_masks and cfg.mask_type == MaskType.DIRECT:
-        raise NotImplementedError(
-            'direct_mask_loss waits with the direct-mask head (ROADMAP A8)')
+        if gt_masks is None:
+            raise ValueError('direct mask loss needs full-res gt_masks; '
+                             'disable multires targets for DIRECT configs')
+        losses['M'] = direct_mask_loss(cfg, m, mask_data, gt_masks,
+                                       mask_priorities)
     if cfg.train_masks and cfg.mask_type == MaskType.LINCOMB:
         proto_data = predictions['proto'].float()
         mask_losses, maskiou_targets = lincomb_mask_loss(

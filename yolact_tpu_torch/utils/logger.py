@@ -7,10 +7,11 @@ config/env info, per-iteration loss/lr entries, per-epoch validation
 entries.  ``LogVisualizer`` replays files for plotting/analysis with a
 dotted-path query mini-language (plain attribute paths — no ``eval`` of
 arbitrary code, unlike the reference's lambda strings).  With
-``log_gpu_stats`` the session header lists the CUDA devices by
-``torch.cuda.get_device_name`` and every entry their
-``torch.cuda.memory_allocated`` and ``max_memory_allocated`` (the JAX
-package logs its PJRT devices and HBM use there).
+``log_gpu_stats`` the session header lists the CUDA devices
+(``utils/nvinfo.py:device_info``: name, total memory and NVML's power
+limit) and every entry their ``torch.cuda.memory_allocated`` and
+``max_memory_allocated`` (the JAX package logs its PJRT devices and HBM
+use there).
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import platform
 import sys
 import time
 from typing import Any, Callable, Dict, List, Optional, Union
+
+from yolact_tpu_torch.utils import nvinfo
 
 
 class Log:
@@ -60,20 +63,18 @@ class Log:
 
     @staticmethod
     def _device_info():
-        import torch
-        if not torch.cuda.is_available():
-            return []
-        return [{'platform': 'gpu', 'kind': torch.cuda.get_device_name(i),
-                 'id': i} for i in range(torch.cuda.device_count())]
+        # once per session: NVML's card-wide view as well
+        return [{k: v for k, v in d.items()
+                 if k in ('platform', 'kind', 'id', 'physical_id',
+                          'memory_total', 'power_limit_w')}
+                for d in nvinfo.device_info()]
 
     @staticmethod
     def _memory_info():
-        import torch
-        if not torch.cuda.is_available():
-            return []
-        return [{'id': i, 'memory_allocated': torch.cuda.memory_allocated(i),
-                 'max_memory_allocated': torch.cuda.max_memory_allocated(i)}
-                for i in range(torch.cuda.device_count())]
+        # every entry: this process's memory, no nvidia-smi call
+        return [{k: v for k, v in d.items()
+                 if k in ('id', 'memory_allocated', 'max_memory_allocated')}
+                for d in nvinfo.device_info(nvml=False)]
 
     def log(self, type_: str, data: Optional[dict] = None, **kwargs):
         entry: Dict[str, Any] = {'type': type_, 'session': self.session_id}
