@@ -136,6 +136,33 @@ Phases, each of which raises on failure:
    table.  Prints per run the median ms per iteration, the loader's share
    of it, images/s, peak memory, device busy and idle share (profiler
    kernel events inside the loop's iterations), and bf16 against f32
+10. data parallelism (run between phases 8 and 7): (a) two gloo ranks
+   in processes of their own (spawn) share the one card (NCCL refuses two
+   ranks on one device): yolact_plus_base at 550x550 with the s2d stem,
+   seeded offset convs and train_remat='dcn', f32 (TF32 off) under
+   deterministic algorithms, batch statistics, a global batch of 8 (4 a
+   rank) through train/step.py:train_step on each rank's rows, phase 6's
+   tamed weights and learning rate; TRAIN_STEPS steps against the
+   one-process b8 step on the same weights, batch and draws (losses within
+   1e-4 relative; the first-step gradients of conv1 and of the first DCN
+   block, whose forwards differ by the moments' summation order from the
+   first batch norm on, within STEM_BATCH_STATS_LIMIT of their largest
+   entry, phase 9's rule under batch statistics; a control run with each
+   rank's own batch-norm moments, DistributedDataParallel's, must fail
+   one of the two), both ranks' weights and buffers bit-equal after
+   every step (sha256), launches per rank per step stem 1, DCN sampling 22
+   and dcn_col2im 11, a NaN pixel in rank 1's image skipping the step on
+   both ranks; then ms per step per rank and the collectives' share of it
+   (each collective timed between two synchronisations).  (b)
+   cli/train.train(['--distributed', ...]) at world size 1 over NCCL:
+   yolact_base --stem_s2d bf16 550 b8, 10 iterations on phase 8's frames,
+   every step applied and every loss finite, the checkpoint written by
+   rank 0, ms per iteration beside phase 8's one-device run.  (c)
+   evaluate_dataset with n_devices=0 (every local device: one) gives
+   n_devices=1's mAP table on phase 5's 16 frames.  (d) float32 means
+   float32: Pipeline(yolact_base) f32 b1 built under PyTorch's default
+   TF32 flags turns them off and matches phase 4's TF32-off output by its
+   f32 rule, which the same pipeline with cuDNN's TF32 back on must fail
 7. timing: median and p90 ms per batch at b1 / b8 bf16 for every path
    (CUDA events over 100 calls; the s2d A/B in the order plain, s2d, s2d,
    plain), device busy and idle share per batch (torch.profiler kernel
@@ -149,10 +176,13 @@ Phases, each of which raises on failure:
    as three TF32 products beside the bound as FMAs); dcn_col2im at the
    five shapes in f32 and bf16 with its global reductions
 
-Each phase prints its seconds, and the end of the run all of them.
+Each phase prints its seconds, and the end of the run all of them; the
+run order is 1, 2, 3, 4, 4b, 9, 5, 6, 8, 10, 7.
 The line before the last is a JSON object with each kernel's launches
-(and, as trainer_launches, its launches in the trainer's runs, and as
-option_launches in phase 9's runs by path), error,
+(and, as trainer_launches, its launches in the trainer's runs, as
+option_launches in phase 9's runs by path, and as
+dp_launches_per_rank_step per rank in a step of phase 10's two-rank
+run), error,
 times and bound; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -191,7 +221,7 @@ from yolact_tpu_torch.infer import (InferenceOutput, Pipeline,
                                     forward_and_detect, load_model,
                                     maybe_enable_stem_s2d, random_state_dict)
 from yolact_tpu_torch.kernels import _build, dcn, mask_assembly, nms, stem
-from yolact_tpu_torch.models.layers import drop_batch_stats
+from yolact_tpu_torch.models.layers import BatchNorm2d, drop_batch_stats
 from yolact_tpu_torch.models.resnet import DCNLayer
 from yolact_tpu_torch.ops.anchors import proto_size
 from yolact_tpu_torch.train import checkpoint, step as step_module
@@ -3128,6 +3158,394 @@ def checks(tag, cfg, summary, steps, per_step, start, end):
         f'trainer {tag}: logged losses {summary["losses"]}')
 
 
+# ---- phase 10: data parallelism ------------------------------------------
+
+# Two gloo ranks share the one card (NCCL refuses two ranks on one device):
+# yolact_plus_base at 550 with the s2d stem, f32, batch statistics, a
+# global batch of 8 (4 a rank), against the one-process b8 step
+DP_CONFIG = 'yolact_plus_base'
+DP_OVERRIDES = dict(stem_s2d=True, train_remat='dcn', lr=1e-4,
+                    lr_warmup_init=1e-7)
+DP_WORLD = 2
+DP_PER_STEP = dict(stem_s2d=1, dcn=22, dcn_col2im=11)
+DP_GRADS = ('backbone.conv1.weight', DCN0 + 'conv_offset_mask.weight',
+            DCN0 + 'weight')
+DP_TIMED_STEPS = 3
+DP_SECONDS = 600     # a rank that gives no result in this long fails
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def state_digest(state):
+    """A sha256 of every weight and buffer (the rank's bits)."""
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in sorted(state.model.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def timed_collectives(record):
+    """torch.distributed's collectives timed into `record` (seconds, the
+    card synchronised before and after each, so that a collective's time
+    is its own and not the queued work's it waits for)."""
+    import torch.distributed as dist
+    real = {name: getattr(dist, name)
+            for name in ('all_reduce', 'all_gather', 'barrier')}
+
+    def timed(fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            record.append(time.perf_counter() - t0)
+            return out
+        return call
+    for name, fn in real.items():
+        setattr(dist, name, timed(fn))
+    try:
+        yield record
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def dp_config():
+    return get_config(DP_CONFIG).copy(**DP_OVERRIDES)
+
+
+def dp_steps(state, batch, generator, grad_names, steps=TRAIN_STEPS):
+    """`steps` steps of `batch` (a rank's rows, or the global batch): the
+    losses and launches of each, the named first-step gradients (on the
+    host) and the state's digest after each."""
+    params = dict(state.model.named_parameters())
+    losses, launches, digests, grads = [], [], [], None
+    for _ in range(steps):
+        reset_launches()
+        out = train_step(state, batch, generator)
+        torch.cuda.synchronize()
+        launches.append(read_launches(TRAIN_KERNELS))
+        losses.append({k: float(v) for k, v in out.items()})
+        digests.append(state_digest(state))
+        if grads is None:
+            grads = {k: params[k].grad.detach().cpu().clone()
+                     for k in grad_names}
+    return losses, launches, digests, grads
+
+
+def dp_rank(rank, port, sd_path, results):
+    """One rank of phase 10(a), in a process of its own (spawn): the gloo
+    group on cuda:0, TRAIN_STEPS steps on its rows of the global batch,
+    then a step with a NaN pixel in rank 1's first image, then
+    DP_TIMED_STEPS timed steps with the collectives timed, then the
+    control: the first step again from the same weights with each rank's
+    own batch-norm moments (what DistributedDataParallel computes).  Puts
+    (rank, True, result) or (rank, False, traceback) on `results`."""
+    import traceback
+    from yolact_tpu_torch.parallel import mesh as parallel
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_WORLD),
+                      LOCAL_RANK=str(rank), MASTER_ADDR='127.0.0.1',
+                      MASTER_PORT=str(port))
+    try:
+        dev = torch.device('cuda', 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _build.load()
+        mesh = parallel.init_from_env('gloo', device=dev)
+        cfg = dp_config()
+        sd = torch.load(sd_path)
+        state = create_train_state(cfg, state_dict=sd, mesh=mesh)
+        batch = parallel.shard_batch(make_train_batch(cfg), rank, DP_WORLD)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        with deterministic_library():
+            losses, launches, digests, grads = dp_steps(state, batch, gen,
+                                                        DP_GRADS)
+            bad = dict(batch, image=batch['image'].copy())
+            if rank == 1:
+                bad['image'][0, 5, 5, 0] = np.nan
+            nan = train_step(state, bad, gen)
+            nan = dict(finite=nan['finite'],
+                       total=float(nan['total']), digest=state_digest(state))
+        times, collective = [], []
+        train_step(state, batch, gen)                   # warm
+        for _ in range(DP_TIMED_STEPS):
+            record = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with timed_collectives(record):
+                train_step(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            collective.append(sum(record))
+            count = len(record)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state
+        control = create_train_state(cfg, state_dict=sd, mesh=mesh)
+        for m in control.model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.mesh = None
+        with deterministic_library():
+            c_losses, _, _, c_grads = dp_steps(
+                control, batch, torch.Generator(device=dev).manual_seed(11),
+                DP_GRADS, steps=1)
+        results.put((rank, True, dict(
+            losses=losses, launches=launches, digests=digests,
+            grads={k: v.numpy() for k, v in grads.items()}, nan=nan,
+            ms=[t * 1e3 for t in times],
+            collective_ms=[t * 1e3 for t in collective],
+            collectives=count, peak_gib=peak,
+            control=dict(losses=c_losses[0], grads={
+                k: v.numpy() for k, v in c_grads.items()}))))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        parallel.destroy()
+
+
+def run_dp_ranks(sd_path):
+    """DP_WORLD spawned dp_rank processes; their results in rank order.
+    A rank that fails, or gives nothing in DP_SECONDS, fails the phase
+    (every rank is stopped)."""
+    import multiprocessing as mp
+    import queue
+    ctx = mp.get_context('spawn')
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=dp_rank, args=(rank, port, sd_path, results))
+             for rank in range(DP_WORLD)]
+    for proc in procs:
+        proc.start()
+    got = {}
+    try:
+        while len(got) < DP_WORLD:
+            try:
+                rank, ok, value = results.get(timeout=DP_SECONDS)
+            except queue.Empty:
+                raise RuntimeError(f'chip_smoke: phase 10 ranks '
+                                   f'{sorted(set(range(DP_WORLD)) - set(got))}'
+                                   f' gave no result in {DP_SECONDS} s')
+            check(ok, f'phase 10 rank {rank} failed:\n{value}')
+            got[rank] = value
+        for proc in procs:
+            proc.join(timeout=60)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    return [got[r] for r in range(DP_WORLD)]
+
+
+def dp_two_ranks(sd, dev, card):
+    """Phase 10(a), see the module docstring."""
+    cfg = dp_config()
+    tag = f'dp {DP_CONFIG} 550 b8 f32 ({DP_WORLD} gloo ranks on one card)'
+    sd = tame_residuals(sd)
+    torch.cuda.empty_cache()
+    with deterministic_library():
+        state = create_train_state(cfg, device=dev, state_dict=sd)
+        losses, launches, _, grads = dp_steps(
+            state, make_train_batch(cfg), torch.Generator(
+                device=dev).manual_seed(11), DP_GRADS)
+    del state
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_dp_') as tmp:
+        path = os.path.join(tmp, 'weights.pth')
+        torch.save(sd, path)
+        t0 = time.perf_counter()
+        ranks = run_dp_ranks(path)
+    print(f'{tag}: ranks done in {time.perf_counter() - t0:.1f} s [{card}]')
+    for step in range(TRAIN_STEPS):
+        print(f'{tag} step {step}: one process {json.dumps(losses[step])}; '
+              f'ranks {json.dumps([r["losses"][step] for r in ranks])}')
+        check(len({r['digests'][step] for r in ranks}) == 1,
+              f'{tag}: the ranks\' weights differ after step {step}')
+        for rank, run in enumerate(ranks):
+            got = run['losses'][step]
+            check(got['finite'] and got.keys() == losses[step].keys(),
+                  f'{tag}: rank {rank} step {step} {got}')
+            for k, v in losses[step].items():
+                if k in ('finite', 'lr'):
+                    continue
+                check(np.isfinite(got[k]) and abs(got[k] - v) <= 1e-4 * abs(v),
+                      f'{tag}: rank {rank} step {step} loss {k} {got[k]!r} '
+                      f'against {v!r}')
+            check(run['launches'][step] == DP_PER_STEP,
+                  f'{tag}: rank {rank} step {step} launches '
+                  f'{run["launches"][step]}, expected {DP_PER_STEP}')
+        check(launches[step] == DP_PER_STEP,
+              f'{tag}: one-process launches {launches[step]}')
+    print(f'{tag}: both ranks\' weights bit-equal after each of '
+          f'{TRAIN_STEPS} steps; launches per rank per step '
+          f'{json.dumps(ranks[0]["launches"][0])}')
+    # Under batch statistics the two runs' forwards differ by rounding from
+    # the first batch norm on (the moments are summed in another order),
+    # and the random network carries that to its first gradients as it
+    # carries the stem kernel's: phase 9's rule, every gradient within
+    # STEM_BATCH_STATS_LIMIT.  The control (each rank's own moments, what
+    # DistributedDataParallel computes) must fail it or the losses' 1e-4.
+    rel = STEM_BATCH_STATS_LIMIT
+    gaps = {}
+    for name in DP_GRADS:
+        want = grads[name]
+        top = float(want.abs().max())
+        err, control = (float(np.abs(g - want.numpy()).max()) for g in (
+            ranks[0]['grads'][name], ranks[0]['control']['grads'][name]))
+        gaps[name] = control / top
+        print(f'{tag} first-step gradient of {name}: max {top!r}, '
+              f'max_abs_err against one process {err!r} ({err / top!r} of '
+              f'max; criterion {rel!r}); with each rank\'s own batch-norm '
+              f'moments {control!r} ({control / top!r} of max)')
+        check(top > 0 and err <= rel * top,
+              f'{tag}: the gradient of {name} differs')
+    loss_gap = max(abs(ranks[0]['control']['losses'][k] - v) / abs(v)
+                   for k, v in losses[0].items() if k not in ('finite', 'lr'))
+    print(f'{tag}: control with each rank\'s own batch-norm moments: first '
+          f'losses {json.dumps(ranks[0]["control"]["losses"])}, largest '
+          f'relative difference {loss_gap!r}')
+    check(loss_gap > 1e-4 or max(gaps.values()) > rel,
+          f'{tag}: per-rank batch-norm moments pass the checks: they have '
+          f'no teeth')
+    nans = [r['nan'] for r in ranks]
+    print(f'{tag}: a NaN pixel in rank 1\'s image: {json.dumps(nans)}')
+    check(not any(n['finite'] for n in nans), f'{tag}: a rank did not skip '
+          f'the NaN step')
+    check(all(n['digest'] == r['digests'][-1] for n, r in zip(nans, ranks)),
+          f'{tag}: the skipped step moved the weights')
+    for rank, run in enumerate(ranks):
+        ms, coll = statistics.median(run['ms']), \
+            statistics.median(run['collective_ms'])
+        print(f'{tag} rank {rank}: median {ms!r} ms per step ({run["ms"]}, '
+              f'host clock, synchronised), collectives {coll!r} ms of it '
+              f'(share {coll / ms!r}; {run["collectives"]} collectives a '
+              f'step, each timed between two synchronisations); peak memory '
+              f'{run["peak_gib"]!r} GiB [{card}]')
+    return ranks[0]['launches'][0]
+
+
+def dp_trainer(sd, dev, card, one_device_ms):
+    """Phase 10(b): cli/train.train(['--distributed', ...]) at world size 1
+    over NCCL, yolact_base --stem_s2d bf16 550 b8, 10 iterations on phase
+    8's in-memory frames."""
+    from yolact_tpu_torch.parallel import mesh as parallel
+    tag = 'dp trainer yolact_base bf16 (NCCL, world size 1)'
+    iters = 10
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_dp_trainer_') as tmp:
+        name = 'smoke_dp_trainer'
+        cfg = register_config(get_config('yolact_base').copy(
+            name=name, lr=1e-4, lr_warmup_init=1e-7, max_iter=iters))
+        weights = f'{tmp}/{name}_0_0.pth'
+        torch.save(tame_residuals(sd), weights)
+        data = SyntheticTrainSet(TRAINER_FRAMES, TRAINER_SIZES,
+                                 cfg.num_classes, SSDAugmentation(
+                                     cfg, rng=np.random.RandomState(7)))
+        save = f'{tmp}/w'
+        env = dict(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
+                   MASTER_ADDR='127.0.0.1', MASTER_PORT=str(free_port()))
+        # the machine has no network: NCCL's bootstrap takes the loopback
+        env.setdefault('NCCL_SOCKET_IFNAME', os.environ.get(
+            'NCCL_SOCKET_IFNAME', 'lo'))
+        before = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            summary, out, steps, launches, _ = run_trainer(
+                ['--distributed', '--config', name, '--batch_size', '8',
+                 '--num_workers', '4', '--save_folder', save, '--log_folder',
+                 f'{tmp}/logs', '--validation_epoch', '0', '--resume',
+                 weights, '--stem_s2d', '--compute_dtype', 'bfloat16'], data)
+        finally:
+            for k, v in before.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            parallel.destroy()
+        checks(tag, cfg, summary, steps,
+               dict(stem_s2d=1, dcn=0, dcn_col2im=0), 0, iters)
+        check(summary['path'] and os.path.exists(summary['path'])
+              and os.listdir(save) == [os.path.basename(summary['path'])],
+              f'{tag}: checkpoints {os.listdir(save)}')
+        ms = statistics.median(t * 1e3 for t in summary['iter_seconds'][2:])
+        print(f'{tag}: {len(steps)} iterations, every step applied and every '
+              f'logged loss finite, {summary["path"]} written by rank 0; '
+              f'median {ms!r} ms per iteration against phase 8\'s one-device '
+              f'run {one_device_ms!r} (host clock; launches '
+              f'{json.dumps(launches)}) [{card}]')
+        print('\n'.join(l for l in out.splitlines() if '||' in l))
+
+
+def dp_eval(sd, dev, card):
+    """Phase 10(c): evaluate_dataset with n_devices=0 (every local device:
+    one here) against n_devices=1 on phase 5's frames."""
+    cfg = get_config('yolact_base').copy(stem_s2d=True)
+    data = SyntheticEvalSet(EVAL_FRAMES, cfg.max_size, cfg.num_classes,
+                            seed=5)
+    wsd = shape_conf(sd, cfg.num_classes, 3.0, 7.0)
+    check(evaluate.eval_devices(dev, 0) == [dev],
+          f'n_devices=0 resolves to {evaluate.eval_devices(dev, 0)}')
+    maps = {}
+    for n in (1, 0):
+        with contextlib.redirect_stdout(io.StringIO()):
+            maps[n] = evaluate_dataset(cfg, wsd, data, dev, eval_batch_size=8,
+                                       n_devices=n)
+    print(f'dp eval: n_devices=0 resolves to {torch.cuda.device_count()} '
+          f'device(s); all_maps equal to n_devices=1: {maps[0] == maps[1]} '
+          f'(box all {maps[0]["box"]["all"]!r}, mask all '
+          f'{maps[0]["mask"]["all"]!r}) [{card}]')
+    check(maps[0] == maps[1], 'dp eval: n_devices=0 and 1 differ')
+
+
+def c5_pipeline(sd, frames8, dev, want):
+    """Phase 10(d): Pipeline(yolact_base) f32 b1 built under the process's
+    default TF32 flags against phase 4's TF32-off output, by phase 4's f32
+    rule."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cfg = get_config('yolact_base')
+    pipe = Pipeline(cfg, shape_conf(sd, cfg.num_classes, 3.0, 7.0), dev,
+                    'float32')
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    print(f'C5: after Pipeline(float32) the TF32 flags (cudnn, matmul) are '
+          f'{flags}')
+    check(flags == (False, False), 'C5: a float32 Pipeline left TF32 on')
+    compare('C5 Pipeline(yolact_base) f32 b1 under the default flags vs '
+            'phase 4', pipe(frames8[:1]), want, exact=True, ties_ok=True)
+    # the control: the same pipeline with TF32 turned back on
+    torch.backends.cudnn.allow_tf32 = True
+    tf32 = pipe(frames8[:1])
+    torch.backends.cudnn.allow_tf32 = False
+    both = tf32.valid & want.valid
+    err = float((tf32.scores - want.scores)[both].abs().max())
+    print(f'C5 control, the same Pipeline with cuDNN\'s TF32 on: scores '
+          f'{err!r} from phase 4\'s (f32 rule {TOL["scores"]!r}), '
+          f'{int((tf32.valid != want.valid).sum())} validity differences')
+    check(err > TOL['scores'] or bool((tf32.valid != want.valid).any()),
+          'C5: TF32 leaves the f32 output within the f32 rule: the check '
+          'has no teeth')
+
+
+def dp_phase(sds, frames8, dev, card, one_device_ms, c5_want):
+    """Phase 10 (see the module docstring).  Returns the launches per rank
+    per step of the two-rank run."""
+    t0 = time.perf_counter()
+    launches = dp_two_ranks(sds[DP_CONFIG], dev, card)
+    print(f'phase 10(a): {time.perf_counter() - t0:.1f} s')
+    dp_trainer(sds['yolact_base'], dev, card, one_device_ms)
+    dp_eval(sds['yolact_base'], dev, card)
+    c5_pipeline(sds['yolact_base'], frames8, dev, c5_want)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this smoke '
@@ -3191,6 +3609,7 @@ def main():
         s2d, plain = (outs[name][cell, 'b8 bf16']
                       for name in ('yolact_base_s2d', 'yolact_base'))
         match(f's2d vs plain stem {cell} b8 bf16', s2d, plain)
+    c5_want = outs['yolact_base_s2d']['sparse', 'b1 f32']
     del outs
 
     # ---- phase 9: model options and video ----
@@ -3209,10 +3628,18 @@ def main():
     phase_done('6 train step')
 
     # ---- phase 8: the trainer (cli/train.py) ----
-    trainer_launches, _ = trainer_phase(sds, dev, card)
-    del sds
+    trainer_launches, trainer_timing_ = trainer_phase(sds, dev, card)
     torch.cuda.empty_cache()
     phase_done('8 trainer')
+
+    # ---- phase 10: data parallelism, multi-device eval, C5 ----
+    dp_launches = dp_phase(sds, frames8, dev, card,
+                           trainer_timing_['yolact_base bf16']['ms'], c5_want)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    del sds
+    torch.cuda.empty_cache()
+    phase_done('10 data parallelism')
 
     # ---- phase 7: timing; the s2d A/B in the order plain, s2d, s2d, plain
     order = ('yolact_base', 'yolact_base_s2d', 'yolact_base_s2d',
@@ -3269,6 +3696,7 @@ def main():
                        'replaces': info['replaces'],
                        'launches': launches[info['path']][name],
                        'trainer_launches': trainer_launches.get(name, 0),
+                       'dp_launches_per_rank_step': dp_launches.get(name, 0),
                        'option_launches': {
                            path: counts[name]
                            for path, counts in option_launches.items()

@@ -101,11 +101,65 @@ def test_checkpoint_round_trip_and_resumed_step_bit_equal(tmp_path):
 
     # the weights of a train state serve eval (--trained_model)
     weights = ckpt.load_weights(cfg, path)
-    assert weights.keys() == torch.load(path)['model'].keys()
+    assert weights.keys() == torch.load(path)['state_dict'].keys()
     # weights alone do not resume a train state
     torch.save(weights, str(tmp_path / 'ref_1_2.pth'))
     with pytest.raises(ValueError, match='weights only'):
         ckpt.load_checkpoint(str(tmp_path / 'ref_1_2.pth'), resumed)
+
+
+@pytest.mark.parametrize('make_cfg', [tiny_resnet_config, tiny_plus_config],
+                         ids=['base', 'plus'])
+def test_port_checkpoint_reads_as_jax_weights(tmp_path, make_cfg):
+    """A checkpoint the port's trainer writes is a weights file the JAX
+    package reads: ``yolact_tpu.train.checkpoint.load_weights`` gives the
+    JAX variables of the same weights (``convert/from_jax``'s inverse of
+    the port's state dict), every leaf equal, and its converter leaves no
+    key of the file unhandled (the training-only heads included)."""
+    from yolact_tpu.convert.torch_import import load_reference_weights
+    jcfg = make_cfg()
+    cfg = P(jcfg)
+    state = create_train_state(cfg, device='cpu')
+    assert train_step(state, make_train_batch(np.random.RandomState(0), cfg),
+                      torch.Generator().manual_seed(0))['finite']
+    path = str(tmp_path / 'tiny_0_1.pth')
+    ckpt.save_checkpoint(state, path)
+    got = jax_ckpt.load_weights(jcfg, path)
+    assert load_reference_weights(jcfg, path)[1] == []
+    _, template = jax_create_train_state(jcfg)
+    params, stats = state_dict_to_train_state(
+        state.model.state_dict(), _numpy(template.params),
+        _numpy(template.batch_stats))
+    want = {'params': params['model'], 'batch_stats': stats}
+    if 'maskiou' in params:
+        want['maskiou'] = {'params': params['maskiou']}
+    got, want = _leaves(got), _leaves(want)
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+
+
+def test_checkpoint_of_the_older_layout_resumes_bit_for_bit(tmp_path):
+    """A checkpoint written before the weights moved under 'state_dict'
+    (the weights under 'model') resumes to the same state, and the next
+    step from it equals the next step from the state that was saved."""
+    cfg = P(tiny_resnet_config(use_class_balanced_conf=True))
+    batch = make_train_batch(np.random.RandomState(0), cfg)
+    state = create_train_state(cfg, device='cpu')
+    assert train_step(state, batch, torch.Generator().manual_seed(3))['finite']
+    path = str(tmp_path / 'tiny_0_1.pth')
+    ckpt.save_checkpoint(state, path)
+    blob = torch.load(path, weights_only=False)
+    blob['model'] = blob.pop('state_dict')
+    torch.save(blob, path)
+    resumed = create_train_state(cfg, seed=1, device='cpu')
+    ckpt.load_checkpoint(path, resumed)
+    _assert_states_equal(resumed, state)
+    outs = [train_step(s, batch, torch.Generator().manual_seed(9))
+            for s in (state, resumed)]
+    assert all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0]
+               if isinstance(outs[0][k], torch.Tensor))
+    _assert_states_equal(resumed, state)
 
 
 NAMES = ['yolact_base_1_100.pth', 'yolact_base_2_200.ckpt',

@@ -785,3 +785,28 @@ def test_trainer_on_card(cuda, tmp_path):
     load_checkpoint(run['path'], reloaded)
     want, got = run['state'].model.state_dict(), reloaded.model.state_dict()
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.cuda
+def test_float32_pipeline_runs_without_tf32_under_the_default_flags(cuda):
+    """float32 means float32: a float32 Pipeline built under the process's
+    default flags (cuDNN's TF32 on; the matmul flag turned on too) turns
+    TF32 off itself, and its kernel path matches the plain path run with
+    TF32 off by the float32 rule (scores and boxes 1e-5, masks 1e-4)."""
+    cfg = tiny_resnet_config()
+    sd = random_state_dict(cfg, torch.Generator().manual_seed(0))
+    frames = torch.randint(0, 256, (2, 128, 128, 3),
+                           generator=torch.Generator().manual_seed(1)
+                           ).float().to(cuda)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    got = Pipeline(cfg, sd, cuda, 'float32')(frames)
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    want = Pipeline(cfg, sd, cuda, 'float32', use_kernels=False)(frames)
+    torch.cuda.synchronize()
+    assert torch.equal(got.valid, want.valid)
+    assert torch.equal(got.classes, want.classes)
+    torch.testing.assert_close(got.scores, want.scores, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.boxes, want.boxes, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.masks, want.masks, rtol=0, atol=1e-4)

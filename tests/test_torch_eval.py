@@ -378,11 +378,32 @@ def test_cli_images(setup, pth, tmp_path, flags):
 @pytest.mark.parametrize('flags', [['--video=in.mp4', '--eval_devices=2'],
                                    ['--eval_devices=2'],
                                    ['--eval_devices=0']])
-def test_cli_unported_modes_raise(pth, tmp_path, flags):
-    """Evaluation on more than one device (A9), video included; one-device
-    video runs (tests/test_torch_video.py)."""
-    with pytest.raises(NotImplementedError, match='A9'):
+def test_cli_unported_modes_raise(setup, pth, tmp_path, capsys, monkeypatch,
+                                  flags):
+    """The multi-device modes that raised before they were ported (ROADMAP
+    A9a) now run: ``--eval_devices=2`` (two pipeline replicas, the CPU
+    standing for both; the batch of 1 rounded up to 2) and ``=0`` (every
+    local device: the CPU, one) give JAX's one-device mAP table of the
+    file, and ``--video`` runs on one device whatever ``--eval_devices``
+    says, as in JAX."""
+    if flags[0].startswith('--video'):
+        from yolact_tpu_torch.eval import video
+        calls = []
+        monkeypatch.setattr(video, 'evalvideo',
+                            lambda *a, **k: calls.append(k))
         _main(pth, tmp_path, *flags)
+        assert len(calls) == 1 and calls[0]['device'] == torch.device('cpu')
+        return
+    cfg, _, _, dataset = setup
+    _main(pth, tmp_path, *flags)
+    out = capsys.readouterr().out
+    assert ('not divisible by 2 devices; using 2' in out) == \
+        (flags == ['--eval_devices=2'])
+    want = jax_evaluate_dataset(cfg, jax_load_weights(cfg, pth), dataset,
+                                quiet=True)
+    with open(tmp_path / 'ap.pkl', 'rb') as f:
+        assert calc_map(pickle.load(f), cfg.dataset.class_names,
+                        print_table=False) == want
 
 
 def test_cli_cuda_without_a_card_raises(pth, tmp_path):
@@ -392,11 +413,16 @@ def test_cli_cuda_without_a_card_raises(pth, tmp_path):
         cli.main([f'--trained_model={pth}', '--cuda=True'])
 
 
-@pytest.mark.parametrize('kw,match', [({'n_devices': 2}, 'A9')])
-def test_evaluate_unported_options_raise(setup, kw, match):
+@pytest.mark.parametrize('kw', [{'n_devices': 2}], ids=['kw0-A9'])
+def test_evaluate_unported_options_raise(setup, kw):
+    """``n_devices``, which raised before it was ported (ROADMAP A9a), now
+    runs: two replicas (the CPU standing for both) give the one-device
+    all_maps."""
     cfg, _, sd, dataset = setup
-    with pytest.raises(NotImplementedError, match=match):
-        evaluate_dataset(P(cfg), sd, dataset, 'cpu', quiet=True, **kw)
+    assert evaluate_dataset(P(cfg), sd, dataset, 'cpu', quiet=True,
+                            eval_batch_size=3, **kw) == \
+        evaluate_dataset(P(cfg), sd, dataset, 'cpu', quiet=True,
+                         eval_batch_size=3)
 
 
 def test_evaluate_prefetch_error_propagates(setup):

@@ -289,6 +289,34 @@ def test_bf16_pipeline_keeps_maskiou_net_float32():
     assert params['backbone.conv1.weight'].dtype == torch.bfloat16
 
 
+def test_float32_entry_points_turn_tf32_off(monkeypatch):
+    """float32 means float32: a float32 Pipeline, load_model or train state
+    turns cuDNN's and cuBLAS's TF32 off (the process's flags, which the
+    backward's convolutions read too); a bfloat16 one leaves them."""
+    from yolact_tpu_torch.train.step import create_train_state
+    cfg = P(tiny_resnet_config())
+    sd = random_state_dict(cfg, torch.Generator().manual_seed(0))
+
+    def defaults():
+        monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', True)
+        monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', True)
+
+    def tf32():
+        return (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+
+    for build in (lambda dt: Pipeline(cfg, sd, 'cpu', dt),
+                  lambda dt: load_model(cfg, sd, 'cpu', dt),
+                  lambda dt: create_train_state(
+                      cfg.copy(compute_dtype=dt), device='cpu',
+                      state_dict=sd)):
+        defaults()
+        build('bfloat16')
+        assert tf32() == (True, True)
+        build('float32')
+        assert tf32() == (False, False)
+
+
 def test_pipeline_cuda_raises_without_gpu():
     if torch.cuda.is_available():
         pytest.skip('a GPU is present; this checks the no-GPU error')
@@ -299,26 +327,29 @@ def test_pipeline_cuda_raises_without_gpu():
 
 
 def test_port_imports_no_jax_flax_or_cv2():
-    """Every module of the port, and chip_smoke.py (its imports; main()
-    does not run on import), in a fresh interpreter: no module of JAX,
-    flax, cv2 or the JAX package (``yolact_tpu``) is loaded, and the
-    modules that came with the video entry point and the model options
-    (eval/video.py, utils/nvinfo.py, ops/resize.py) are among those
-    imported."""
+    """Every module of the port, chip_smoke.py (its imports; main() does
+    not run on import) and the ranks' module of the data-parallel tests
+    (tests/torch_parallel_worker.py), in a fresh interpreter: no module of
+    JAX, flax, cv2 or the JAX package (``yolact_tpu``) is loaded, and the
+    modules that came with the video entry point, the model options and
+    data parallelism (eval/video.py, utils/nvinfo.py, ops/resize.py,
+    parallel/mesh.py) are among those imported."""
     code = ('import importlib, pkgutil, sys\n'
             'import yolact_tpu_torch\n'
             'for m in pkgutil.walk_packages(yolact_tpu_torch.__path__,\n'
             '                               "yolact_tpu_torch."):\n'
             '    importlib.import_module(m.name)\n'
-            'import chip_smoke\n'
+            'import chip_smoke, torch_parallel_worker\n'
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in\n'
             '             ("jax", "flax", "cv2", "yolact_tpu"))\n'
             'n = sum(m.startswith("yolact_tpu_torch.") for m in sys.modules)\n'
             'new = {"yolact_tpu_torch.eval.video", "yolact_tpu_torch.utils.nvinfo",\n'
-            '       "yolact_tpu_torch.ops.resize"} - set(sys.modules)\n'
+            '       "yolact_tpu_torch.ops.resize",\n'
+            '       "yolact_tpu_torch.parallel.mesh"} - set(sys.modules)\n'
             'print(bad, n, new)\n'
             'sys.exit(1 if bad or new or n < 30 else 0)\n')
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO, os.path.join(REPO, 'tests')]))
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -328,8 +359,9 @@ PORT_SOURCES = sorted(
     os.path.relpath(path, REPO) for path in
     glob.glob(os.path.join(REPO, 'yolact_tpu_torch', '**', '*.py'),
               recursive=True)) + ['chip_smoke.py', 'probe_cells.py',
-                                  'probe_dcn.py', 'probe_host.py',
-                                  'probe_small_kernels.py']
+                                  'probe_dcn.py', 'probe_dp.py',
+                                  'probe_host.py', 'probe_small_kernels.py',
+                                  'tests/torch_parallel_worker.py']
 
 
 @pytest.mark.parametrize('path', PORT_SOURCES)

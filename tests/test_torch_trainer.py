@@ -158,9 +158,14 @@ def test_cli_saves_interrupts_resumes_and_validates(tmp_path, monkeypatch):
 
 
 def test_unported_flags_raise():
-    for flag in (['--distributed'], ['--spatial_split', '2'],
-                 ['--device_augment']):
-        with pytest.raises(NotImplementedError, match='A9'):
+    """What the trainer refuses: --device_augment (ROADMAP A9b), a spatial
+    split (with its reason), and --distributed outside torchrun's
+    environment (it is ported: tests/test_torch_parallel.py)."""
+    for flag, error, match in (
+            (['--distributed'], RuntimeError, 'environment'),
+            (['--spatial_split', '2'], NotImplementedError, 'halo'),
+            (['--device_augment'], NotImplementedError, 'A9')):
+        with pytest.raises(error, match=match):
             cli.train(['--cuda=False'] + flag)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='cuda'):

@@ -166,9 +166,13 @@ def test_cli_video_matches_evalvideo(clip, writer, tmp_path):
                     sink=sunk.append)
     assert len(writer[out]) == N_FRAMES
     assert all(np.array_equal(a, b) for a, b in zip(sunk, writer[out]))
-    with pytest.raises(NotImplementedError, match='A9'):
-        cli_eval.main([f'--trained_model={pth}', '--cuda=False',
-                       '--eval_devices=2', f'--video={path}'])
+    # video runs on one device whatever --eval_devices says, as in JAX
+    again = str(tmp_path / 'cli2.mp4')
+    cli_eval.main([f'--trained_model={pth}', '--cuda=False',
+                   '--eval_devices=2', f'--video={path}:{again}'])
+    assert len(writer[again]) == N_FRAMES
+    assert all(np.array_equal(a, b) for a, b in zip(writer[again],
+                                                    writer[out]))
 
 
 def test_playback_stabilizer_matches_jax():

@@ -14,7 +14,10 @@ space-to-depth stem kernel where the config supports it, as JAX's
 ``Pipeline`` does; otherwise the stem is the plain 7x7/s2 conv unless
 ``--stem_s2d`` asks for the s2d one.  ``--video=in.mp4[:out.mp4]`` runs
 ``eval/video.py:evalvideo`` on one device (reading and writing files needs
-cv2).  ``--eval_devices`` other than 1 is not ported yet (ROADMAP A9).
+cv2).  ``--eval_devices=N`` evaluates a dataset on N devices, one pipeline
+replica each (``eval/evaluate.py``); 0 means every local device (1 on a
+machine with one card, or on the CPU), as in JAX.  Images and video run
+on one device whatever it says, as in JAX.
 cv2 is imported only where images are read, drawn or written.
 """
 
@@ -79,8 +82,8 @@ def parse_args(argv=None):
                    help='device batch for dataset evaluation (no reference '
                         'equivalent)')
     p.add_argument('--eval_devices', default=1, type=int,
-                   help='devices to shard each eval batch over; only 1 is '
-                        'ported')
+                   help='devices to split each dataset eval batch over, one '
+                        'pipeline replica each (0: every local device)')
     p.add_argument('--dataset', default=None, type=str)
     p.add_argument('--detect', default=False, dest='detect',
                    action='store_true',
@@ -207,10 +210,6 @@ def evalimages(cfg, state_dict, device, args, inp: str, out: str):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.eval_devices != 1:
-        raise NotImplementedError(
-            f'--eval_devices={args.eval_devices}: multi-device evaluation is '
-            f'not ported yet (ROADMAP A9)')
     if args.seed is not None:
         random.seed(args.seed)
 
@@ -254,7 +253,7 @@ def main(argv=None):
         return
     evaluate_dataset(
         cfg, state_dict, make_eval_dataset(cfg), device,
-        eval_batch_size=args.eval_batch_size,
+        eval_batch_size=args.eval_batch_size, n_devices=args.eval_devices,
         max_images=args.max_images, fast_nms=args.fast_nms,
         cross_class_nms=args.cross_class_nms,
         score_threshold=args.score_threshold, crop_masks=args.crop,

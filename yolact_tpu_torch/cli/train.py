@@ -19,9 +19,23 @@ focal-loss bias init.
 
 It runs on ``cuda:0`` (``--cuda=False``: on the CPU, with the kernels'
 plain versions); a CUDA request without a card raises.  The loader hands
-the card pinned batches.  Not ported: ``--distributed``,
-``--spatial_split`` > 1 and ``--device_augment`` raise (ROADMAP A9);
-``--batch_alloc`` is accepted and ignored, as in JAX.
+the card pinned batches.  ``--batch_alloc`` is accepted and ignored, as in
+JAX.  Not ported: ``--device_augment`` raises (ROADMAP A9b), and
+``--spatial_split`` > 1 raises with its reason (``parallel/mesh.py``).
+
+``--distributed`` trains data parallel, one process per device, started
+by torchrun (``torchrun --nproc_per_node=N -m yolact_tpu_torch.cli.train
+--distributed ...``): the process group comes from torchrun's environment
+(``parallel/mesh.py:init_from_env``): NCCL on ``cuda:LOCAL_RANK``, gloo
+on the CPU with ``--cuda=False``.  Each step is the one-device step on
+the global batch (``train/step.py``).
+``--batch_size`` is the GLOBAL batch and must divide by the world size
+(JAX trims its mesh to a device count that divides it instead);
+``freeze_bn`` follows the batch per rank, as JAX's per-data-shard rule,
+and autoscaling the global batch.  Every rank shuffles with the same seed
+and loads and augments only its rows of each batch.  Rank 0 alone logs,
+saves and runs the validation while the others wait at a barrier; every
+rank reads ``--resume``.
 
 :func:`train` also takes in-memory datasets (``dataset``, ``val_dataset``:
 objects with ``__len__`` and ``pull_item`` in the ``COCODetection`` item
@@ -39,6 +53,8 @@ import threading
 import time
 
 import torch
+
+from yolact_tpu_torch.parallel import mesh as parallel
 
 
 def str2bool(v):
@@ -86,7 +102,9 @@ def parse_args(argv=None):
                    action='store_true',
                    help='not ported (ROADMAP A9)')
     p.add_argument('--distributed', dest='distributed', action='store_true',
-                   help='not ported (ROADMAP A9)')
+                   help='data parallel over the processes torchrun starts '
+                        '(one device each; NCCL, gloo with --cuda=False); '
+                        '--batch_size is the global batch')
     p.add_argument('--stem_s2d', dest='stem_s2d', action='store_true',
                    help='space-to-depth stem during training (ResNet '
                         'configs; the same math through the stem kernel)')
@@ -95,15 +113,17 @@ def parse_args(argv=None):
                    help='backbone bottleneck checkpointing for the backward '
                         "pass (default: the config's, 'dcn')")
     p.add_argument('--spatial_split', default=1, type=int,
-                   help='only 1 is ported (ROADMAP A9)')
+                   help='only 1: splitting the image height over devices '
+                        'is not ported (parallel/mesh.py)')
     p.set_defaults(keep_latest=False, log=True, log_gpu=False, interrupt=True,
                    autoscale=True, distributed=False, device_augment=False,
                    stem_s2d=False)
     return p.parse_args(argv)
 
 
-def make_config(args):
-    """The run's config from the flags, as the JAX trainer derives it."""
+def make_config(args, world: int = 1):
+    """The run's config from the flags, as the JAX trainer derives it, for
+    `world` data-parallel ranks."""
     from yolact_tpu_torch.config import get_config, get_dataset
     from yolact_tpu_torch.train.schedule import scale_config_for_batch
 
@@ -122,9 +142,9 @@ def make_config(args):
             overrides[k] = v
     if args.compute_dtype != 'float32':
         overrides['compute_dtype'] = args.compute_dtype
-    # freeze BN when the batch per device is < 6 (train.py:115-118); the
-    # port trains on one device
-    if args.batch_size < 6:
+    # freeze BN when the batch per rank is < 6 (train.py:115-118), as JAX's
+    # per-data-shard rule
+    if args.batch_size // world < 6:
         print('Per-device batch size is less than 6, auto-enabling '
               'freeze_bn.')
         overrides['freeze_bn'] = True
@@ -181,24 +201,56 @@ def train(argv=None, dataset=None, val_dataset=None):
     and the seconds of each spent in the loader ``wait_seconds``, the
     printed ``losses`` entries and the validation ``maps``."""
     args = parse_args(argv)
-    if args.distributed or args.spatial_split > 1 or args.device_augment:
+    if args.device_augment:
         raise NotImplementedError(
-            '--distributed, --spatial_split > 1 and --device_augment are not '
-            'ported (ROADMAP A9)')
+            '--device_augment is not ported (ROADMAP A9b)')
+    mesh, own_group = _start_mesh(args)
+    try:
+        return _train(args, mesh, dataset, val_dataset)
+    finally:
+        if own_group:
+            parallel.destroy()
 
+
+def _start_mesh(args):
+    """The run's Mesh and whether this call started a process group: one
+    rank on the flags' device, or (--distributed) the group torchrun's
+    environment describes."""
+    from yolact_tpu_torch.infer import check_device
+    from yolact_tpu_torch.parallel.mesh import (Mesh, init_from_env,
+                                                make_mesh_2d)
+    if not args.distributed:
+        device = check_device('cuda:0' if args.cuda else 'cpu')
+        return make_mesh_2d(Mesh(0, 1, device), args.spatial_split), False
+    mesh = init_from_env('nccl' if args.cuda else 'gloo')
+    try:
+        make_mesh_2d(mesh, args.spatial_split)
+        if args.batch_size % mesh.size:
+            raise ValueError(
+                f'--batch_size {args.batch_size} (the global batch) does not '
+                f'divide over {mesh.size} ranks; the JAX trainer trims its '
+                f'mesh to a device count that divides the batch, the port '
+                f'asks for a batch that divides')
+    except BaseException:
+        parallel.destroy()
+        raise
+    return mesh, True
+
+
+def _train(args, mesh, dataset, val_dataset):
     from yolact_tpu_torch.config import MaskType
     from yolact_tpu_torch.data.augmentations import SSDAugmentation
     from yolact_tpu_torch.data.coco import COCODetection
     from yolact_tpu_torch.data.loader import BatchLoader
-    from yolact_tpu_torch.infer import check_device
     from yolact_tpu_torch.train import checkpoint as ckpt
     from yolact_tpu_torch.train.schedule import apply_delayed_settings
     from yolact_tpu_torch.train.step import create_train_state, train_step
     from yolact_tpu_torch.utils.functions import MovingAverage, SavePath
     from yolact_tpu_torch.utils.logger import Log
 
-    cfg = make_config(args)
-    device = check_device('cuda:0' if args.cuda else 'cpu')
+    cfg = make_config(args, mesh.size)
+    device = mesh.device
+    lead = mesh.rank == 0       # logs, saves and validates
     if dataset is None:
         dataset = COCODetection(
             cfg.dataset.train_images, cfg.dataset.train_info,
@@ -214,9 +266,10 @@ def train(argv=None, dataset=None, val_dataset=None):
                     if cfg.use_semantic_segmentation_loss else None}
     loader = BatchLoader(dataset, args.batch_size, max_gt=args.max_gt,
                          num_workers=args.num_workers, multires=multires,
-                         pin_memory=device.type == 'cuda')
+                         pin_memory=device.type == 'cuda',
+                         rank=mesh.rank, world=mesh.size)
 
-    state = create_train_state(cfg, device=device)
+    state = create_train_state(cfg, device=device, mesh=mesh)
     start_iter = max(args.start_iter, 0)
     if args.resume is not None:
         path = ckpt.resolve_resume(args.resume, args.save_folder, cfg.name)
@@ -236,7 +289,7 @@ def train(argv=None, dataset=None, val_dataset=None):
     log = Log(cfg.name, args.log_folder,
               dict(args=vars(args), config_name=cfg.name),
               overwrite=(args.resume is None),  # reference train.py:193
-              log_gpu_stats=args.log_gpu) if args.log else None
+              log_gpu_stats=args.log_gpu) if args.log and lead else None
 
     epoch_size = len(dataset) // args.batch_size
     num_epochs = math.ceil(cfg.max_iter / epoch_size)
@@ -254,11 +307,16 @@ def train(argv=None, dataset=None, val_dataset=None):
     def on_sigint(sig, frame):
         interrupted['flag'] = True
 
+    def stop_now():
+        # every rank stops at the same iteration if any was interrupted
+        return not mesh.all_true(not interrupted['flag'])
+
     previous_handler = None
     if args.interrupt and threading.current_thread() is threading.main_thread():
         previous_handler = signal.signal(signal.SIGINT, on_sigint)
 
-    print('Begin training!\n')
+    say = print if lead else (lambda *a, **k: None)
+    say('Begin training!\n')
     epoch = 0
     try:
         for epoch in range(num_epochs):
@@ -267,11 +325,11 @@ def train(argv=None, dataset=None, val_dataset=None):
             for _ in range(epoch_size):
                 if iteration == (epoch + 1) * epoch_size:
                     break
-                if iteration >= cfg.max_iter or interrupted['flag']:
+                if iteration >= cfg.max_iter or stop_now():
                     break
                 new_cfg = apply_delayed_settings(cfg, iteration)
                 if new_cfg is not cfg:
-                    print(f'(delayed settings applied at iter {iteration})')
+                    say(f'(delayed settings applied at iter {iteration})')
                     cfg = state.cfg = state.model.cfg = new_cfg
 
                 with torch.profiler.record_function('train_iteration'):
@@ -302,9 +360,9 @@ def train(argv=None, dataset=None, val_dataset=None):
                     parts = ' | '.join(
                         f'{k}: {loss_avgs[k].get_avg():.3f}' for k in letters)
                     total = sum(loss_avgs[k].get_avg() for k in letters)
-                    print(f'[{epoch:3d}] {iteration:7d} || {parts} | '
-                          f'T: {total:.3f} || ETA: {eta_str} || '
-                          f'timer: {time_avg.get_avg():.3f}')
+                    say(f'[{epoch:3d}] {iteration:7d} || {parts} | '
+                        f'T: {total:.3f} || ETA: {eta_str} || '
+                        f'timer: {time_avg.get_avg():.3f}')
                     entry = dict(loss={k: losses_np.get(k) for k in letters},
                                  lr=losses_np.get('lr'), epoch=epoch,
                                  iter=iteration, elapsed=elapsed)
@@ -313,50 +371,59 @@ def train(argv=None, dataset=None, val_dataset=None):
                         log.log('train', **entry)
 
                 if iteration % args.save_interval == 0 and iteration > 0:
-                    latest = SavePath.get_latest(args.save_folder, cfg.name) \
-                        if args.keep_latest else None
-                    path = SavePath(cfg.name, epoch, iteration,
-                                    ext='.pth').get_path(root=args.save_folder)
-                    print(f'Saving state, iter: {iteration}')
-                    ckpt.save_checkpoint(state, path)
-                    summary['path'] = path
-                    if args.keep_latest:
-                        ckpt.prune_previous_checkpoint(
-                            latest, iteration, args.save_interval,
-                            args.keep_latest_interval)
+                    if lead:
+                        latest = SavePath.get_latest(
+                            args.save_folder, cfg.name) \
+                            if args.keep_latest else None
+                        path = SavePath(cfg.name, epoch, iteration,
+                                        ext='.pth').get_path(
+                                            root=args.save_folder)
+                        print(f'Saving state, iter: {iteration}')
+                        ckpt.save_checkpoint(state, path)
+                        summary['path'] = path
+                        if args.keep_latest:
+                            ckpt.prune_previous_checkpoint(
+                                latest, iteration, args.save_interval,
+                                args.keep_latest_interval)
+                    mesh.barrier()
 
-            if iteration >= cfg.max_iter or interrupted['flag']:
+            if iteration >= cfg.max_iter or stop_now():
                 break
 
             if args.validation_epoch > 0 and epoch % args.validation_epoch \
                     == 0 and epoch > 0:
-                summary['maps'] = compute_validation_map(
-                    cfg, state, args, log, epoch, iteration, val_dataset)
+                if lead:
+                    summary['maps'] = compute_validation_map(
+                        cfg, state, args, log, epoch, iteration, val_dataset)
+                mesh.barrier()
     finally:
         loader.stop()
         if previous_handler is not None:
             signal.signal(signal.SIGINT, previous_handler)
 
     summary.update(state=state, epoch=epoch, iteration=iteration)
-    if interrupted['flag']:
-        print('Stopping early. Saving network...')
-        SavePath.remove_interrupt(args.save_folder)
-        path = SavePath(cfg.name, epoch, f'{iteration}_interrupt',
-                        ext='.pth').get_path(root=args.save_folder)
-        ckpt.save_checkpoint(state, path)
-        summary['path'] = path
+    if stop_now():
+        if lead:
+            print('Stopping early. Saving network...')
+            SavePath.remove_interrupt(args.save_folder)
+            path = SavePath(cfg.name, epoch, f'{iteration}_interrupt',
+                            ext='.pth').get_path(root=args.save_folder)
+            ckpt.save_checkpoint(state, path)
+            summary['path'] = path
+        mesh.barrier()
         return summary
 
-    path = SavePath(cfg.name, epoch, iteration, ext='.pth').get_path(
-        root=args.save_folder)
-    ckpt.save_checkpoint(state, path)
-    summary['path'] = path
-
-    # validation mAP on the final weights (reference train.py:384-385
-    # computes it after the training loop)
-    if args.validation_epoch > 0:
-        summary['maps'] = compute_validation_map(
-            cfg, state, args, log, epoch, iteration, val_dataset)
+    if lead:
+        path = SavePath(cfg.name, epoch, iteration, ext='.pth').get_path(
+            root=args.save_folder)
+        ckpt.save_checkpoint(state, path)
+        summary['path'] = path
+        # validation mAP on the final weights (reference train.py:384-385
+        # computes it after the training loop)
+        if args.validation_epoch > 0:
+            summary['maps'] = compute_validation_map(
+                cfg, state, args, log, epoch, iteration, val_dataset)
+    mesh.barrier()
     return summary
 
 

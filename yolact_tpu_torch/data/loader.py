@@ -15,6 +15,11 @@ raises: bit-packed masks (``pack_masks``; the port's loss takes unpacked
 ``gt_masks``, ROADMAP A6b: only if the card shows the loader starving it)
 and uint8 images for on-device augmentation (``pack_images``, ROADMAP A9).
 
+Data parallelism: with ``rank`` and ``world``, ``batch_size`` is the global
+batch; every rank shuffles with the same seed and loads, augments and
+delivers only its rows ``[rank * b / world, (rank + 1) * b / world)`` of
+each global batch (``parallel/mesh.py:shard_batch``'s rows).
+
 Determinism: like torch's DataLoader, batches are delivered in epoch order
 regardless of which worker finishes first — the feeder stamps each index
 list with a sequence number and the consumer reorders.  A fixed seed
@@ -53,7 +58,7 @@ class BatchLoader:
                  num_workers: int = 2, prefetch: int = 4, seed: int = 0,
                  drop_last: bool = True, pack_masks: bool = False,
                  pack_images: bool = False, multires=None,
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, rank: int = 0, world: int = 1):
         if pack_masks:
             raise NotImplementedError(
                 'pack_masks: bit-packed mask targets are not ported '
@@ -66,8 +71,13 @@ class BatchLoader:
             raise ValueError(
                 f'dataset has {len(dataset)} items < batch_size '
                 f'{batch_size} with drop_last=True: zero batches per epoch')
+        if batch_size % world:
+            raise ValueError(f'batch_size {batch_size} does not divide over '
+                             f'{world} ranks')
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rank_rows = slice(rank * batch_size // world,
+                               (rank + 1) * batch_size // world)
         self.max_gt = max_gt
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
@@ -110,7 +120,7 @@ class BatchLoader:
                 crowds = [it[5] for it in items]
                 batch = pad_batch(imgs, targets, masks, crowds, self.max_gt,
                                   multires=self.multires)
-                if n_valid < self.batch_size:
+                if n_valid < len(idxs):
                     # drop_last=False pads the final short batch by
                     # wrapping around — mark how many rows are real so
                     # consumers don't double-count the duplicates
@@ -147,6 +157,10 @@ class BatchLoader:
                     # one batch) so shapes stay static
                     idxs = np.resize(
                         np.concatenate([idxs, order]), self.batch_size)
+                # this rank's rows, and how many of them are real
+                first = self.rank_rows.start
+                idxs = idxs[self.rank_rows]
+                n_valid = min(max(n_valid - first, 0), len(idxs))
                 while not self._stop.is_set():
                     try:
                         self._index_queue.put((seq, list(idxs), n_valid),

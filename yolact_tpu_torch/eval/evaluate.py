@@ -18,8 +18,16 @@ go to the card and only the ``[D, G]`` IoU matrices come back.  Otherwise
 come to the host (``detect/postprocess.py:finish_masks``) and the
 evaluator computes the IoU there.  Direct masks (``MaskType.DIRECT``) are
 box-local patches: they always take the host paste
-(``finish_masks_direct``), on the card too, as in JAX.  Multi-device
-evaluation is not ported yet (ROADMAP A9).
+(``finish_masks_direct``), on the card too, as in JAX.
+
+Multi-device evaluation (``n_devices``; JAX shards each batch over a 1-D
+device mesh): one pipeline replica per device (:class:`ReplicatedPipeline`)
+takes its equal slice of each batch in order, and the outputs are merged
+in order on the first device, so the loop after it is the one-device
+loop.  The batch is rounded up to a multiple of the device count (and the
+rounding printed), 0 means every local device, and a request for more
+devices than are present raises, as in JAX.  On the CPU every replica
+runs on the CPU.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import random as _random
 import threading
 import time
 import traceback
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -45,7 +53,8 @@ from yolact_tpu_torch.eval.device_metrics import mask_iou_device
 from yolact_tpu_torch.eval.evaluator import (badhash, calc_map,
                                              make_ap_data, prep_metrics)
 from yolact_tpu_torch.eval.traditional import TraditionalPipeline
-from yolact_tpu_torch.infer import Pipeline, _prepare_input
+from yolact_tpu_torch.infer import (InferenceOutput, Pipeline, _prepare_input,
+                                    check_device)
 from yolact_tpu_torch.utils import timer
 from yolact_tpu_torch.utils.functions import MovingAverage, ProgressBar
 
@@ -67,6 +76,51 @@ class _PrefetchError:
     def __init__(self, exc):
         self.exc = exc
         self.tb = traceback.format_exc()
+
+
+class ReplicatedPipeline:
+    """Pipeline replicas, one per device, behind one pipeline's call: each
+    batch is cut into equal slices in order, replica ``i`` answers slice
+    ``i``, and the outputs are concatenated in order on the first
+    replica's device.  ``model`` is the first replica's."""
+
+    def __init__(self, replicas: List):
+        self.replicas = replicas
+        self.device = replicas[0].device
+
+    @property
+    def model(self):
+        return self.replicas[0].model
+
+    def __call__(self, images) -> InferenceOutput:
+        n = len(images) // len(self.replicas)
+        if n * len(self.replicas) != len(images):
+            raise ValueError(f'a batch of {len(images)} does not divide '
+                             f'over {len(self.replicas)} devices')
+        outs = [r(images[i * n:(i + 1) * n])
+                for i, r in enumerate(self.replicas)]
+        return InferenceOutput(*(
+            None if getattr(outs[0], f) is None
+            else torch.cat([getattr(o, f).to(self.device) for o in outs])
+            for f in InferenceOutput._fields))
+
+
+def eval_devices(device: Union[str, torch.device], n_devices: int
+                 ) -> List[torch.device]:
+    """The devices of `n_devices` replicas (0: every local device): CUDA
+    devices 0 .. n - 1 for a CUDA `device` (more than are present raises),
+    `device` itself n times for the CPU."""
+    device = check_device(device)
+    if device.type != 'cuda':
+        return [device] * max(1, n_devices)
+    present = torch.cuda.device_count()
+    n = present if n_devices == 0 else n_devices
+    if n > present:
+        raise ValueError(f'--eval_devices={n} but only {present} CUDA '
+                         f'devices are present')
+    if n == 1:
+        return [device]
+    return [torch.device('cuda', i) for i in range(n)]
 
 
 def _prefetcher(dataset, indices, out_q, stop):
@@ -133,25 +187,33 @@ def evaluate_dataset(cfg: YolactConfig, state_dict: Dict[str, torch.Tensor],
     host-transformed images (``make_eval_dataset``).  ``device_mask_iou``
     computes the mask IoU of the mAP table on the pipeline's device
     (default: when that device is CUDA); the JSON and display modes need
-    the masks on the host and do not take it."""
-    if n_devices != 1:
-        raise NotImplementedError(
-            'multi-device evaluation is not ported yet (ROADMAP A9)')
-    if fast_nms:
-        pipeline = Pipeline(cfg, state_dict, device, compute_dtype,
+    the masks on the host and do not take it.  ``n_devices``: replicas on
+    that many devices, 0 for every local one (module docstring)."""
+    devices = eval_devices(device, n_devices)
+    if len(devices) > 1 and eval_batch_size % len(devices):
+        rounded = -(-eval_batch_size // len(devices)) * len(devices)
+        if not quiet:
+            print(f'eval_batch_size {eval_batch_size} not divisible by '
+                  f'{len(devices)} devices; using {rounded}')
+        eval_batch_size = rounded
+
+    def replica(dev):
+        if fast_nms:
+            return Pipeline(cfg, state_dict, dev, compute_dtype,
                             use_cross_class_nms=cross_class_nms,
                             score_threshold=score_threshold,
                             crop_masks=crop_masks, use_kernels=use_kernels,
                             preprocess=False)
-    else:
         # traditional greedy NMS: the card runs forward + decode + scores,
         # the per-class O(n^2) suppression and mask assembly run on the
         # host (detection.py:182-228 semantics)
-        pipeline = TraditionalPipeline(cfg, state_dict, device, compute_dtype,
-                                       score_threshold=score_threshold,
-                                       preprocess=False,
-                                       crop_masks=crop_masks,
-                                       use_kernels=use_kernels)
+        return TraditionalPipeline(cfg, state_dict, dev, compute_dtype,
+                                   score_threshold=score_threshold,
+                                   preprocess=False, crop_masks=crop_masks,
+                                   use_kernels=use_kernels)
+
+    pipeline = replica(devices[0]) if len(devices) == 1 else \
+        ReplicatedPipeline([replica(d) for d in devices])
 
     dataset_size = len(dataset) if max_images < 0 else \
         min(max_images, len(dataset))

@@ -186,15 +186,29 @@ def check_device(device: Union[str, torch.device]) -> torch.device:
     return device
 
 
+def use_float32_math(compute_dtype: str) -> None:
+    """float32 means float32: for a float32 model turn off TF32 in cuDNN's
+    convolutions and in cuBLAS's matmuls (PyTorch's default lets cuDNN
+    round float32 inputs to a 10-bit mantissa).  The flags are the
+    process's: the backward's convolutions read them when they run, so a
+    scope around the forward would not hold them.  A bfloat16 model leaves
+    them as they are."""
+    if compute_dtype == 'float32':
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def load_model(cfg: YolactConfig, state_dict: Dict[str, torch.Tensor],
                device: torch.device,
                compute_dtype: Optional[str] = None) -> Yolact:
     """Yolact(cfg) with the state dict (strict), its convolutions in
-    ``compute_dtype`` (default ``cfg.compute_dtype``), on ``device``, in
-    eval mode."""
+    ``compute_dtype`` (default ``cfg.compute_dtype``; float32 turns TF32
+    off, :func:`use_float32_math`), on ``device``, in eval mode."""
+    compute_dtype = compute_dtype or cfg.compute_dtype
     model = Yolact(cfg)
     model.load_state_dict(state_dict, strict=True)
-    model.set_compute_dtype(_DTYPES[compute_dtype or cfg.compute_dtype])
+    model.set_compute_dtype(_DTYPES[compute_dtype])
+    use_float32_math(compute_dtype)
     return model.to(device).eval()
 
 
@@ -202,7 +216,8 @@ class Pipeline:
     """Owns the model on one device and answers batches of frames.
 
     ``compute_dtype`` ('float32' or 'bfloat16', default ``cfg.compute_dtype``)
-    is the convolution dtype; the state dict stays float32.  A CUDA device
+    is the convolution dtype (float32 turns TF32 off,
+    :func:`use_float32_math`); the state dict stays float32.  A CUDA device
     that is not there raises; there is no CPU fallback.  ``preprocess``:
     True takes raw [B, H, W, 3] BGR frames, and the space-to-depth stem
     where the config supports it (``maybe_enable_stem_s2d``, as JAX's

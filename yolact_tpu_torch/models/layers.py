@@ -112,7 +112,17 @@ class BatchNorm2d(nn.Module):
     ``shared``: the layer runs more than once per forward (the prediction
     head shared by every level, which activation checkpointing never
     replays); each call then starts from the statistics the call before it
-    left, as the reference's in-place update and flax's do."""
+    left, as the reference's in-place update and flax's do.
+
+    ``mesh`` (a ``parallel/mesh.py:Mesh`` of more than one rank, set by
+    ``train/step.py:create_train_state``): each rank holds its rows of the
+    global batch, and ``train=True`` normalises with the GLOBAL batch's
+    moments, as JAX's sharded step does.  Every rank's (count, mean, sum of
+    squared deviations) goes to every rank in one differentiable
+    all-reduce (each rank fills its own slot of a zero buffer, so the sum
+    is an exact gather), and each combines them in rank order (Chan's
+    pairwise rule): the same moments, bit for bit, on every rank, with
+    their gradient flowing back to every rank's rows."""
 
     momentum = 0.1
 
@@ -125,11 +135,14 @@ class BatchNorm2d(nn.Module):
         self.register_buffer('running_mean', torch.zeros(num_features))
         self.register_buffer('running_var', torch.ones(num_features))
         self.pending = None     # (running_mean, running_var) after this batch
+        self.mesh = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.mesh is not None and self.mesh.size > 1:
+            return self._global_batch_norm(x)
         # momentum 1 leaves exactly the batch mean and its unbiased variance
         mean = torch.zeros_like(self.running_mean)
         var = torch.ones_like(self.running_var)
@@ -143,6 +156,32 @@ class BatchNorm2d(nn.Module):
                 torch.lerp(start[0], mean, self.momentum),
                 torch.lerp(start[1], var * ((n - 1) / n), self.momentum))
         return out
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """``train=True`` over the ranks' rows together (see the class
+        docstring); the pending statistics as the one-device forward leaves
+        them for the global batch."""
+        mesh = self.mesh
+        xf = x.float()
+        n = x.numel() // x.shape[1]
+        mean = xf.mean(dim=(0, 2, 3))
+        m2 = (xf - mean[:, None, None]).square().sum(dim=(0, 2, 3))
+        local = torch.stack([torch.full_like(mean, n), mean, m2])[None]
+        parts = mesh.all_sum_grad(F.pad(
+            local, (0, 0, 0, 0, mesh.rank, mesh.size - 1 - mesh.rank)))
+        counts, means, m2s = parts.unbind(1)               # [W, C] each
+        total = counts.sum(0)
+        mean = (counts * means).sum(0) / total
+        var = (m2s + counts * (means - mean).square()).sum(0) / total
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        out = (xf - mean[:, None, None]) * scale[:, None, None] \
+            + self.bias[:, None, None]
+        with torch.no_grad():
+            start = self.pending if self.shared and self.pending else \
+                (self.running_mean, self.running_var)
+            self.pending = (torch.lerp(start[0], mean, self.momentum),
+                            torch.lerp(start[1], var, self.momentum))
+        return out.to(x.dtype)
 
 
 class GroupNorm(nn.GroupNorm):

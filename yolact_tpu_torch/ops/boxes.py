@@ -8,6 +8,8 @@ agree to the last bit where both sides round the same way.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 # SSD encode/decode variances
@@ -93,11 +95,14 @@ def encode(matched: torch.Tensor, priors: torch.Tensor,
     return torch.cat([g_cxcy, g_wh], dim=-1)
 
 
-def log_sum_exp(x: torch.Tensor) -> torch.Tensor:
+def log_sum_exp(x: torch.Tensor,
+                x_max: Optional[torch.Tensor] = None) -> torch.Tensor:
     """log-sum-exp over the last axis, stabilised by the GLOBAL max (not
     the row's), as the reference does, so OHEM scores match; the max takes
-    no gradient."""
-    x_max = x.detach().max()
+    no gradient.  `x_max`: that max where `x` is one rank's rows of the
+    batch."""
+    if x_max is None:
+        x_max = x.detach().max()
     return torch.log(torch.exp(x - x_max).sum(dim=-1)) + x_max
 
 

@@ -7,11 +7,14 @@ Port of ``yolact_tpu/train/checkpoint.py``.  Reference semantics
 retention.  As in the JAX package the optimizer state (the SGD momentum) is
 saved too, which the reference drops on resume.
 
-A port checkpoint is one ``torch.save`` of ``{'step', 'model': the model's
-state dict, 'optimizer': optimizer.state_dict(), 'param_names': the names
-of the optimizer's parameters in its order, 'conf_state'}``, written to
-``<path>.tmp`` and renamed over `path`, so a crash mid-write leaves the
-previous file whole.  The momentum is restored by parameter name, so a run
+A port checkpoint is one ``torch.save`` of ``{'step', 'state_dict': the
+model's state dict, 'optimizer': optimizer.state_dict(), 'param_names':
+the names of the optimizer's parameters in its order, 'conf_state'}``,
+written to ``<path>.tmp`` and renamed over `path`, so a crash mid-write
+leaves the previous file whole.  The weights sit under ``'state_dict'``,
+the key the reference's loader and the JAX package's ``load_pth`` unwrap,
+so either reads the file as weights; checkpoints written before that
+(the weights under ``'model'``) still resume.  The momentum is restored by parameter name, so a run
 may resume with another ``freeze_bn`` (which changes the optimizer's
 parameter list) and the current config's momentum and weight decay.
 
@@ -77,8 +80,11 @@ def read_checkpoint(cfg: YolactConfig, path: str) -> Dict[str, Any]:
     if not path.endswith('.pth'):
         raise ValueError(f'{path}: expected a .pth or a JAX .ckpt file')
     blob = torch.load(path, map_location='cpu', weights_only=False)
-    if isinstance(blob, dict) and 'model' in blob and 'step' in blob:
+    if isinstance(blob, dict) and 'step' in blob and (
+            'state_dict' in blob or 'model' in blob):
         ckpt = dict(blob)                   # a port train state
+        if 'state_dict' in ckpt:
+            ckpt['model'] = ckpt.pop('state_dict')
     elif isinstance(blob, dict) and 'state_dict' in blob:
         ckpt = {'model': blob['state_dict']}
     else:
@@ -108,7 +114,7 @@ def save_checkpoint(state, path: str) -> None:
     os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
     names = {p: n for n, p in state.model.named_parameters()}
     blob = {'step': int(state.step),
-            'model': state.model.state_dict(),
+            'state_dict': state.model.state_dict(),
             'optimizer': state.optimizer.state_dict(),
             'param_names': [names[p] for group in state.optimizer.param_groups
                             for p in group['params']],

@@ -29,6 +29,19 @@ descending sort.
 ``direct_mask_loss`` takes ``mask_priorities`` the same way (JAX draws its
 own per image from the key it is given, with no split for the mask-IoU
 cap).
+
+Data parallelism.  With a ``mesh`` (``parallel/mesh.py``) of more than one
+rank, each rank passes its rows of the batch and of ``mask_priorities`` and
+the GLOBAL ``maskiou_priorities`` [B * masks_to_train], and gets its share
+of the loss of the global batch: the ranks' shares sum to the one-device
+loss of the global batch, as JAX's sharded step computes it.  Whatever
+reduces over the batch reduces over the ranks: the positive count that
+divides B, C, M, D and I, the batch size that divides P, E and S (and P's
+mean over the prototypes), OHEM's stabilising max, the class-balanced
+counts (so every rank holds the same ``conf_state``) and the mask-IoU cap
+(each rank sees every rank's valid slots and takes the same k-th
+priority).  The matcher, the per-image mask-loss scale and the slots are
+per image and need nothing.
 """
 
 from __future__ import annotations
@@ -108,7 +121,7 @@ def _mask_slots(pos: torch.Tensor, mask_priorities: torch.Tensor,
 
 
 def ohem_conf_loss(cfg: YolactConfig, conf_data, conf_t, pos,
-                   conf_state=None):
+                   conf_state=None, mesh=None):
     """OHEM with 3:1 hard negative mining (multibox_loss.py:242-296).
 
     With ``use_class_balanced_conf``, `conf_state` is a dict
@@ -119,7 +132,10 @@ def ohem_conf_loss(cfg: YolactConfig, conf_data, conf_t, pos,
     if cfg.ohem_use_most_confident:
         loss_c = F.softmax(batch_conf, dim=-1)[:, 1:].amax(dim=-1)
     else:
-        loss_c = log_sum_exp(batch_conf) - batch_conf[:, 0]
+        x_max = batch_conf.detach().max()
+        if mesh is not None:
+            x_max = mesh.all_max(x_max)
+        loss_c = log_sum_exp(batch_conf, x_max) - batch_conf[:, 0]
     loss_c = loss_c.reshape(b, p)
     loss_c = torch.where(pos | (conf_t < 0), 0.0, loss_c)
 
@@ -137,9 +153,13 @@ def ohem_conf_loss(cfg: YolactConfig, conf_data, conf_t, pos,
 
     if cfg.use_class_balanced_conf and conf_state is not None:
         sel_f = selected.reshape(-1).float()
-        new_counts = conf_state['class_counts'] + torch.bincount(
-            tgt.reshape(-1), weights=sel_f, minlength=c)
-        new_total = conf_state['total'] + sel_f.sum()
+        counts = torch.bincount(tgt.reshape(-1), weights=sel_f, minlength=c)
+        total = sel_f.sum()
+        if mesh is not None:
+            both = mesh.all_sum(torch.cat([counts, total[None]]))
+            counts, total = both[:c], both[c]
+        new_counts = conf_state['class_counts'] + counts
+        new_total = conf_state['total'] + total
         weighting = 1.0 - new_counts[tgt] / new_total.clamp(min=1.0)
         weighting = weighting.clamp(min=1.0 / c)
         avg_weight = (c - 1) / c
@@ -277,11 +297,13 @@ class MaskIoUTargets(NamedTuple):
 
 def lincomb_mask_loss(cfg: YolactConfig, m: MatchResult, loc_data, mask_data,
                       priors, proto_data, gt_masks, gt_labels,
-                      mask_priorities, maskiou_priorities=None, dm_pre=None):
+                      mask_priorities, maskiou_priorities=None, dm_pre=None,
+                      mesh=None):
     """Prototype-coefficient mask loss (multibox_loss.py:499-674).
 
     ``mask_priorities [B, P]``, ``maskiou_priorities [B * M]``: the random
-    draws (module docstring).  ``dm_pre``: optional pre-downsampled
+    draws (module docstring; with a `mesh`, the rank's rows and the global
+    draws).  ``dm_pre``: optional pre-downsampled
     binarized gt at proto resolution [B, G, Hp, Wp]; when absent,
     ``gt_masks`` [B, G, S, S] are downsampled here."""
     pos, idx_t = m.pos, m.idx_t
@@ -402,12 +424,16 @@ def lincomb_mask_loss(cfg: YolactConfig, m: MatchResult, loc_data, mask_data,
                 # perm[:cfg.masks_to_train]: a kept quirk, so the cap size
                 # is masks_to_train.
                 flat_ok = miou_valid.reshape(-1)        # [B * M]
+                if mesh is not None:                    # every rank's slots
+                    flat_ok = mesh.all_gather(flat_ok)
                 cap = min(cfg.masks_to_train, flat_ok.shape[0])
                 mpri = torch.where(flat_ok, maskiou_priorities, -1.0)
                 kth = torch.sort(mpri).values[-cap]
                 capped = flat_ok & (mpri >= kth)
                 flat_ok = torch.where(
                     flat_ok.sum() > cfg.maskious_to_train, capped, flat_ok)
+                if mesh is not None:
+                    flat_ok = flat_ok[mesh.rows(flat_ok.shape[0])]
                 miou_valid = flat_ok.reshape(miou_valid.shape)
         miou_targets = MaskIoUTargets(pred, iou_t, label_t.clamp(min=0),
                                       miou_valid)
@@ -483,14 +509,15 @@ def multibox_loss(cfg: YolactConfig, predictions: Dict, batch: Dict,
                   mask_priorities: Optional[torch.Tensor] = None,
                   maskiou_priorities: Optional[torch.Tensor] = None,
                   maskiou_net: Optional[Callable] = None, conf_state=None,
-                  num_gts=None
+                  num_gts=None, mesh=None
                   ) -> Tuple[Dict[str, torch.Tensor], MatchResult]:
     """Full training loss.  `batch` holds tensors in the contract of
     ``data/coco.py:pad_batch`` (gt_masks may be uint8; or the pre-downsampled
     ``gt_masks_proto`` / ``gt_masks_seg``).  Returns ({letter: scalar},
     match_result); with ``use_class_balanced_conf`` the updated conf_state
     rides back in ``losses['_conf_state']`` (popped by the train step, never
-    summed).  `num_gts`: see ``train/matcher.py:match``."""
+    summed).  `num_gts`: see ``train/matcher.py:match``.  `mesh`: the
+    rank's share of the global batch's loss (module docstring)."""
     loc_data = predictions['loc'].float()
     conf_data = predictions['conf'].float()
     mask_data = predictions['mask'].float()
@@ -514,7 +541,11 @@ def multibox_loss(cfg: YolactConfig, predictions: Dict, batch: Dict,
               num_gts=num_gts)
 
     losses: Dict[str, torch.Tensor] = {}
-    total_num_pos = m.pos.sum().clamp(min=1).float()
+    total_num_pos = m.pos.sum()
+    if mesh is not None:
+        total_num_pos = mesh.all_sum(total_num_pos)
+    total_num_pos = total_num_pos.clamp(min=1).float()
+    world = 1 if mesh is None else mesh.size
 
     if cfg.train_boxes:
         l1 = smooth_l1(loc_data, m.loc_t).sum(dim=-1) * m.pos
@@ -532,15 +563,15 @@ def multibox_loss(cfg: YolactConfig, predictions: Dict, batch: Dict,
         mask_losses, maskiou_targets = lincomb_mask_loss(
             cfg, m, loc_data, mask_data, priors, proto_data, gt_masks,
             gt_labels, mask_priorities, maskiou_priorities,
-            dm_pre=pre_target('gt_masks_proto'))
+            dm_pre=pre_target('gt_masks_proto'), mesh=mesh)
         losses.update(mask_losses)
         if cfg.mask_proto_loss == 'l1':
             # l1_expected_area / l1_alpha from multibox_loss.py:37-39
-            losses['P'] = predictions['proto'].abs().mean() / \
+            losses['P'] = predictions['proto'].abs().mean() / world / \
                 (20 * 20 / 70 / 70) * 0.1
         elif cfg.mask_proto_loss == 'disj':
             losses['P'] = -F.log_softmax(
-                predictions['proto'], dim=-1).amax(dim=-1).mean()
+                predictions['proto'], dim=-1).amax(dim=-1).mean() / world
 
     if cfg.use_focal_loss:
         if cfg.use_sigmoid_focal_loss:
@@ -554,7 +585,7 @@ def multibox_loss(cfg: YolactConfig, predictions: Dict, batch: Dict,
                                            loc_data, m.loc_t, priors)
     else:
         losses['C'], new_conf_state = ohem_conf_loss(
-            cfg, conf_data, m.conf_t, m.pos, conf_state)
+            cfg, conf_data, m.conf_t, m.pos, conf_state, mesh)
         if cfg.use_class_balanced_conf and new_conf_state is not None:
             losses['_conf_state'] = new_conf_state
 
@@ -570,7 +601,7 @@ def multibox_loss(cfg: YolactConfig, predictions: Dict, batch: Dict,
             cfg, predictions['segm'].float(), gt_masks, gt_labels,
             ds_pre=pre_target('gt_masks_seg'))
 
-    batch_size = loc_data.shape[0]
+    batch_size = loc_data.shape[0] * world
     for k in losses:
         if k == '_conf_state':
             continue

@@ -17,6 +17,25 @@ count lands on the right lr.  As in JAX:
 * the loss draws its sampling priorities from the caller's
   ``torch.Generator`` (``train/loss.py``).
 
+Data parallelism (``parallel/mesh.py``; a state built with a ``mesh`` of
+more than one rank): each rank passes its rows of the global batch, and
+the step is the one-device step on the global batch, as JAX's sharded step
+is.  Every rank draws the priorities of the global batch from the same
+seeded generator and keeps its rows; batch norm takes the global moments
+(``models/layers.py``) and the loss its share of the global loss
+(``train/loss.py``).  After the backward one all-reduce sums each
+parameter's gradient over the ranks (the sum of the shares' gradients is
+the gradient of the global loss), so every rank applies the same update
+to the same weights.  That all-reduce is written out instead of wrapping
+the model in ``DistributedDataParallel``: DDP averages (the loss would
+have to be scaled by the world size), broadcasts buffers, and fires its
+bucketed all-reduces from autograd hooks while batch norm's own
+all-reduces run in the same backward and in activation checkpointing's
+replays, where one explicit collective after the backward keeps the order
+of collectives the same on every rank.  The finite guard's flag is agreed
+over the ranks, so they skip a step together, and the returned losses are
+the global batch's.
+
 The step computes in ``cfg.compute_dtype`` over float32 master weights, as
 the JAX trainer's flax modules with ``dtype`` over float32 params do:
 ``create_train_state`` leaves the parameters float32 and sets the model's
@@ -39,10 +58,12 @@ import numpy as np
 import torch
 
 from yolact_tpu_torch.config import YolactConfig
-from yolact_tpu_torch.infer import check_device, random_state_dict
+from yolact_tpu_torch.infer import (check_device, random_state_dict,
+                                    use_float32_math)
 from yolact_tpu_torch.models.layers import (BatchNorm2d, commit_batch_stats,
                                             drop_batch_stats, s2d_input)
 from yolact_tpu_torch.models.yolact import Yolact
+from yolact_tpu_torch.parallel.mesh import Mesh
 from yolact_tpu_torch.train.loss import multibox_loss
 from yolact_tpu_torch.train.schedule import learning_rate
 
@@ -55,6 +76,8 @@ class TrainState:
     step: int = 0
     # running selected-example class counts for use_class_balanced_conf
     conf_state: Optional[Dict[str, torch.Tensor]] = None
+    # the data-parallel group; None: one device
+    mesh: Optional[Mesh] = None
 
     @property
     def device(self) -> torch.device:
@@ -62,12 +85,18 @@ class TrainState:
 
 
 def create_train_state(cfg: YolactConfig, seed: int = 0,
-                       device: Union[str, torch.device] = 'cuda:0',
-                       state_dict: Optional[Dict[str, torch.Tensor]] = None
-                       ) -> TrainState:
+                       device: Union[str, torch.device, None] = None,
+                       state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """The model (seeded random weights in the JAX package's init scheme,
-    or `state_dict`) with float32 parameters on `device`, computing in
-    ``cfg.compute_dtype``, and its optimizer."""
+    or `state_dict`) with float32 parameters on `device` (default: the
+    mesh's device, else ``cuda:0``), computing in ``cfg.compute_dtype``
+    (float32 turns TF32 off, ``infer.use_float32_math``), and its
+    optimizer.  With a `mesh` of more than one rank the step is data
+    parallel (module docstring); every rank must start from the same
+    weights."""
+    if device is None:
+        device = 'cuda:0' if mesh is None else mesh.device
     device = check_device(device)
     if state_dict is None:
         state_dict = random_state_dict(
@@ -77,6 +106,11 @@ def create_train_state(cfg: YolactConfig, seed: int = 0,
     model.set_compute_dtype(getattr(torch, cfg.compute_dtype),
                             cast_weights=False)
     model.to(device)
+    use_float32_math(cfg.compute_dtype)
+    if mesh is not None and mesh.size > 1:
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.mesh = mesh
     if cfg.freeze_bn:
         for m in model.modules():
             if isinstance(m, BatchNorm2d):
@@ -91,7 +125,7 @@ def create_train_state(cfg: YolactConfig, seed: int = 0,
         conf_state = {'class_counts': torch.zeros(cfg.num_classes,
                                                   device=device),
                       'total': torch.zeros((), device=device)}
-    return TrainState(cfg, model, optimizer, 0, conf_state)
+    return TrainState(cfg, model, optimizer, 0, conf_state, mesh)
 
 
 def batch_to_device(batch: Dict[str, Any], device: torch.device
@@ -127,7 +161,10 @@ def loss_and_grads(state: TrainState, batch: Dict[str, Any],
                    use_kernels: bool = True) -> Dict[str, torch.Tensor]:
     """Forward (train mode), loss and backward: fills every trained
     parameter's ``.grad`` and returns the losses by letter plus ``total``.
-    Batch-norm statistics stay pending; nothing is updated."""
+    Batch-norm statistics stay pending; nothing is updated.  Under a mesh
+    `batch` and `mask_priorities` are the rank's rows and
+    `maskiou_priorities` the global draws; the gradients and the returned
+    losses are the global batch's, on every rank."""
     cfg, model = state.cfg, state.model
     if any(p.dtype != torch.float32 for p in model.parameters()):
         raise ValueError(
@@ -152,13 +189,21 @@ def loss_and_grads(state: TrainState, batch: Dict[str, Any],
     losses, _ = multibox_loss(
         cfg, preds, tensors, mask_priorities, maskiou_priorities,
         maskiou_net=model.maskiou_net, conf_state=state.conf_state,
-        num_gts=None if num_gts is None else np.asarray(num_gts))
+        num_gts=None if num_gts is None else np.asarray(num_gts),
+        mesh=state.mesh)
     new_conf_state = losses.pop('_conf_state', state.conf_state)
     total = sum(losses.values())
     total.backward()
     state.conf_state = new_conf_state
-    return dict({k: v.detach() for k, v in losses.items()},
-                total=total.detach())
+    out = dict({k: v.detach() for k, v in losses.items()},
+               total=total.detach())
+    mesh = state.mesh
+    if mesh is not None and mesh.size > 1:
+        mesh.all_sum_grads([p for group in state.optimizer.param_groups
+                            for p in group['params']])
+        summed = mesh.all_sum(torch.stack(list(out.values())))
+        out = dict(zip(out, summed.unbind()))
+    return out
 
 
 def grads_finite(state: TrainState) -> torch.Tensor:
@@ -178,6 +223,8 @@ def apply_gradients(state: TrainState, losses: Dict[str, Any]
     # the loss can still be finite on the step where the backward pass
     # overflows, so the guard covers the gradients too
     finite = bool(losses['total'].isfinite() & grads_finite(state))
+    if state.mesh is not None:        # every rank skips, or none does
+        finite = state.mesh.all_true(finite)
     lr = learning_rate(state.cfg, state.step)   # resume-safe: from the count
     if finite:
         for group in state.optimizer.param_groups:
@@ -196,10 +243,18 @@ def train_step(state: TrainState, batch: Dict[str, Any],
                use_kernels: bool = True) -> Dict[str, Any]:
     """One SGD step in place on `state`.  Returns the losses by letter
     (detached device scalars) with ``total``, ``lr`` (a float) and
-    ``finite`` (whether the update was applied)."""
+    ``finite`` (whether the update was applied).  Under a mesh `batch` is
+    the rank's rows of the global batch, and `generator` is seeded alike
+    on every rank: the draws are the global batch's."""
     image = batch['image']
     priors = state.model.priors(image.shape[1], image.shape[2], state.device)
-    draws = draw_priorities(state.cfg, image.shape[0], priors.shape[0],
-                            generator, state.device)
+    world = 1 if state.mesh is None else state.mesh.size
+    mask_priorities, maskiou_priorities = draw_priorities(
+        state.cfg, image.shape[0] * world, priors.shape[0], generator,
+        state.device)
+    if world > 1:
+        mask_priorities = mask_priorities[state.mesh.rows(
+            mask_priorities.shape[0])]
     return apply_gradients(
-        state, loss_and_grads(state, batch, *draws, use_kernels=use_kernels))
+        state, loss_and_grads(state, batch, mask_priorities,
+                              maskiou_priorities, use_kernels=use_kernels))
