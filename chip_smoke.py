@@ -133,9 +133,30 @@ Phases, each of which raises on failure:
    each under deterministic algorithms on a fixed batch and draws,
    bit-equal; the resumed run starts at the saved step and its learning
    rate; the log holds train and val entries; validation prints its mAP
-   table.  Prints per run the median ms per iteration, the loader's share
-   of it, images/s, peak memory, device busy and idle share (profiler
-   kernel events inside the loop's iterations), and bf16 against f32
+   table.  The second mode, --device_augment (the loader resizes with
+   RawResize and ships uint8 images and bit-packed full-resolution masks,
+   the step augments on the card): yolact_base --stem_s2d bf16 and
+   yolact_plus_base bf16, 10 iterations each, the same checks and
+   launches.  Prints per run the median ms per iteration, the loader's
+   share of it, images/s, peak memory, device busy and idle share
+   (profiler kernel events inside the loop's iterations), the step alone,
+   the bytes each batch copies to the card, bf16 against f32, and each
+   device-augment run against the host-augment run of its model
+8b. device augmentation and the packed transports (run after phase 8):
+   eight of phase 8's frames through RawResize, padded to 100 gts, masks
+   bit-packed and the image uint8, as the device-augment loader ships
+   them (their bytes printed against unpacked float transport);
+   train/step.py:prepare_batch (unpack, data/device_augment.py with
+   augment_random_flip on, yolact_base's proto and seg targets) on the card
+   under torch.cuda.set_sync_debug_mode('error') (no host sync) and on the
+   CPU with the same draws: the affine maps (crop windows, expand
+   offsets), boxes, labels and counts equal, images within 1e-4, mask
+   targets equal but where a float64 run of the warp, turn and resize on
+   the card puts the pixel within 1e-6 of 0.5, and no target pixel beyond
+   1e-6 of 0.5 on the other side of that float64 threshold; its device
+   time per batch; then a yolact_base s2d f32 step (deterministic
+   algorithms) on gt_masks_packed with a uint8 image and on packed
+   multires targets, each with losses bit-equal to the unpacked batch's
 10. data parallelism (run between phases 8 and 7): (a) two gloo ranks
    in processes of their own (spawn) share the one card (NCCL refuses two
    ranks on one device): yolact_plus_base at 550x550 with the s2d stem,
@@ -177,9 +198,11 @@ Phases, each of which raises on failure:
    five shapes in f32 and bf16 with its global reductions
 
 Each phase prints its seconds, and the end of the run all of them; the
-run order is 1, 2, 3, 4, 4b, 9, 5, 6, 8, 10, 7.
+run order is 1, 2, 3, 4, 4b, 9, 5, 6, 8, 8b, 10, 7.
 The line before the last is a JSON object with each kernel's launches
 (and, as trainer_launches, its launches in the trainer's runs, as
+device_augment_launches_per_step per step of phase 8's device-augment
+runs by run, as
 option_launches in phase 9's runs by path, and as
 dp_launches_per_rank_step per rank in a step of phase 10's two-rank
 run), error,
@@ -207,7 +230,9 @@ from yolact_tpu_torch import MEANS, STD, get_config
 from yolact_tpu_torch.cli import train as train_cli
 from yolact_tpu_torch.config import (RESNET101_GN_BACKBONE, MaskType,
                                      register_config)
-from yolact_tpu_torch.data.augmentations import SSDAugmentation
+from yolact_tpu_torch.data import device_augment as device_augment_module
+from yolact_tpu_torch.data.augmentations import RawResize, SSDAugmentation
+from yolact_tpu_torch.data.coco import pack_batch_masks, pad_batch
 from yolact_tpu_torch.detect import detection
 from yolact_tpu_torch.cli import coco_eval as coco_eval_cli
 from yolact_tpu_torch.data import rle as rle_codec
@@ -223,14 +248,17 @@ from yolact_tpu_torch.infer import (InferenceOutput, Pipeline,
 from yolact_tpu_torch.kernels import _build, dcn, mask_assembly, nms, stem
 from yolact_tpu_torch.models.layers import BatchNorm2d, drop_batch_stats
 from yolact_tpu_torch.models.resnet import DCNLayer
-from yolact_tpu_torch.ops.anchors import proto_size
+from yolact_tpu_torch.ops.anchors import proto_size, seg_size
+from yolact_tpu_torch.ops.bits import pack_bits_last, unpack_bits_last
+from yolact_tpu_torch.ops.resize import _weights as resize_weights
+from yolact_tpu_torch.ops.resize import resize_bilinear_np
 from yolact_tpu_torch.train import checkpoint, step as step_module
 from yolact_tpu_torch.train.loss import multibox_loss
 from yolact_tpu_torch.train.matcher import match as match_priors
 from yolact_tpu_torch.train.schedule import learning_rate
 from yolact_tpu_torch.train.step import (batch_to_device, create_train_state,
                                          draw_priorities, loss_and_grads,
-                                         train_step)
+                                         prepare_batch, train_step)
 
 # Each kernel with the path whose launches the kernels line reports.
 KERNELS = {
@@ -2804,7 +2832,18 @@ TRAINER_RUNS = (
     ('yolact_plus_base bf16', 'yolact_plus_base',
      ['--compute_dtype', 'bfloat16', '--train_remat', 'dcn'], 10, 0,
      dict(stem_s2d=0, dcn=22, dcn_col2im=11)),
+    # the second mode: the augmentation on the card (the loader resizes)
+    ('yolact_base bf16 device_augment', 'yolact_base',
+     ['--stem_s2d', '--compute_dtype', 'bfloat16', '--device_augment'], 10,
+     0, dict(stem_s2d=1, dcn=0, dcn_col2im=0)),
+    ('yolact_plus_base bf16 device_augment', 'yolact_plus_base',
+     ['--compute_dtype', 'bfloat16', '--train_remat', 'dcn',
+      '--device_augment'], 10, 0, dict(stem_s2d=0, dcn=22, dcn_col2im=11)),
 )
+# each device-augment run beside the host-augment run of its model
+TRAINER_MODES = (('yolact_base bf16', 'yolact_base bf16 device_augment'),
+                 ('yolact_plus_base bf16',
+                  'yolact_plus_base bf16 device_augment'))
 
 
 class SyntheticTrainSet:
@@ -2855,6 +2894,11 @@ class SyntheticTrainSet:
         return img, target, masks, h, w, out['num_crowds']
 
 
+def batch_bytes(batch):
+    """The bytes of a batch's arrays: what it copies to the card."""
+    return sum(int(v.nbytes) for v in batch.values() if hasattr(v, 'nbytes'))
+
+
 class StepRecorder:
     """Stands in for train/step.py:train_step while cli/train.py runs (it
     looks the function up when it starts): per step the step count, the
@@ -2881,7 +2925,8 @@ class StepRecorder:
         after = read_launches(TRAIN_KERNELS)
         self.steps.append(dict(step=step, lr=lr, finite=out['finite'],
                                launches={k: after[k] - before[k]
-                                         for k in after}))
+                                         for k in after},
+                               h2d_bytes=batch_bytes(batch)))
         if self.prof is not None:
             self.prof.step()
         return out
@@ -2953,6 +2998,8 @@ def step_alone_ms(state, cfg, dev, steps=8):
     running (CUDA events around each, its host read included): the loop's
     iteration without the loader's threads beside it."""
     batch = make_train_batch(cfg)
+    if cfg.use_device_augment:          # what the loader ships then
+        batch = raw_batch(batch)
     gen = torch.Generator(device=dev).manual_seed(6)
     train_step(state, batch, gen)
     times = []
@@ -2967,17 +3014,27 @@ def step_alone_ms(state, cfg, dev, steps=8):
     return statistics.median(times)
 
 
-def trainer_timing(tag, summary, peak, busy, card, note=''):
+def raw_batch(batch, seed=4):
+    """`batch` as the device-augment loader ships it: a raw BGR uint8
+    image and bit-packed full-resolution masks."""
+    rng = np.random.RandomState(seed)
+    return pack_batch_masks(dict(batch, image=rng.randint(
+        0, 256, batch['image'].shape).astype(np.uint8)))
+
+
+def trainer_timing(tag, summary, peak, busy, card, note='', steps=()):
     """Print and return the loop's numbers: median ms per iteration (its
     first two left out), the share of it spent waiting on the loader,
-    images/s, peak memory, device busy and idle."""
+    images/s, peak memory, device busy and idle, the bytes each batch
+    copies to the card."""
     iters = [t * 1e3 for t in summary['iter_seconds'][2:]]
     waits = [t * 1e3 for t in summary['wait_seconds'][2:]]
     ms = statistics.median(iters)
+    h2d = sorted({s['h2d_bytes'] for s in steps})
     out = dict(ms=ms, wait_share=sum(waits) / sum(iters),
                images_s=8000.0 / ms, peak_gib=peak,
                busy=None if busy is None else busy[0],
-               idle=None if busy is None else busy[1])
+               idle=None if busy is None else busy[1], h2d_bytes=h2d)
     dev = ('device busy not measured (the profiler recorded no kernel)'
            if busy is None else f'device busy {busy[0]!r} ms per iteration, '
            f'idle share {busy[1]!r} (torch.profiler kernel events, '
@@ -2986,7 +3043,8 @@ def trainer_timing(tag, summary, peak, busy, card, note=''):
           f'{min(iters)!r}, max {max(iters)!r}; {len(iters)} iterations, '
           f'host clock, each ends in the step\'s host read){note}; loader '
           f'wait {out["wait_share"]!r} of it; {out["images_s"]!r} images/s; '
-          f'peak memory allocated {peak!r} GiB; {dev} [{card}]')
+          f'peak memory allocated {peak!r} GiB; {dev}; host-to-device '
+          f'bytes per batch {h2d} [{card}]')
     return out
 
 
@@ -2994,7 +3052,7 @@ def trainer_phase(sds, dev, card):
     """Phase 8 (see the module docstring).  Returns the kernels' launches
     summed over the trainer's runs, and the timing of each run."""
     total = collections.Counter()
-    timing = {}
+    timing, per_step_launches = {}, {}
     t_phase = time.perf_counter()
 
     def stage(what):
@@ -3014,10 +3072,10 @@ def trainer_phase(sds, dev, card):
             # the step its name gives)
             weights = f'{tmp}/{name}_0_0.pth'
             torch.save(tame_residuals(sds[config]), weights)
+            transform = RawResize(cfg) if '--device_augment' in flags \
+                else SSDAugmentation(cfg, rng=np.random.RandomState(7))
             data = SyntheticTrainSet(TRAINER_FRAMES, TRAINER_SIZES,
-                                     cfg.num_classes,
-                                     SSDAugmentation(
-                                         cfg, rng=np.random.RandomState(7)))
+                                     cfg.num_classes, transform)
             save, logs = f'{tmp}/{name}', f'{tmp}/{name}_logs'
             argv = ['--config', name, '--batch_size', '8', '--num_workers',
                     '4', '--save_folder', save, '--log_folder', logs,
@@ -3037,17 +3095,23 @@ def trainer_phase(sds, dev, card):
                   f'{json.dumps(launches)}); its loss lines:')
             print('\n'.join(l for l in out.splitlines() if '||' in l))
             checks(tag, cfg, first, steps, per_step, 0, iters)
+            per_step_launches[tag] = steps[0]['launches']
+            check(first['state'].cfg.use_device_augment
+                  == ('--device_augment' in flags),
+                  f'trainer {tag}: use_device_augment not as the flags ask')
             check(os.listdir(save) == [f'{name}_{first["epoch"]}_{iters}.pth'],
                   f'trainer {tag}: checkpoints {os.listdir(save)}')
             if not more:
                 timing[tag] = trainer_timing(tag, first, peak, loop_busy(prof),
-                                             card, ' (under torch.profiler)')
+                                             card, ' (under torch.profiler)',
+                                             steps)
                 stage(f'{tag}: profile read')
                 step_alone(tag, first['state'], dev, card, timing)
                 del first
                 stage(f'{tag}: step alone timed')
                 continue
-            timing[tag] = trainer_timing(tag, first, peak, None, card)
+            timing[tag] = trainer_timing(tag, first, peak, None, card,
+                                         steps=steps)
 
             # the file loads back bit for bit (the run's config: the flags'
             # overrides applied)
@@ -3108,6 +3172,8 @@ def trainer_phase(sds, dev, card):
             table = [l for l in out.splitlines() if re.match(
                 r'\s*(box|mask|-+\+|\s*\|\s+all)', l)]
             print('\n'.join(table))
+            timing[tag]['profiled_ms'] = statistics.median(
+                second['iter_seconds'][2:]) * 1e3
             check(set(second['maps'] or ()) == {'box', 'mask'}
                   and len(table) == 5, f'trainer {tag}: no mAP table')
             with open(second['log']) as f:
@@ -3133,7 +3199,18 @@ def trainer_phase(sds, dev, card):
           f'{f32["step_alone_ms"]!r} = '
           f'{bf16["step_alone_ms"] / f32["step_alone_ms"]!r}, device busy '
           f'per iteration {busy} [{card}]')
-    return dict(total), timing
+    for host, device in TRAINER_MODES:
+        # both under the profiler: a device-augment run and the host run's
+        # profiled iterations (its resumed run, where it has one)
+        h, d = timing[host], timing[device]
+        h_ms = h.get('profiled_ms', h['ms'])
+        print(f'trainer {device} against host augment, both under '
+              f'torch.profiler: ms per iteration {d["ms"]!r} / {h_ms!r} = '
+              f'{d["ms"] / h_ms!r}; the step alone {d["step_alone_ms"]!r} / {h["step_alone_ms"]!r}; loader '
+              f'wait share {d["wait_share"]!r} / {h["wait_share"]!r}; device '
+              f'idle share {d["idle"]!r} / {h["idle"]!r}; host-to-device bytes '
+              f'per batch {d["h2d_bytes"]} / {h["h2d_bytes"]} [{card}]')
+    return dict(total), timing, per_step_launches
 
 
 def step_alone(tag, state, dev, card, timing):
@@ -3156,6 +3233,186 @@ def checks(tag, cfg, summary, steps, per_step, start, end):
     check(summary['losses'] and all(
         np.isfinite(v) for e in summary['losses'] for v in e['loss'].values()),
         f'trainer {tag}: logged losses {summary["losses"]}')
+
+
+# ---- phase 8b: device augmentation and the packed transports --------------
+
+AUGMENT_MAX_GT = 100      # the trainer's --max_gt: padding rows warp too
+
+
+def augment_batch(cfg, seed=8):
+    """Eight of phase 8's frames as the device-augment loader ships them:
+    RawResize to 550, padded to AUGMENT_MAX_GT gts, the masks bit-packed,
+    the image rounded to uint8 (data/loader.py)."""
+    data = SyntheticTrainSet(TRAINER_FRAMES, TRAINER_SIZES, cfg.num_classes,
+                             RawResize(cfg), seed=seed)
+    items = [data.pull_item(i) for i in range(8)]
+    batch = pad_batch([it[0] for it in items], [it[1] for it in items],
+                      [it[2] for it in items], [it[5] for it in items],
+                      AUGMENT_MAX_GT)
+    batch = pack_batch_masks(batch)
+    batch['image'] = np.clip(np.round(batch['image']), 0, 255).astype(
+        np.uint8)
+    return batch
+
+
+@contextlib.contextmanager
+def captured_warps(record):
+    """Record the affine map (sx, tx, sy, ty) of each device_augment call
+    (its masks' warp) in `record`."""
+    real = device_augment_module.affine_warp_masks
+
+    def spy(masks, sx, tx, sy, ty):
+        record.append(torch.stack([sx, tx, sy, ty], -1))
+        return real(masks, sx, tx, sy, ty)
+
+    device_augment_module.affine_warp_masks = spy
+    try:
+        yield record
+    finally:
+        device_augment_module.affine_warp_masks = real
+
+
+def soft_targets64(cfg, masks, maps, rot_k):
+    """The device augment's soft mask targets in float64 on the masks'
+    device: the warp with the recorded maps, the turn, the resize to the
+    proto and seg sizes (before the 0.5 threshold)."""
+    sx, tx, sy, ty = maps.double().unbind(-1)
+    soft = device_augment_module.affine_warp_masks(masks.double(), sx, tx,
+                                                   sy, ty)
+    if cfg.augment_random_flip:
+        soft = device_augment_module._rot90(soft, rot_k, (2, 3))
+    S = soft.shape[-1]
+    out = {}
+    for name, hw in (('gt_masks_proto', proto_size(cfg, S)),
+                     ('gt_masks_seg', seg_size(cfg, S))):
+        wh, ww = (torch.from_numpy(resize_weights(S, n)).double().to(
+            masks.device) for n in hw)
+        out[name] = torch.matmul(torch.matmul(wh, soft), ww.T)
+    return out
+
+
+def device_augment_phase(sds, dev, card):
+    """Phase 8b (see the module docstring)."""
+    cfg = get_config('yolact_base').copy(use_device_augment=True,
+                                         augment_random_flip=True)
+    batch = augment_batch(cfg)
+    S = cfg.max_size
+    print(f'device augment batch (yolact_base {S} b8, max_gt '
+          f'{AUGMENT_MAX_GT}): host-to-device bytes '
+          f'{json.dumps({k: int(v.nbytes) for k, v in batch.items()})}, '
+          f'{batch_bytes(batch)!r} in all, against '
+          f'{8 * AUGMENT_MAX_GT * S * S + 8 * S * S * 3 * 4!r} with '
+          f'unpacked masks and a float32 image')
+    draws = device_augment_module.draw_augment(
+        cfg, 8, torch.Generator(device=dev).manual_seed(9), dev)
+    on_card = batch_to_device(batch, dev)
+    torch.cuda.synchronize()
+    # no host sync inside the unpack and the augmentation
+    card_maps = []
+    with captured_warps(card_maps):
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            got = prepare_batch(cfg, on_card, draws)
+            try:                # the control: a host read must raise here
+                got['gt_boxes'].sum().item()
+                armed = False
+            except RuntimeError:
+                armed = True
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    check(armed, 'device augment: a host read did not raise under '
+          'set_sync_debug_mode(\'error\'), so the mode checked nothing')
+    torch.cuda.synchronize()
+    print('device augment ran under torch.cuda.set_sync_debug_mode(\'error\')'
+          ': no host sync (a .item() there raised, as it must)')
+    cpu_maps = []
+    t0 = time.perf_counter()
+    with captured_warps(cpu_maps):
+        want = prepare_batch(cfg, batch_to_device(batch, 'cpu'),
+                             {k: v.cpu() for k, v in draws.items()})
+    cpu_s = time.perf_counter() - t0
+    check(got.keys() == want.keys()
+          and {'gt_masks_proto', 'gt_masks_seg'} <= got.keys(),
+          f'device augment keys {sorted(got)} / {sorted(want)}')
+    check(torch.equal(card_maps[0].cpu(), cpu_maps[0]),
+          'device augment: the affine maps (crop windows, expand offsets) '
+          'differ between the card and the CPU')
+    for k in ('gt_boxes', 'gt_labels', 'num_gts', 'num_crowds'):
+        check(torch.equal(got[k].cpu(), want[k]),
+              f'device augment {k} differs between the card and the CPU')
+    img_err = float((got['image'].cpu() - want['image']).abs().max())
+    check(img_err <= 1e-4, f'device augment image off by {img_err!r}')
+    soft = soft_targets64(cfg, unpack_bits_last(on_card['gt_masks_packed'], S),
+                          card_maps[0], draws['rot_k'])
+    ties = {}
+    for k in ('gt_masks_proto', 'gt_masks_seg'):
+        diff = got[k].cpu() != want[k]
+        gap = float((soft[k].cpu()[diff] - 0.5).abs().max()) \
+            if diff.any() else None
+        ties[k] = (int(diff.sum()), gap)
+        check(gap is None or gap <= 1e-6, f'device augment {k}: '
+              f'{int(diff.sum())} pixels differ, the float64 value up to '
+              f'{gap!r} from 0.5')
+        wrong = ((got[k].bool() != (soft[k] > 0.5))
+                 & ((soft[k] - 0.5).abs() > 1e-6)).sum()
+        check(int(wrong) == 0, f'device augment {k}: {int(wrong)} pixels on '
+              f'the other side of the float64 threshold, beyond 1e-6 of it')
+    print(f'device augment on the card against the CPU, same batch and '
+          f'draws: maps, boxes, labels equal; image max error {img_err!r}; '
+          f'mask targets differing (pixels, float64 distance from 0.5) '
+          f'{json.dumps(ties)}; the CPU took {cpu_s:.1f} s [{card}]')
+    ms = device_ms(lambda: prepare_batch(cfg, on_card, draws), runs=20)
+    print(f'device augment yolact_base {S} b8 max_gt {AUGMENT_MAX_GT} (unpack, '
+          f'augment, targets): {ms!r} ms of device time per batch (CUDA '
+          f'events, 20 calls) [{card}]')
+    del got, want, soft, on_card
+    torch.cuda.empty_cache()
+    packed_step_check(sds, dev, card)
+
+
+def packed_step_check(sds, dev, card):
+    """A train step on the packed transports equals one on the unpacked
+    batch: yolact_base with the s2d stem, f32, deterministic algorithms,
+    the same draws; the full-resolution masks (gt_masks_packed, a uint8
+    image) and the multires targets (their *_packed)."""
+    cfg = get_config('yolact_base').copy(stem_s2d=True)
+    plain = make_train_batch(cfg)
+    plain['image'] = np.clip(np.round(np.abs(plain['image']) * 60), 0,
+                             255).astype(np.float32)
+    soft = plain['gt_masks'].astype(np.float32)
+    multires = {k: v for k, v in plain.items() if k != 'gt_masks'}
+    for name, hw in (('proto', proto_size(cfg)), ('seg', seg_size(cfg))):
+        multires[f'gt_masks_{name}'] = (resize_bilinear_np(soft, hw)
+                                        > 0.5).astype(np.uint8)
+    packed_multires = {k: v for k, v in multires.items()
+                       if not k.startswith('gt_masks_')}
+    for name in ('proto', 'seg'):
+        packed_multires[f'gt_masks_{name}_packed'] = pack_bits_last(
+            multires[f'gt_masks_{name}'])
+    packed = dict(pack_batch_masks(plain), image=plain['image'].astype(
+        np.uint8))
+    state = create_train_state(cfg, device=dev,
+                               state_dict=tame_residuals(sds['yolact_base']))
+    p = state.model.priors(cfg.max_size, cfg.max_size, dev).shape[0]
+    draws = draw_priorities(cfg, 8, p, torch.Generator(
+        device=dev).manual_seed(2), dev)
+    results, conf = {}, state.conf_state
+    with deterministic_library():
+        for tag, b in (('unpacked', plain), ('gt_masks_packed', packed),
+                       ('multires', multires),
+                       ('multires_packed', packed_multires)):
+            out = loss_and_grads(state, b, *draws)
+            results[tag] = {k: float(v) for k, v in out.items()}
+            drop_batch_stats(state.model)
+            state.conf_state = conf
+    for a, b in (('unpacked', 'gt_masks_packed'),
+                 ('multires', 'multires_packed')):
+        check(results[a] == results[b], f'packed step: {b} losses '
+              f'{results[b]} differ from {a} {results[a]}')
+    print(f'train step on packed inputs, yolact_base s2d {cfg.max_size} b8 f32 '
+          f'(deterministic algorithms): losses bit-equal to the unpacked '
+          f'batch\'s: {json.dumps(results)} [{card}]')
 
 
 # ---- phase 10: data parallelism ------------------------------------------
@@ -3628,9 +3885,15 @@ def main():
     phase_done('6 train step')
 
     # ---- phase 8: the trainer (cli/train.py) ----
-    trainer_launches, trainer_timing_ = trainer_phase(sds, dev, card)
+    trainer_launches, trainer_timing_, trainer_per_step = trainer_phase(
+        sds, dev, card)
     torch.cuda.empty_cache()
     phase_done('8 trainer')
+
+    # ---- phase 8b: device augmentation and the packed transports ----
+    device_augment_phase(sds, dev, card)
+    torch.cuda.empty_cache()
+    phase_done('8b device augmentation')
 
     # ---- phase 10: data parallelism, multi-device eval, C5 ----
     dp_launches = dp_phase(sds, frames8, dev, card,
@@ -3696,6 +3959,10 @@ def main():
                        'replaces': info['replaces'],
                        'launches': launches[info['path']][name],
                        'trainer_launches': trainer_launches.get(name, 0),
+                       'device_augment_launches_per_step': {
+                           tag: counts[name]
+                           for tag, counts in trainer_per_step.items()
+                           if 'device_augment' in tag and counts.get(name)},
                        'dp_launches_per_rank_step': dp_launches.get(name, 0),
                        'option_launches': {
                            path: counts[name]

@@ -3,15 +3,14 @@ the JAX package's, and the JAX package's loader regression cases
 (``tests/test_loader_checkpoint_regressions.py``) re-run on the port.
 
 With one dataset, seed and a deterministic transform the two loaders give
-equal batches in the same order, with the full-resolution masks and with
-the pre-downsampled ``multires`` targets (JAX ships those bit-packed: they
-are unpacked for the comparison)."""
+equal batches in the same order, byte for byte: the full-resolution masks
+bit-packed (``pack_masks``, on by default in both), the pre-downsampled
+``multires`` targets bit-packed, and the uint8 images of ``pack_images``."""
 
 import numpy as np
 import pytest
 
 from yolact_tpu.data.loader import BatchLoader as JaxBatchLoader
-from yolact_tpu.ops.bits import unpack_bits_last
 from yolact_tpu_torch.data.loader import BatchLoader
 
 
@@ -76,16 +75,14 @@ def test_batches_match_jax(multires):
     kw = dict(batch_size=3, max_gt=4, num_workers=3, seed=5,
               multires=multires)
     got = _batches(BatchLoader(_SeededDataset(), drop_last=False, **kw), 9)
-    want = _batches(JaxBatchLoader(_SeededDataset(), drop_last=False,
-                                   pack_masks=False, **kw), 9)
+    want = _batches(JaxBatchLoader(_SeededDataset(), drop_last=False, **kw),
+                    9)
+    packed = {'gt_masks_packed'} if multires is None else \
+        {'gt_masks_proto_packed', 'gt_masks_seg_packed'}
     for g, w in zip(got, want):
-        for name in ('proto', 'seg'):
-            packed = w.pop(f'gt_masks_{name}_packed', None)
-            if packed is not None:
-                w[f'gt_masks_{name}'] = np.asarray(unpack_bits_last(
-                    packed, multires[name][1]))
-        assert g.keys() == w.keys()
+        assert g.keys() == w.keys() and packed <= g.keys()
         for k in w:
+            assert np.asarray(g[k]).dtype == np.asarray(w[k]).dtype, k
             np.testing.assert_array_equal(g[k], w[k], err_msg=k)
     assert any('num_valid' in b for b in got)      # 11 = 3 * 3 + 2
 
@@ -141,8 +138,36 @@ def test_loader_short_batch_marks_num_valid():
     assert b2['num_valid'] == 2
 
 
-def test_unported_transports_raise():
-    with pytest.raises(NotImplementedError, match='A6b'):
-        BatchLoader(_FakeDataset(), batch_size=4, pack_masks=True)
-    with pytest.raises(NotImplementedError, match='A9'):
-        BatchLoader(_FakeDataset(), batch_size=4, pack_images=True)
+class _RawDataset(_SeededDataset):
+    """_SeededDataset's items with raw [0,255] pixels, some fractional."""
+
+    def pull_item(self, i):
+        img, *rest = self.items[i]
+        return (np.abs(img) * 97.3, *rest)
+
+
+def test_packed_transports_match_jax():
+    """``pack_images`` (uint8 images, rounded and clipped) with packed masks:
+    JAX's batches byte for byte; a rank's loader (``rank``, ``world``)
+    delivers its rows of them; host-normalized (negative) pixels are
+    refused."""
+    kw = dict(batch_size=4, max_gt=4, num_workers=2, seed=3,
+              pack_images=True)
+    got = _batches(BatchLoader(_RawDataset(), **kw), 4)
+    want = _batches(JaxBatchLoader(_RawDataset(), **kw), 4)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys() and 'gt_masks_packed' in g
+        assert g['image'].dtype == np.uint8
+        assert g['image'].max() == 255 and g['image'].min() == 0
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    for rank in range(2):
+        rows = _batches(BatchLoader(_RawDataset(), rank=rank, world=2, **kw),
+                        4)
+        for g, w in zip(rows, want):
+            for k in w:
+                np.testing.assert_array_equal(
+                    g[k], w[k][2 * rank:2 * rank + 2], err_msg=k)
+    loader = BatchLoader(_SeededDataset(), **kw)
+    with pytest.raises(RuntimeError, match=r'raw \[0,255\]'):
+        _batches(loader, 1)

@@ -215,10 +215,12 @@ def test_maskiou_loss_matches_jax(overrides):
 
 def test_precomputed_mask_targets_match_full_res(rng):
     """``gt_masks_proto`` / ``gt_masks_seg`` (what ``pad_batch(multires=)``
-    gives) in place of full-resolution masks: the same losses; packed
-    targets raise naming their ROADMAP item, and direct masks, which need
-    the full-resolution masks, raise as JAX's loss does."""
-    from yolact_tpu_torch.data.coco import _resize_bilinear
+    gives) in place of full-resolution masks: the same losses, and the same
+    bits again from the targets bit-packed (``*_packed``, unpacked by the
+    loss, which checks their shape against the prediction's); direct
+    masks, which need the full-resolution masks, raise as JAX's loss
+    does."""
+    from yolact_tpu_torch.ops.bits import pack_bits_last
     cfg = P(tiny_resnet_config())
     preds, batch = _inputs(cfg, seed=1)
     tp = {k: torch.from_numpy(v) for k, v in preds.items()}
@@ -226,18 +228,23 @@ def test_precomputed_mask_targets_match_full_res(rng):
                            .astype(np.float32))
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     want, _ = loss.multibox_loss(cfg, tp, tb, pri)
-    soft = batch['gt_masks'].astype(np.float32)
+    soft = torch.from_numpy(batch['gt_masks'].astype(np.float32))
     pre = dict(tb)
     del pre['gt_masks']
+    packed = dict(pre)
     for name, hw in (('gt_masks_proto', HP), ('gt_masks_seg', HS)):
-        pre[name] = torch.from_numpy(np.stack(
-            [_resize_bilinear(m, (hw, hw)) > 0.5 for m in soft])
-            .astype(np.uint8))
+        pre[name] = (loss._resize_masks(soft, (hw, hw)) > 0.5).to(torch.uint8)
+        packed[name + '_packed'] = torch.from_numpy(
+            pack_bits_last(pre[name].numpy()))
     got, _ = loss.multibox_loss(cfg, tp, pre, pri)
     for k in want:
         assert float(got[k]) == float(want[k]), k
-    with pytest.raises(NotImplementedError, match='A6b'):
-        loss.multibox_loss(cfg, tp, dict(pre, gt_masks_proto_packed=0), pri)
+    got, _ = loss.multibox_loss(cfg, tp, packed, pri)
+    for k in want:
+        assert float(got[k]) == float(want[k]), k
+    with pytest.raises(AssertionError, match='gt_masks_seg_packed shape'):
+        loss.multibox_loss(cfg, tp, dict(packed, gt_masks_seg_packed=packed[
+            'gt_masks_proto_packed']), pri)
     # direct masks need the full-resolution gt masks (JAX's guard)
     from yolact_tpu_torch.config import MaskType
     with pytest.raises(ValueError, match='full-res gt_masks'):

@@ -331,9 +331,10 @@ def test_port_imports_no_jax_flax_or_cv2():
     not run on import) and the ranks' module of the data-parallel tests
     (tests/torch_parallel_worker.py), in a fresh interpreter: no module of
     JAX, flax, cv2 or the JAX package (``yolact_tpu``) is loaded, and the
-    modules that came with the video entry point, the model options and
-    data parallelism (eval/video.py, utils/nvinfo.py, ops/resize.py,
-    parallel/mesh.py) are among those imported."""
+    modules that came with the video entry point, the model options, data
+    parallelism and device augmentation (eval/video.py, utils/nvinfo.py,
+    ops/resize.py, parallel/mesh.py, ops/bits.py, data/device_augment.py)
+    are among those imported."""
     code = ('import importlib, pkgutil, sys\n'
             'import yolact_tpu_torch\n'
             'for m in pkgutil.walk_packages(yolact_tpu_torch.__path__,\n'
@@ -345,7 +346,8 @@ def test_port_imports_no_jax_flax_or_cv2():
             'n = sum(m.startswith("yolact_tpu_torch.") for m in sys.modules)\n'
             'new = {"yolact_tpu_torch.eval.video", "yolact_tpu_torch.utils.nvinfo",\n'
             '       "yolact_tpu_torch.ops.resize",\n'
-            '       "yolact_tpu_torch.parallel.mesh"} - set(sys.modules)\n'
+            '       "yolact_tpu_torch.parallel.mesh", "yolact_tpu_torch.ops.bits",\n'
+            '       "yolact_tpu_torch.data.device_augment"} - set(sys.modules)\n'
             'print(bad, n, new)\n'
             'sys.exit(1 if bad or new or n < 30 else 0)\n')
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -361,6 +363,7 @@ PORT_SOURCES = sorted(
               recursive=True)) + ['chip_smoke.py', 'probe_cells.py',
                                   'probe_dcn.py', 'probe_dp.py',
                                   'probe_host.py', 'probe_small_kernels.py',
+                                  'probe_trainer.py',
                                   'tests/torch_parallel_worker.py']
 
 

@@ -360,22 +360,65 @@ def test_class_balanced_conf_state_accumulates(port_trainer):
     assert float(state.conf_state['total']) > first
 
 
-def test_unported_step_options_raise(port_trainer):
+def test_step_refuses_cast_weights_and_missing_augment_draws(port_trainer):
     cfg, batch = port_trainer
     gen = torch.Generator().manual_seed(0)
     state = create_train_state(cfg, device='cpu')
-    with pytest.raises(NotImplementedError, match='A6b'):
-        train_step(state, dict(batch, gt_masks_packed=0), gen)
     state.model.set_compute_dtype(torch.bfloat16)   # cast for inference
     with pytest.raises(ValueError, match='master weights'):
         train_step(state, batch, gen)
     state = create_train_state(cfg.copy(use_device_augment=True),
                                device='cpu')
-    with pytest.raises(NotImplementedError, match='A9'):
-        train_step(state, batch, gen)
+    p = state.model.priors(cfg.max_size, cfg.max_size, 'cpu').shape[0]
+    with pytest.raises(ValueError, match='augment draws'):
+        loss_and_grads(state, batch, torch.rand(2, p),
+                       torch.rand(2 * cfg.masks_to_train))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='cuda'):
             create_train_state(cfg)          # the default device is the card
+
+
+@pytest.mark.parametrize('multires', [False, True],
+                         ids=['gt_masks', 'multires_targets'])
+def test_packed_batch_step_is_bit_equal(port_trainer, multires):
+    """The loader's packed transports (``gt_masks_packed``; the packed
+    ``multires`` targets) and a uint8 image: the same losses and gradients,
+    bit for bit, as the unpacked batch with the image as float."""
+    from yolact_tpu_torch.data.coco import pack_batch_masks
+    from yolact_tpu_torch.ops.anchors import proto_size, seg_size
+    from yolact_tpu_torch.ops.bits import pack_bits_last
+    from yolact_tpu_torch.ops.resize import resize_bilinear_np
+    cfg, batch = port_trainer
+    batch = dict(batch, image=np.round(batch['image'] * 255))
+    if multires:
+        soft = batch.pop('gt_masks').astype(np.float32)
+        for name, hw in (('proto', proto_size(cfg)), ('seg', seg_size(cfg))):
+            batch[f'gt_masks_{name}'] = (resize_bilinear_np(soft, hw)
+                                         > 0.5).astype(np.uint8)
+        packed = {k: v for k, v in batch.items()
+                  if not k.startswith('gt_masks_')}
+        for name in ('proto', 'seg'):
+            packed[f'gt_masks_{name}_packed'] = pack_bits_last(
+                batch[f'gt_masks_{name}'])
+    else:
+        packed = pack_batch_masks(batch)
+    packed['image'] = batch['image'].astype(np.uint8)
+    runs = []
+    for b in (batch, packed):
+        state = create_train_state(cfg, seed=0, device='cpu')
+        p = state.model.priors(cfg.max_size, cfg.max_size, 'cpu').shape[0]
+        gen = torch.Generator().manual_seed(3)
+        draws = torch.rand(2, p, generator=gen), \
+            torch.rand(2 * cfg.masks_to_train, generator=gen)
+        losses = loss_and_grads(state, b, *draws)
+        runs.append((losses, {k: p.grad.clone() for k, p in
+                              state.model.named_parameters()
+                              if p.grad is not None}))
+    (want, want_g), (got, got_g) = runs
+    assert want.keys() == got.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert want_g.keys() == got_g.keys()
+    assert all(torch.equal(got_g[k], want_g[k]) for k in want_g)
 
 
 @pytest.mark.parametrize('step', [0, 1, 250, 499, 500, 279999, 280000,
@@ -423,10 +466,10 @@ def _ragged_samples(rng, n_img, counts, crowds, size=32):
                                       {'proto': (8, 8), 'seg': None}],
                          ids=['full_res', 'multires', 'multires_no_seg'])
 def test_pad_batch_matches_jax(rng, multires):
-    """Padding, the crowd-first truncation and the multires targets, which
-    the port returns unpacked: equal to the unpacked bits of JAX's."""
+    """Padding, the crowd-first truncation and the multires targets: byte
+    for byte JAX's (the targets bit-packed); ``pack_batch_masks`` byte for
+    byte JAX's."""
     from yolact_tpu.data import coco as jax_coco
-    from yolact_tpu.ops.bits import unpack_bits_last
     from yolact_tpu_torch.data import coco
     counts, crowds = (3, 7, 5, 0), (1, 3, 0, 0)
     imgs, targets, masks = _ragged_samples(rng, 4, counts, crowds)
@@ -441,15 +484,16 @@ def test_pad_batch_matches_jax(rng, multires):
         got = coco.pad_batch(imgs, targets, masks, crowds, max_gt, multires)
         want = jax_coco.pad_batch(imgs, targets, masks, crowds, max_gt,
                                   multires)
-        for name in ('proto', 'seg'):
-            packed = want.pop(f'gt_masks_{name}_packed', None)
-            if packed is not None:
-                want[f'gt_masks_{name}'] = np.asarray(unpack_bits_last(
-                    packed, multires[name][1]))
         assert got.keys() == want.keys()
         for k in want:
             assert got[k].dtype == want[k].dtype, k
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        if multires is None:
+            got = coco.pack_batch_masks(got)
+            want = jax_coco.pack_batch_masks(want)
+            assert got.keys() == want.keys()
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_enforce_size_matches_jax(rng, cv2_generic):

@@ -158,18 +158,54 @@ def test_cli_saves_interrupts_resumes_and_validates(tmp_path, monkeypatch):
 
 
 def test_unported_flags_raise():
-    """What the trainer refuses: --device_augment (ROADMAP A9b), a spatial
-    split (with its reason), and --distributed outside torchrun's
-    environment (it is ported: tests/test_torch_parallel.py)."""
+    """What the trainer refuses: a spatial split (with its reason), and
+    --distributed outside torchrun's environment (it is ported:
+    tests/test_torch_parallel.py)."""
     for flag, error, match in (
             (['--distributed'], RuntimeError, 'environment'),
-            (['--spatial_split', '2'], NotImplementedError, 'halo'),
-            (['--device_augment'], NotImplementedError, 'A9')):
+            (['--spatial_split', '2'], NotImplementedError, 'halo')):
         with pytest.raises(error, match=match):
             cli.train(['--cuda=False'] + flag)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='cuda'):
             cli.train([])               # the default device is the card
+
+
+def test_device_augment_trains_and_resumes(tmp_path, monkeypatch):
+    """``--device_augment`` on in-memory frames through ``RawResize``: the
+    loader ships uint8 images and packed full-resolution masks, the step
+    augments them; 3 iterations, then ``--resume latest`` for 2 more."""
+    from yolact_tpu_torch.data.augmentations import RawResize
+    shipped = []
+    real_step = step_module.train_step
+
+    def spy(state, batch, generator, **kw):
+        shipped.append({k: (str(v.dtype).replace('torch.', ''),
+                            tuple(v.shape)) for k, v in batch.items()
+                        if hasattr(v, 'dtype')})
+        return real_step(state, batch, generator, **kw)
+
+    monkeypatch.setattr(step_module, 'train_step', spy)
+    cfg = P(_config('clidevaug', max_iter=3, augment_random_flip=True))
+    register_config(cfg)
+    data = SyntheticTrainSet(4, ((70, 90), (90, 70)), cfg.num_classes,
+                             RawResize(cfg), seed=1)
+    save, logs = str(tmp_path / 'w'), str(tmp_path / 'logs')
+    argv = _args('clidevaug', save, logs, '--device_augment',
+                 '--validation_epoch', '0')
+    run = cli.train(argv, dataset=data)
+    assert run['iteration'] == 3 and run['state'].cfg.use_device_augment
+    S = cfg.max_size
+    assert shipped[0]['image'] == ('uint8', (2, S, S, 3))
+    assert shipped[0]['gt_masks_packed'] == ('uint8', (2, 8, S, S // 8))
+    assert not any(k.startswith('gt_masks_proto') for k in shipped[0])
+    register_config(cfg.copy(max_iter=5))
+    again = cli.train(argv + ['--resume', 'latest'], dataset=data)
+    assert again['start_iter'] == 3 and again['iteration'] == 5
+    assert again['state'].step == 5
+    sd = again['state'].model.state_dict()
+    assert all(bool(torch.isfinite(v).all()) for v in sd.values()
+               if v.is_floating_point())
 
 
 def test_trainer_needs_no_cv2(tmp_path, monkeypatch):

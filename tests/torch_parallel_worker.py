@@ -7,7 +7,8 @@ the port, torch, numpy and the port-side inputs of ``test_torch_inputs``.
 torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT``), and returns each rank's result in rank
 order; a rank that raises fails the call with its traceback, and a run
-past its time limit kills every rank and raises.  Results travel as numpy
+past its time limit kills every rank and raises.  :class:`Ranks` starts
+them and lets the caller work while they run.  Results travel as numpy
 arrays and plain Python values."""
 
 from __future__ import annotations
@@ -47,39 +48,54 @@ def _rank_main(fn, rank, world, port, args, init, threads, results):
         parallel.destroy()
 
 
+class Ranks:
+    """`world` spawned ranks running ``fn(mesh, *args)`` (``mesh`` None
+    when `init` is False: `fn` starts the process group itself); the
+    caller may work meanwhile, then :meth:`results` waits for them."""
+
+    def __init__(self, fn, world, *args, init=True, seconds=RANK_SECONDS):
+        import multiprocessing as mp
+        ctx = mp.get_context('spawn')
+        self.world, self.seconds = world, seconds
+        self.queue = ctx.Queue()
+        port = free_port()
+        self.procs = [ctx.Process(target=_rank_main,
+                                  args=(fn, rank, world, port, args, init,
+                                        torch.get_num_threads(), self.queue))
+                      for rank in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def results(self):
+        """The results in rank order; a rank that raised fails the call
+        with its traceback, and a run past its time limit kills every rank
+        and raises."""
+        world, got = self.world, {}
+        try:
+            while len(got) < world:
+                try:
+                    rank, ok, value = self.queue.get(timeout=self.seconds)
+                except queue.Empty:
+                    raise TimeoutError(
+                        f'ranks {sorted(set(range(world)) - set(got))} gave '
+                        f'no result in {self.seconds} s')
+                if not ok:
+                    raise RuntimeError(f'rank {rank} failed:\n{value}')
+                got[rank] = value
+            for p in self.procs:
+                p.join(timeout=30)
+        finally:
+            for p in self.procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        return [got[r] for r in range(world)]
+
+
 def run_ranks(fn, world, *args, init=True, seconds=RANK_SECONDS):
-    """``fn(mesh, *args)`` on `world` spawned ranks (``mesh`` None when
-    `init` is False: `fn` starts the process group itself); the results
-    in rank order."""
-    import multiprocessing as mp
-    ctx = mp.get_context('spawn')
-    results = ctx.Queue()
-    port = free_port()
-    procs = [ctx.Process(target=_rank_main,
-                         args=(fn, rank, world, port, args, init,
-                               torch.get_num_threads(), results))
-             for rank in range(world)]
-    for p in procs:
-        p.start()
-    got = {}
-    try:
-        while len(got) < world:
-            try:
-                rank, ok, value = results.get(timeout=seconds)
-            except queue.Empty:
-                raise TimeoutError(f'ranks {sorted(set(range(world)) - set(got))}'
-                                   f' gave no result in {seconds} s')
-            if not ok:
-                raise RuntimeError(f'rank {rank} failed:\n{value}')
-            got[rank] = value
-        for p in procs:
-            p.join(timeout=30)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    return [got[r] for r in range(world)]
+    """``fn(mesh, *args)`` on `world` spawned ranks (:class:`Ranks`); the
+    results in rank order."""
+    return Ranks(fn, world, *args, init=init, seconds=seconds).results()
 
 
 def _numpy(tensors):
@@ -205,59 +221,88 @@ def cli_train(mesh, argv):
     return cli.train(argv)
 
 
-def float64_grads(mesh, cfg, state_dict, batch, seed=0):
-    """The first step's gradients and losses in float64 (the forward, the
-    loss, the backward and the gradients' sum over ranks of
-    ``train/step.py:loss_and_grads``, with ``.float()`` meaning float64, as
-    ``tests/test_torch_train.py:_float64_grads`` runs the port): the
-    witness of whether two float32 runs differ by rounding alone."""
+def float64_steps(mesh, cfg, state_dict, batches, seed=0):
+    """:func:`train_steps` in float64: one step per global batch of
+    `batches` (the forward, the loss, the backward and the gradients' sum
+    over ranks of ``train/step.py:loss_and_grads``, with ``.float()``
+    meaning float64, as ``tests/test_torch_train.py:_float64_grads`` runs
+    the port; then ``apply_gradients``), the draws from a generator seeded
+    `seed` as ``train_step`` draws them.  The same keys as
+    :func:`train_steps`, and the first step's ``losses``.  In float64 no
+    ReLU input lies within rounding of zero in one run and not another, so
+    two runs of the same math agree to far below any sign flip's effect on
+    any machine."""
     from yolact_tpu_torch.parallel.mesh import shard_batch
     from yolact_tpu_torch.train.loss import multibox_loss
-    from yolact_tpu_torch.train.step import (batch_to_device,
+    from yolact_tpu_torch.train.step import (apply_gradients,
+                                             batch_to_device,
                                              create_train_state,
                                              draw_priorities, model_input)
     state = create_train_state(cfg, device='cpu', state_dict=state_dict,
                                mesh=mesh)
     model = state.model.double()
     model.compute_dtype = torch.float64
-    n = len(batch['image'])
+    if state.conf_state is not None:
+        state.conf_state = {k: v.double()
+                            for k, v in state.conf_state.items()}
+    params = [p for group in state.optimizer.param_groups
+              for p in group['params']]
     priors = model.priors(cfg.max_size, cfg.max_size, 'cpu')
-    mask_pri, miou_pri = (d.double() for d in draw_priorities(
-        cfg, n, priors.shape[0], torch.Generator().manual_seed(seed), 'cpu'))
-    if mesh is not None:
-        batch = shard_batch(batch, mesh.rank, mesh.size)
-        mask_pri = mask_pri[mesh.rows(n)]
-    real_float = torch.Tensor.float
-    torch.Tensor.float = torch.Tensor.double
-    try:
-        tensors = batch_to_device(
-            dict(batch, image=batch['image'].astype(np.float64)), 'cpu')
-        preds = model(model_input(cfg, tensors['image']), train=True)
-        losses, _ = multibox_loss(
-            cfg, preds, tensors, mask_pri, miou_pri,
-            maskiou_net=model.maskiou_net, conf_state=state.conf_state,
-            num_gts=batch['num_gts'], mesh=mesh)
-        losses.pop('_conf_state', None)
-        sum(losses.values()).backward()
-    finally:
-        torch.Tensor.float = real_float
-    params = [p for p in model.parameters() if p.requires_grad]
-    if mesh is not None:
-        mesh.all_sum_grads(params)
-    losses = {k: float(v.detach()) for k, v in losses.items()}
-    if mesh is not None:
-        keys = sorted(losses)
-        summed = mesh.all_sum(torch.tensor([losses[k] for k in keys],
-                                           dtype=torch.float64))
-        losses = dict(zip(keys, summed.tolist()))
-    return dict(losses=losses, grads=_numpy(
-        {k: p.grad for k, p in model.named_parameters()
-         if p.grad is not None}))
+    generator = torch.Generator().manual_seed(seed)
+    steps, grads, weights = [], None, []
+    for batch in batches:
+        n = len(batch['image'])
+        mask_pri, miou_pri = (d.double() for d in draw_priorities(
+            cfg, n, priors.shape[0], generator, 'cpu'))
+        if mesh is not None:
+            batch = shard_batch(batch, mesh.rank, mesh.size)
+            mask_pri = mask_pri[mesh.rows(n)]
+        state.optimizer.zero_grad(set_to_none=True)
+        real_float = torch.Tensor.float
+        torch.Tensor.float = torch.Tensor.double
+        try:
+            tensors = batch_to_device(
+                dict(batch, image=batch['image'].astype(np.float64)), 'cpu')
+            preds = model(model_input(cfg, tensors['image']), train=True)
+            losses, _ = multibox_loss(
+                cfg, preds, tensors, mask_pri, miou_pri,
+                maskiou_net=model.maskiou_net, conf_state=state.conf_state,
+                num_gts=batch['num_gts'], mesh=mesh)
+            state.conf_state = losses.pop('_conf_state', state.conf_state)
+            total = sum(losses.values())
+            total.backward()
+        finally:
+            torch.Tensor.float = real_float
+        out = dict({k: v.detach() for k, v in losses.items()},
+                   total=total.detach())
+        if mesh is not None:
+            mesh.all_sum_grads(params)
+            out = dict(zip(out, mesh.all_sum(
+                torch.stack(list(out.values()))).unbind()))
+        out = apply_gradients(state, out)
+        steps.append(dict({k: float(v) for k, v in out.items()
+                           if k not in ('finite', 'lr')},
+                          finite=out['finite'], lr=out['lr']))
+        if grads is None:
+            grads = _numpy({k: p.grad for k, p in model.named_parameters()
+                            if p.grad is not None})
+        weights.append(_numpy(model.state_dict()))
+    conf = None if state.conf_state is None else _numpy(state.conf_state)
+    losses = {k: v for k, v in steps[0].items()
+              if k not in ('finite', 'lr', 'total')}
+    return dict(steps=steps, grads=grads, weights=weights, conf_state=conf,
+                losses=losses)
 
 
-def case_run(mesh, cfg, state_dict, batches, witness_batch=None):
-    """:func:`train_steps` on `batches`, and with a `witness_batch` the
-    float64 run of its first step (:func:`float64_grads`)."""
+def float64_grads(mesh, cfg, state_dict, batch, seed=0):
+    """The first step's gradients and losses in float64
+    (:func:`float64_steps` on one batch): the witness of whether two
+    float32 runs differ by rounding alone."""
+    return float64_steps(mesh, cfg, state_dict, [batch], seed)
+
+
+def case_run(mesh, cfg, state_dict, batches):
+    """:func:`train_steps` on `batches` (float32), and :func:`float64_steps`
+    on the first two."""
     return dict(train=train_steps(mesh, cfg, state_dict, batches),
-                f64=None if witness_batch is None else
-                float64_grads(mesh, cfg, state_dict, witness_batch))
+                f64=float64_steps(mesh, cfg, state_dict, batches[:2]))

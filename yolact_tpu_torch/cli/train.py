@@ -19,8 +19,14 @@ focal-loss bias init.
 
 It runs on ``cuda:0`` (``--cuda=False``: on the CPU, with the kernels'
 plain versions); a CUDA request without a card raises.  The loader hands
-the card pinned batches.  ``--batch_alloc`` is accepted and ignored, as in
-JAX.  Not ported: ``--device_augment`` raises (ROADMAP A9b), and
+the card pinned batches, with the masks bit-packed as JAX's loader ships
+them (``data/loader.py``): the full-resolution masks, or for lincomb
+configs that binarize the downsampled gt the pre-downsampled ``multires``
+targets.  ``--device_augment`` moves the augmentation onto the card, as
+JAX's ``use_device_augment``: the loader only resizes (``RawResize``) and
+ships uint8 images with full-resolution packed masks, and the step
+augments (``data/device_augment.py``) with draws from the trainer's
+generator.  ``--batch_alloc`` is accepted and ignored, as in JAX.
 ``--spatial_split`` > 1 raises with its reason (``parallel/mesh.py``).
 
 ``--distributed`` trains data parallel, one process per device, started
@@ -33,7 +39,10 @@ the global batch (``train/step.py``).
 (JAX trims its mesh to a device count that divides it instead);
 ``freeze_bn`` follows the batch per rank, as JAX's per-data-shard rule,
 and autoscaling the global batch.  Every rank shuffles with the same seed
-and loads and augments only its rows of each batch.  Rank 0 alone logs,
+and loads and augments only its rows of each batch; under
+``--device_augment`` every rank draws the global batch's augment draws
+from its identically seeded generator and keeps its rows
+(``train/step.py:train_step``).  Rank 0 alone logs,
 saves and runs the validation while the others wait at a barrier; every
 rank reads ``--resume``.
 
@@ -100,7 +109,8 @@ def parse_args(argv=None):
                    help='convolution dtype over float32 master weights')
     p.add_argument('--device_augment', dest='device_augment',
                    action='store_true',
-                   help='not ported (ROADMAP A9)')
+                   help='augment on the device (the loader only resizes '
+                        'and ships uint8 images and packed masks)')
     p.add_argument('--distributed', dest='distributed', action='store_true',
                    help='data parallel over the processes torchrun starts '
                         '(one device each; NCCL, gloo with --cuda=False); '
@@ -148,6 +158,8 @@ def make_config(args, world: int = 1):
         print('Per-device batch size is less than 6, auto-enabling '
               'freeze_bn.')
         overrides['freeze_bn'] = True
+    if args.device_augment:
+        overrides['use_device_augment'] = True
     if args.stem_s2d:
         overrides['stem_s2d'] = True
     if args.train_remat is not None:
@@ -201,9 +213,6 @@ def train(argv=None, dataset=None, val_dataset=None):
     and the seconds of each spent in the loader ``wait_seconds``, the
     printed ``losses`` entries and the validation ``maps``."""
     args = parse_args(argv)
-    if args.device_augment:
-        raise NotImplementedError(
-            '--device_augment is not ported (ROADMAP A9b)')
     mesh, own_group = _start_mesh(args)
     try:
         return _train(args, mesh, dataset, val_dataset)
@@ -239,7 +248,8 @@ def _start_mesh(args):
 
 def _train(args, mesh, dataset, val_dataset):
     from yolact_tpu_torch.config import MaskType
-    from yolact_tpu_torch.data.augmentations import SSDAugmentation
+    from yolact_tpu_torch.data.augmentations import (RawResize,
+                                                     SSDAugmentation)
     from yolact_tpu_torch.data.coco import COCODetection
     from yolact_tpu_torch.data.loader import BatchLoader
     from yolact_tpu_torch.train import checkpoint as ckpt
@@ -252,20 +262,25 @@ def _train(args, mesh, dataset, val_dataset):
     device = mesh.device
     lead = mesh.rank == 0       # logs, saves and validates
     if dataset is None:
+        transform = RawResize(cfg) if cfg.use_device_augment else \
+            SSDAugmentation(cfg)
         dataset = COCODetection(
             cfg.dataset.train_images, cfg.dataset.train_info,
-            transform=SSDAugmentation(cfg), dataset_cfg=cfg.dataset)
-    # lincomb configs ship pre-downsampled gt mask targets
-    # (reference-exact soft-downsample-then-binarize)
+            transform=transform, dataset_cfg=cfg.dataset)
+    # host-augment lincomb configs ship pre-downsampled gt mask targets
+    # (reference-exact soft-downsample-then-binarize); device augment
+    # computes its own on the card, DIRECT needs full-resolution masks
     multires = None
     if (cfg.mask_type == MaskType.LINCOMB
-            and cfg.mask_proto_binarize_downsampled_gt):
+            and cfg.mask_proto_binarize_downsampled_gt
+            and not cfg.use_device_augment):
         from yolact_tpu_torch.ops.anchors import proto_size, seg_size
         multires = {'proto': proto_size(cfg),
                     'seg': seg_size(cfg)
                     if cfg.use_semantic_segmentation_loss else None}
     loader = BatchLoader(dataset, args.batch_size, max_gt=args.max_gt,
                          num_workers=args.num_workers, multires=multires,
+                         pack_images=cfg.use_device_augment,
                          pin_memory=device.type == 'cuda',
                          rank=mesh.rank, world=mesh.size)
 

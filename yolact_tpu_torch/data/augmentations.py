@@ -1,5 +1,6 @@
-"""Host-side image transforms: the training augmentation ``SSDAugmentation``
-and the eval-time ``BaseTransform`` of ``yolact_tpu/data/augmentations.py``
+"""Host-side image transforms: the training augmentation ``SSDAugmentation``,
+the device-augmentation loader's ``RawResize`` and the eval-time
+``BaseTransform`` of ``yolact_tpu/data/augmentations.py``
 with everything they call, copied for the port, in numpy alone: the module
 needs no cv2.
 
@@ -408,6 +409,26 @@ class SSDAugmentation:
         boxes[:, [1, 3]] /= height
 
         image = backbone_transform(self.cfg, image, self.mean, self.std)
+        return image, masks, boxes, labels
+
+
+class RawResize:
+    """The loader transform of device augmentation (``--device_augment``):
+    the image (BGR float [0,255]) and its masks resized to S x S by
+    :func:`resize_linear`, boxes kept relative, ``num_crowds`` counted; the
+    augmentation then runs on the card (``data/device_augment.py``)."""
+
+    def __init__(self, cfg: YolactConfig):
+        self.cfg = cfg
+
+    def __call__(self, image, masks=None, boxes=None, labels=None):
+        S = self.cfg.max_size
+        image = resize_linear(image, S, S)
+        if masks is not None and len(masks):
+            masks = resize_linear(masks, S, S, axis=1)
+        if labels is not None and boxes is not None:
+            labels = dict(labels)
+            labels['num_crowds'] = int((labels['labels'] < 0).sum())
         return image, masks, boxes, labels
 
 

@@ -1,11 +1,12 @@
 """COCO detection dataset, pycocotools-free: the eval side of
 ``yolact_tpu/data/coco.py`` (``COCOIndex``, ``COCOAnnotationTransform``,
 ``COCODetection``), copied for the port, and the batch contract of the
-train step: ``detection_collate``, ``pad_batch`` and ``enforce_size``.
-``pad_batch``'s ``multires`` targets come back unpacked (``gt_masks_proto``,
-``gt_masks_seg``, which ``train/loss.py:multibox_loss`` takes by that name):
-the JAX package bit-packs them to cut its host-to-TPU transfer, which is
-ported only if a run on the card shows the loader starving it.
+train step: ``detection_collate``, ``pad_batch``, ``pack_batch_masks`` and
+``enforce_size``.  ``pad_batch``'s ``multires`` targets come bit-packed
+(``gt_masks_proto_packed``, ``gt_masks_seg_packed``; ``ops/bits.py``) as the
+JAX package's do; ``train/loss.py:multibox_loss`` takes them packed or
+unpacked (``gt_masks_proto``, ``gt_masks_seg``, as device augmentation
+emits them).
 
 Crowd annotations are moved to the tail with ``category_id = -1``
 (reference ``data/coco.py:119-130``); a transform that drops all gt
@@ -169,19 +170,6 @@ def detection_collate(batch):
     return imgs, (targets, masks, num_crowds)
 
 
-def _resize_bilinear(masks: np.ndarray, size) -> np.ndarray:
-    """[n, h, w] float32 -> [n, size[0], size[1]]: torch's bilinear
-    downsample without antialiasing (``F.interpolate``,
-    ``align_corners=False``), the reference's."""
-    import torch
-    import torch.nn.functional as F
-    if tuple(masks.shape[-2:]) == tuple(size):
-        return np.asarray(masks, np.float32)
-    t = torch.from_numpy(np.ascontiguousarray(masks, np.float32))[None]
-    return F.interpolate(t, size=tuple(size), mode='bilinear',
-                         align_corners=False)[0].numpy()
-
-
 def pad_batch(imgs, targets, masks, num_crowds, max_gt: int = 100,
               multires=None):
     """Fixed-shape batch: pads or truncates gt to `max_gt` per image.
@@ -198,13 +186,16 @@ def pad_batch(imgs, targets, masks, num_crowds, max_gt: int = 100,
     change the matcher's tie-breaks.
 
     ``multires``: optional ``{'proto': (Hp, Wp), 'seg': (Hs, Ws) | None}``.
-    When given, the full-res ``gt_masks`` are REPLACED by pre-downsampled
-    uint8 targets ``gt_masks_proto`` (and ``gt_masks_seg``), computed in the
+    When given, the full-res ``gt_masks`` are REPLACED by bit-packed
+    pre-downsampled targets ``gt_masks_proto_packed`` [B, max_gt, Hp,
+    ceil(Wp/8)] (and ``gt_masks_seg_packed``), computed in the
     reference's order of operations: torch-bilinear downsample of the SOFT
-    augmented mask, THEN binarize at 0.5 (multibox_loss.py:515-523,
-    225-228).  Only valid for lincomb configs with
-    mask_proto_binarize_downsampled_gt.
+    augmented mask (``ops/resize.py:resize_bilinear_np``), THEN binarize at
+    0.5 (multibox_loss.py:515-523, 225-228).  Only valid for lincomb
+    configs with mask_proto_binarize_downsampled_gt.
     """
+    from yolact_tpu_torch.ops.bits import pack_bits_last
+    from yolact_tpu_torch.ops.resize import resize_bilinear_np
     B = len(imgs)
     S = imgs[0].shape[0]
     out_img = np.stack(imgs).astype(np.float32)
@@ -242,9 +233,10 @@ def pad_batch(imgs, targets, masks, num_crowds, max_gt: int = 100,
         if multires:
             if n:
                 soft = np.asarray(m[:n], np.float32)
-                proto[i, :n] = _resize_bilinear(soft, multires['proto']) > 0.5
+                proto[i, :n] = resize_bilinear_np(soft,
+                                                  multires['proto']) > 0.5
                 if seg is not None:
-                    seg[i, :n] = _resize_bilinear(soft, seg_hw) > 0.5
+                    seg[i, :n] = resize_bilinear_np(soft, seg_hw) > 0.5
         else:
             out_masks[i, :n] = (m > 0.5).astype(np.uint8)
         n_gts[i] = n
@@ -253,11 +245,30 @@ def pad_batch(imgs, targets, masks, num_crowds, max_gt: int = 100,
     out = dict(image=out_img, gt_boxes=boxes, gt_labels=labels,
                num_gts=n_gts, num_crowds=n_crowds)
     if multires:
-        out['gt_masks_proto'] = proto
+        out['gt_masks_proto_packed'] = pack_bits_last(proto)
         if seg is not None:
-            out['gt_masks_seg'] = seg
+            out['gt_masks_seg_packed'] = pack_bits_last(seg)
     else:
         out['gt_masks'] = out_masks
+    return out
+
+
+def pack_batch_masks(batch: dict) -> dict:
+    """Replace a padded batch's ``gt_masks`` with bit-packed
+    ``gt_masks_packed`` [B, max_gt, S, ceil(S/8)] uint8 (8 pixels a byte,
+    ``np.packbits`` MSB first): 8x less host-to-device copy.  Only the
+    valid gt rows are packed (padding rows are already zero).
+    ``train/step.py`` unpacks on the device (``ops/bits.py``)."""
+    from yolact_tpu_torch.ops.bits import pack_bits_last, packed_width
+    masks = batch['gt_masks']
+    B, G, H, W = masks.shape
+    packed = np.zeros((B, G, H, packed_width(W)), np.uint8)
+    for i, n in enumerate(batch['num_gts']):
+        n = int(n)
+        if n:
+            packed[i, :n] = pack_bits_last(masks[i, :n])
+    out = dict(batch, gt_masks_packed=packed)
+    del out['gt_masks']
     return out
 
 

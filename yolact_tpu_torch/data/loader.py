@@ -10,10 +10,14 @@ CPU tensors, so the train step's ``non_blocking`` copy to the card
 (``train/step.py:batch_to_device``) is an asynchronous DMA instead of a
 staged pageable copy.
 
-Two transports of the JAX loader are not ported, and asking for them
-raises: bit-packed masks (``pack_masks``; the port's loss takes unpacked
-``gt_masks``, ROADMAP A6b: only if the card shows the loader starving it)
-and uint8 images for on-device augmentation (``pack_images``, ROADMAP A9).
+The JAX loader's two transports: ``pack_masks`` (on by default, as in
+JAX) ships full-resolution masks bit-packed as ``gt_masks_packed``
+(``data/coco.py:pack_batch_masks``; the ``multires`` targets come packed
+from ``pad_batch`` already), and ``pack_images`` ships raw [0,255] images
+as uint8 for on-device augmentation (``data/device_augment.py``), rounded
+and clipped; the first batch is checked for host-normalized (negative)
+pixels, which packing would destroy.  The train step unpacks and casts on
+the card (``train/step.py``).
 
 Data parallelism: with ``rank`` and ``world``, ``batch_size`` is the global
 batch; every rank shuffles with the same seed and loads, augments and
@@ -41,7 +45,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from yolact_tpu_torch.data.coco import COCODetection, pad_batch
+from yolact_tpu_torch.data.coco import (COCODetection, pack_batch_masks,
+                                        pad_batch)
 
 
 class _WorkerError:
@@ -56,17 +61,9 @@ class BatchLoader:
     def __init__(self, dataset: COCODetection, batch_size: int,
                  max_gt: int = 100, shuffle: bool = True,
                  num_workers: int = 2, prefetch: int = 4, seed: int = 0,
-                 drop_last: bool = True, pack_masks: bool = False,
+                 drop_last: bool = True, pack_masks: bool = True,
                  pack_images: bool = False, multires=None,
                  pin_memory: bool = False, rank: int = 0, world: int = 1):
-        if pack_masks:
-            raise NotImplementedError(
-                'pack_masks: bit-packed mask targets are not ported '
-                '(ROADMAP A6b); the loss takes gt_masks')
-        if pack_images:
-            raise NotImplementedError(
-                'pack_images: the uint8 transport of on-device augmentation '
-                'is not ported (ROADMAP A9)')
         if len(dataset) < batch_size and drop_last:
             raise ValueError(
                 f'dataset has {len(dataset)} items < batch_size '
@@ -84,6 +81,11 @@ class BatchLoader:
         self.prefetch = prefetch
         self.rng = np.random.RandomState(seed)
         self.drop_last = drop_last
+        self.pack_masks = pack_masks
+        # raw-pixel batches (use_device_augment) ship as uint8: 4x less
+        # host-to-device copy; the train step casts to float on the card
+        self.pack_images = pack_images
+        self._pack_checked = False
         # pre-downsampled gt mask targets (see data.coco.pad_batch):
         # {'proto': (Hp, Wp), 'seg': (Hs, Ws) | None} or None
         self.multires = multires
@@ -125,6 +127,20 @@ class BatchLoader:
                     # wrapping around — mark how many rows are real so
                     # consumers don't double-count the duplicates
                     batch['num_valid'] = n_valid
+                if self.pack_masks and self.multires is None:
+                    batch = pack_batch_masks(batch)
+                if self.pack_images:
+                    img = batch['image']
+                    if not self._pack_checked:
+                        if float(img.min()) < 0.0:
+                            raise ValueError(
+                                'pack_images=True requires raw [0,255] '
+                                'pixels; got negative values (the batch '
+                                'looks host-normalized; packing would '
+                                'destroy it)')
+                        self._pack_checked = True
+                    batch['image'] = np.clip(
+                        np.round(img), 0, 255).astype(np.uint8)
                 if self.pin_memory:
                     batch = {k: torch.from_numpy(v).pin_memory()
                              if isinstance(v, np.ndarray) else v

@@ -197,8 +197,9 @@ def make_mesh_2d(mesh: Mesh, space: int = 1) -> Mesh:
 
 def shard_batch(batch: Any, rank: int, world: int) -> Any:
     """Rank `rank`'s rows ``[rank * b / world, (rank + 1) * b / world)`` of
-    a global batch: a dict of arrays or tensors (each sliced on dim 0;
-    other values kept), or one array or tensor."""
+    a global batch: a dict of arrays or tensors (each sliced on dim 0, the
+    bit-packed masks and the augment draws too; other values kept), or one
+    array or tensor."""
     def take(x):
         if not hasattr(x, 'shape') or not x.shape:
             return x

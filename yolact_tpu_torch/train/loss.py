@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from yolact_tpu_torch.config import MaskType, YolactConfig
+from yolact_tpu_torch.ops.bits import packed_width, unpack_bits_last
 from yolact_tpu_torch.ops.boxes import (center_size, decode,
                                         elemwise_box_iou, log_sum_exp,
                                         sanitize_coordinates)
@@ -513,10 +514,11 @@ def multibox_loss(cfg: YolactConfig, predictions: Dict, batch: Dict,
                   ) -> Tuple[Dict[str, torch.Tensor], MatchResult]:
     """Full training loss.  `batch` holds tensors in the contract of
     ``data/coco.py:pad_batch`` (gt_masks may be uint8; or the pre-downsampled
-    ``gt_masks_proto`` / ``gt_masks_seg``).  Returns ({letter: scalar},
-    match_result); with ``use_class_balanced_conf`` the updated conf_state
-    rides back in ``losses['_conf_state']`` (popped by the train step, never
-    summed).  `num_gts`: see ``train/matcher.py:match``.  `mesh`: the
+    ``gt_masks_proto`` / ``gt_masks_seg``, or those bit-packed as
+    ``gt_masks_proto_packed`` / ``gt_masks_seg_packed``).  Returns
+    ({letter: scalar}, match_result); with ``use_class_balanced_conf`` the
+    updated conf_state rides back in ``losses['_conf_state']`` (popped by
+    the train step, never summed).  `num_gts`: see ``train/matcher.py:match``.  `mesh`: the
     rank's share of the global batch's loss (module docstring)."""
     loc_data = predictions['loc'].float()
     conf_data = predictions['conf'].float()
@@ -529,12 +531,22 @@ def multibox_loss(cfg: YolactConfig, predictions: Dict, batch: Dict,
     if gt_masks is not None:
         gt_masks = gt_masks.float()
 
-    def pre_target(name):
-        if name + '_packed' in batch:
-            raise NotImplementedError(
-                f'{name}_packed: bit-packed mask targets are not ported '
-                f'(ROADMAP A6b); pass {name} unpacked')
-        return batch[name].float() if name in batch else None
+    def pre_target(name, hw):
+        """Pre-downsampled gt mask targets (``data/coco.py:pad_batch``
+        multires, or ``data/device_augment.py``) as float, unpacked on the
+        device where they come bit-packed (``name + '_packed'``): the
+        target (h, w) is the prediction's."""
+        if name in batch:
+            return batch[name].float()
+        packed = batch.get(name + '_packed')
+        if packed is None:
+            return None
+        H, W = hw
+        assert packed.shape[-2] == H and \
+            packed.shape[-1] == packed_width(W), (
+                f'{name}_packed shape {tuple(packed.shape[-2:])} does not '
+                f'match the model target ({H}, {packed_width(W)})')
+        return unpack_bits_last(packed, W).float()
 
     m = match(cfg, gt_boxes, gt_labels, priors,
               loc_pred=loc_data if cfg.use_prediction_matching else None,
@@ -563,7 +575,8 @@ def multibox_loss(cfg: YolactConfig, predictions: Dict, batch: Dict,
         mask_losses, maskiou_targets = lincomb_mask_loss(
             cfg, m, loc_data, mask_data, priors, proto_data, gt_masks,
             gt_labels, mask_priorities, maskiou_priorities,
-            dm_pre=pre_target('gt_masks_proto'), mesh=mesh)
+            dm_pre=pre_target('gt_masks_proto', proto_data.shape[1:3]),
+            mesh=mesh)
         losses.update(mask_losses)
         if cfg.mask_proto_loss == 'l1':
             # l1_expected_area / l1_alpha from multibox_loss.py:37-39
@@ -599,7 +612,8 @@ def multibox_loss(cfg: YolactConfig, predictions: Dict, batch: Dict,
     if cfg.use_semantic_segmentation_loss:
         losses['S'] = semantic_segmentation_loss(
             cfg, predictions['segm'].float(), gt_masks, gt_labels,
-            ds_pre=pre_target('gt_masks_seg'))
+            ds_pre=pre_target('gt_masks_seg',
+                              predictions['segm'].shape[1:3]))
 
     batch_size = loc_data.shape[0] * world
     for k in losses:

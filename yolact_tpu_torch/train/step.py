@@ -47,6 +47,19 @@ A model whose weights were cast in place for inference raises.  The batch
 is the dict of
 ``data/coco.py:pad_batch``, numpy arrays or tensors, with the image
 ``[B, S, S, 3]`` normalized RGB (or raw uint8 values as float).
+
+The loader's transports (``data/loader.py``) are undone on the card, as in
+JAX's step: bit-packed ``gt_masks_packed`` are unpacked to the image's
+width (``ops/bits.py``; packed ``multires`` targets are unpacked by the
+loss), and a uint8 image is cast to float.  With ``cfg.use_device_augment``
+the batch holds raw BGR [0,255] images and full-resolution masks, and
+``data/device_augment.py`` augments and normalizes it on the card before
+the model sees it (so the s2d stem still takes the space-to-depth of the
+augmented, normalized RGB image).  Its draws come from the step's
+generator before the loss's priorities (:func:`train_step`); under a mesh
+every rank draws the global batch's and keeps its rows, and since the
+augmentation is per image, a rank's rows of the output are those rows of
+the global batch's.
 """
 
 from __future__ import annotations
@@ -63,7 +76,8 @@ from yolact_tpu_torch.infer import (check_device, random_state_dict,
 from yolact_tpu_torch.models.layers import (BatchNorm2d, commit_batch_stats,
                                             drop_batch_stats, s2d_input)
 from yolact_tpu_torch.models.yolact import Yolact
-from yolact_tpu_torch.parallel.mesh import Mesh
+from yolact_tpu_torch.ops.bits import packed_width, unpack_bits_last
+from yolact_tpu_torch.parallel.mesh import Mesh, shard_batch
 from yolact_tpu_torch.train.loss import multibox_loss
 from yolact_tpu_torch.train.schedule import learning_rate
 
@@ -142,6 +156,31 @@ def model_input(cfg: YolactConfig, image: torch.Tensor) -> torch.Tensor:
     return s2d_input(x, from_rgb=True) if cfg.stem_s2d else x
 
 
+def prepare_batch(cfg: YolactConfig, tensors: Dict[str, torch.Tensor],
+                  augment_draws: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Undo the loader's mask packing on the batch's device (to the image's
+    width), then, under ``cfg.use_device_augment``, augment it with
+    `augment_draws` (``data/device_augment.py:draw_augment``, the batch's
+    rows)."""
+    if 'gt_masks_packed' in tensors:
+        tensors = dict(tensors)
+        packed = tensors.pop('gt_masks_packed')
+        # masks are packed along their width, the image's dim 2 (NHWC)
+        W = tensors['image'].shape[2]
+        assert packed.shape[-1] == packed_width(W), (
+            f'packed gt-mask width {packed.shape[-1]} != packed_width({W})'
+            f'={packed_width(W)}; mask canvas no longer equals image width')
+        tensors['gt_masks'] = unpack_bits_last(packed, W)
+    if cfg.use_device_augment:
+        if augment_draws is None:
+            raise ValueError('use_device_augment needs the augment draws '
+                             '(data/device_augment.py:draw_augment)')
+        from yolact_tpu_torch.data.device_augment import device_augment
+        tensors = device_augment(cfg, tensors, augment_draws)
+    return tensors
+
+
 def draw_priorities(cfg: YolactConfig, batch_size: int, num_priors: int,
                     generator: torch.Generator, device: torch.device
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -158,31 +197,28 @@ def draw_priorities(cfg: YolactConfig, batch_size: int, num_priors: int,
 def loss_and_grads(state: TrainState, batch: Dict[str, Any],
                    mask_priorities: torch.Tensor,
                    maskiou_priorities: torch.Tensor,
-                   use_kernels: bool = True) -> Dict[str, torch.Tensor]:
+                   use_kernels: bool = True,
+                   augment_draws: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Dict[str, torch.Tensor]:
     """Forward (train mode), loss and backward: fills every trained
     parameter's ``.grad`` and returns the losses by letter plus ``total``.
     Batch-norm statistics stay pending; nothing is updated.  Under a mesh
-    `batch` and `mask_priorities` are the rank's rows and
-    `maskiou_priorities` the global draws; the gradients and the returned
-    losses are the global batch's, on every rank."""
+    `batch`, `mask_priorities` and `augment_draws` (device augmentation
+    only) are the rank's rows and `maskiou_priorities` the global draws;
+    the gradients and the returned losses are the global batch's, on every
+    rank."""
     cfg, model = state.cfg, state.model
     if any(p.dtype != torch.float32 for p in model.parameters()):
         raise ValueError(
             'train_step needs float32 master weights: this model\'s were cast '
             'in place (set_compute_dtype for inference); build it with '
             'create_train_state, which computes in cfg.compute_dtype')
-    if cfg.use_device_augment:
-        raise NotImplementedError(
-            'use_device_augment is not ported (ROADMAP A9)')
-    if 'gt_masks_packed' in batch:
-        raise NotImplementedError(
-            'gt_masks_packed: bit-packed masks are not ported (ROADMAP A6b); '
-            'pass gt_masks')
     num_gts = batch.get('num_gts')
     if isinstance(num_gts, torch.Tensor):
         # a count on the card would cost a sync: the matcher loops all rows
         num_gts = num_gts.numpy() if num_gts.device.type == 'cpu' else None
-    tensors = batch_to_device(batch, state.device)
+    tensors = prepare_batch(cfg, batch_to_device(batch, state.device),
+                            augment_draws)
     state.optimizer.zero_grad(set_to_none=True)
     preds = model(model_input(cfg, tensors['image']),
                   use_kernels=use_kernels, train=True)
@@ -248,13 +284,22 @@ def train_step(state: TrainState, batch: Dict[str, Any],
     on every rank: the draws are the global batch's."""
     image = batch['image']
     priors = state.model.priors(image.shape[1], image.shape[2], state.device)
-    world = 1 if state.mesh is None else state.mesh.size
+    mesh = state.mesh
+    world = 1 if mesh is None else mesh.size
+    n = image.shape[0] * world
+    # the draws' order: the augmentation's first (as JAX's step splits its
+    # key before the loss's), then the loss's priorities
+    augment_draws = None
+    if state.cfg.use_device_augment:
+        from yolact_tpu_torch.data.device_augment import draw_augment
+        augment_draws = draw_augment(state.cfg, n, generator, state.device)
     mask_priorities, maskiou_priorities = draw_priorities(
-        state.cfg, image.shape[0] * world, priors.shape[0], generator,
-        state.device)
+        state.cfg, n, priors.shape[0], generator, state.device)
     if world > 1:
-        mask_priorities = mask_priorities[state.mesh.rows(
-            mask_priorities.shape[0])]
+        mask_priorities = mask_priorities[mesh.rows(n)]
+        if augment_draws is not None:
+            augment_draws = shard_batch(augment_draws, mesh.rank, mesh.size)
     return apply_gradients(
         state, loss_and_grads(state, batch, mask_priorities,
-                              maskiou_priorities, use_kernels=use_kernels))
+                              maskiou_priorities, use_kernels=use_kernels,
+                              augment_draws=augment_draws))
