@@ -184,6 +184,29 @@ Phases, each of which raises on failure:
    float32: Pipeline(yolact_base) f32 b1 built under PyTorch's default
    TF32 flags turns them off and matches phase 4's TF32-off output by its
    f32 rule, which the same pipeline with cuDNN's TF32 back on must fail
+11. export (run after phase 10): yolact_plus_base 550 (the sparse cell's
+   weights, seeded offsets), which launches all four forward kernels,
+   exported by convert/export.py:export_inference on the card at b1 f32
+   (TF32 off) and b8 bf16 (the kernels as custom ops, the NMS candidate
+   branch as a torch.cond), saved as .pt2 and loaded in a fresh process
+   that imports torch and the port only (EXPORT_WORKER), beside a
+   Pipeline on the same weights there (taking the pruned NMS tail): the
+   f32 artifact against it by phase 4's float32 rule (and TF32 off after
+   its load), the bf16 one as matched sets; each kernel's launches per
+   call of the artifact equal Pipeline's (the four forward kernels above
+   0, dcn_col2im 0); median and p90 ms a batch of both (Pipeline,
+   artifact, artifact, Pipeline), export, save and load seconds; the f32
+   Pipeline of this process against the fresh one's (printed, not
+   checked: cuDNN may pick other algorithms in another process); then
+   each custom op's call against its bare
+   ctypes launch at b1 shapes: host us a call (200 calls queued behind a
+   device spin) and device ms
+11b. deformable PSRoI pooling (kernels/psroi.py, plain PyTorch, no
+   kernel): the card against the CPU on seeded R-FCN-sized inputs
+   (PSROI): the function with and without the translation within 1e-4,
+   its gradients in x and trans within 1e-4 of their largest entry, the
+   module with seeded weights within 1e-4 (float32 coordinates up to 69
+   px, rounded otherwise on the card); its ms a call on the card
 7. timing: median and p90 ms per batch at b1 / b8 bf16 for every path
    (CUDA events over 100 calls; the s2d A/B in the order plain, s2d, s2d,
    plain), device busy and idle share per batch (torch.profiler kernel
@@ -198,14 +221,14 @@ Phases, each of which raises on failure:
    five shapes in f32 and bf16 with its global reductions
 
 Each phase prints its seconds, and the end of the run all of them; the
-run order is 1, 2, 3, 4, 4b, 9, 5, 6, 8, 8b, 10, 7.
+run order is 1, 2, 3, 4, 4b, 9, 5, 6, 8, 8b, 10, 11, 11b, 7.
 The line before the last is a JSON object with each kernel's launches
 (and, as trainer_launches, its launches in the trainer's runs, as
 device_augment_launches_per_step per step of phase 8's device-augment
 runs by run, as
 option_launches in phase 9's runs by path, and as
 dp_launches_per_rank_step per rank in a step of phase 10's two-rank
-run), error,
+run, as export_launches per call of phase 11's artifacts by run), error,
 times and bound; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -245,7 +268,9 @@ from yolact_tpu_torch.eval.evaluate import evaluate_dataset
 from yolact_tpu_torch.infer import (InferenceOutput, Pipeline,
                                     forward_and_detect, load_model,
                                     maybe_enable_stem_s2d, random_state_dict)
-from yolact_tpu_torch.kernels import _build, dcn, mask_assembly, nms, stem
+from yolact_tpu_torch.convert.export import export_inference
+from yolact_tpu_torch.kernels import (_build, dcn, mask_assembly, nms, psroi,
+                                      stem)
 from yolact_tpu_torch.models.layers import BatchNorm2d, drop_batch_stats
 from yolact_tpu_torch.models.resnet import DCNLayer
 from yolact_tpu_torch.ops.anchors import proto_size, seg_size
@@ -260,6 +285,7 @@ from yolact_tpu_torch.train.step import (batch_to_device, create_train_state,
                                          draw_priorities, loss_and_grads,
                                          prepare_batch, train_step)
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 # Each kernel with the path whose launches the kernels line reports.
 KERNELS = {
     # bit-equal: `iou_max <= nms_thresh` decisions depend on the last bit
@@ -932,7 +958,7 @@ def col2im_vs_plain(dev):
 @contextlib.contextmanager
 def capture_col2im():
     """Records the inputs of every dcn_col2im kernel launch in the block, as
-    the backward of DCNColumns passes them (g_cols, NHWC x, offsets, mask,
+    the dcn_columns op's backward passes them (g_cols, NHWC x, offsets, mask,
     geometry), in a list."""
     captured = []
     launch = dcn._launch_col2im
@@ -3803,6 +3829,343 @@ def dp_phase(sds, frames8, dev, card, one_device_ms, c5_want):
     return launches
 
 
+# ---- phase 11: export ------------------------------------------------------
+
+# The exported model: yolact_plus_base launches all four forward kernels
+# (the s2d stem, DCN sampling, the IoU max and mask assembly)
+EXPORT_PATH = 'yolact_plus_base'
+EXPORT_RUNS = (('b1 f32', 'float32', 1), ('b8 bf16', 'bfloat16', 8))
+EXPORT_KERNELS = ('fast_nms_iou_max', 'mask_assembly', 'dcn', 'stem_s2d')
+EXPORT_SECONDS = 900   # the fresh process's limit
+# The fresh process that loads the artifacts and runs them beside a
+# Pipeline on the same weights: it imports torch and the port, nothing else
+# of the repo; argv[1] is a JSON spec (config, state dict, frames,
+# artifacts, timed runs, where to save its results)
+EXPORT_WORKER = r'''
+import json, statistics, sys, time
+import numpy as np
+import torch
+from yolact_tpu_torch import get_config
+from yolact_tpu_torch.convert.export import load_exported
+from yolact_tpu_torch.detect import detection
+from yolact_tpu_torch.infer import Pipeline
+from yolact_tpu_torch.kernels import dcn, mask_assembly, nms, stem
+
+spec = json.loads(sys.argv[1])
+counters = {'fast_nms_iou_max': (nms, 'launches'),
+            'mask_assembly': (mask_assembly, 'launches'),
+            'dcn': (dcn, 'launches'), 'stem_s2d': (stem, 'launches'),
+            'dcn_col2im': (dcn, 'col2im_launches')}
+cfg = get_config(spec['config'])
+state_dict = torch.load(spec['state_dict'])
+frames = torch.load(spec['frames'])
+
+
+def counted(fn, x):
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
+    out = fn(x)
+    torch.cuda.synchronize()
+    return out, {k: getattr(m, a) for k, (m, a) in counters.items()}
+
+
+def time_ms(fn, x):
+    for _ in range(5):
+        fn(x)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(spec['runs']):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(x)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), float(np.percentile(times, 90))
+
+
+results = {}
+for tag, path, batch, dtype in spec['artifacts']:
+    t0 = time.perf_counter()
+    runner = load_exported(path)
+    load_s = time.perf_counter() - t0
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    pipe = Pipeline(cfg, state_dict, runner.device, dtype)
+    x = frames[:batch].to(runner.device)
+    out, launches = counted(runner, x)
+    branches = dict(detection.branch_counts)
+    want, pipe_launches = counted(pipe, x)
+    branches = {k: detection.branch_counts[k] - n
+                for k, n in branches.items()}
+    ms = {'artifact': [], 'pipeline': []}
+    for which in ('pipeline', 'artifact', 'artifact', 'pipeline'):
+        ms[which].append(time_ms(runner if which == 'artifact' else pipe, x))
+    results[tag] = dict(
+        load_s=load_s, tf32=tf32, meta=runner.meta, launches=launches,
+        pipeline_launches=pipe_launches, branches=branches, ms=ms,
+        out=[t.cpu() for t in out],
+        pipeline_out={k: v.cpu() for k, v in want._asdict().items()
+                      if v is not None})
+    del runner, pipe, out, want
+torch.save(results, spec['out'])
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'flax', 'yolact_tpu', 'chip_smoke'))
+assert not bad, bad
+print('export worker ok')
+'''
+
+
+def on_card(fields, tensors):
+    """InferenceOutput(**dict(zip(fields, tensors))), moved to the card."""
+    return InferenceOutput(**{name: t.to(torch.device('cuda', 0))
+                              for name, t in zip(fields, tensors)})
+
+
+def export_phase(sd, frames8, dev, card):
+    """Phase 11 (see the module docstring).  Returns the artifact's
+    launches per call by run."""
+    cfg = config_named(EXPORT_PATH)
+    _, scale, bias, branch = [c for c in PATHS[EXPORT_PATH]['cells']
+                              if c[0] == 'sparse'][0]
+    wsd = shape_conf(sd, cfg.num_classes, scale, bias)
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_export_') as tmp:
+        artifacts = []
+        for tag, dtype, batch in EXPORT_RUNS:
+            path = os.path.join(tmp, tag.replace(' ', '_') + '.pt2')
+            t0 = time.perf_counter()
+            meta = export_inference(cfg, wsd, path, batch_size=batch,
+                                    device=dev, compute_dtype=dtype)
+            seconds = time.perf_counter() - t0
+            check(meta['fields'][-1] == 'mask_scores'
+                  and meta['compute_dtype'] == dtype,
+                  f'export {tag}: meta {meta}')
+            print(f'export {EXPORT_PATH} {cfg.max_size} {tag}: export and '
+                  f'save {seconds!r} s, {os.path.getsize(path)} bytes '
+                  f'[{card}]')
+            artifacts.append((tag, path, batch, dtype))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        paths = {name: os.path.join(tmp, name + '.pt')
+                 for name in ('frames', 'state_dict', 'worker')}
+        torch.save(frames8.cpu(), paths['frames'])
+        torch.save(wsd, paths['state_dict'])
+        spec = dict(config=cfg.name, state_dict=paths['state_dict'],
+                    frames=paths['frames'], out=paths['worker'],
+                    artifacts=artifacts, runs=RUNS)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-c', EXPORT_WORKER, json.dumps(spec)],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            capture_output=True, text=True, timeout=EXPORT_SECONDS)
+        print(f'export worker: {time.perf_counter() - t0!r} s (a fresh '
+              f'process: start, load both artifacts, run and time them '
+              f'beside Pipeline)')
+        check(proc.returncode == 0, f'export worker failed:\n'
+              f'{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}')
+        results = torch.load(paths['worker'])
+
+    # the same Pipeline in this process (information: another process
+    # may pick other cuDNN algorithms)
+    res = results[EXPORT_RUNS[0][0]]
+    here = Pipeline(cfg, wsd, dev, EXPORT_RUNS[0][1])(
+        frames8[:EXPORT_RUNS[0][2]])
+    there = on_card(res['meta']['fields'], [res['pipeline_out'][k] for k in
+                                            res['meta']['fields']])
+    score_gap = float((here.scores - there.scores).abs().max())
+    print(f'export: Pipeline {EXPORT_RUNS[0][0]} in this process against the '
+          f'fresh one\'s: {int((here.valid != there.valid).sum())} validity '
+          f'and {int((here.classes != there.classes).sum())} class slots '
+          f'differ, scores by {score_gap!r} (not checked) [{card}]')
+    del here, there
+
+    launches = {}
+    for tag, dtype, batch in EXPORT_RUNS:
+        res = results[tag]
+        fields = res['meta']['fields']
+        got = on_card(fields, res['out'])
+        want = on_card(fields, [res['pipeline_out'][k] for k in fields])
+        check_output(f'export {tag}', got, cfg, batch)
+        check(res['branches'][branch] == 1,
+              f'export {tag}: Pipeline took {res["branches"]}, not the '
+              f'{branch} NMS tail')
+        if dtype == 'float32':
+            check(res['tf32'] == (False, False),
+                  f'export {tag}: loading left TF32 on {res["tf32"]}')
+            compare(f'export {tag} artifact vs Pipeline', got, want,
+                    exact=True, ties_ok=True)
+        else:
+            match(f'export {tag} artifact vs Pipeline', got, want)
+        print(f'export {tag} launches per call: artifact '
+              f'{json.dumps(res["launches"])}, Pipeline '
+              f'{json.dumps(res["pipeline_launches"])}')
+        for name in KERNELS:
+            n = res['launches'][name]
+            check(n == res['pipeline_launches'][name],
+                  f'export {tag}: {name} launched {n} times a call, '
+                  f'Pipeline {res["pipeline_launches"][name]}')
+            check((n > 0) == (name in EXPORT_KERNELS),
+                  f'export {tag}: {name} launched {n} times a call')
+        launches[tag] = res['launches']
+        (a1, a1_90), (a2, a2_90) = res['ms']['artifact']
+        (p1, p1_90), (p2, p2_90) = res['ms']['pipeline']
+        print(f'export {EXPORT_PATH} {cfg.max_size} {tag}: artifact median '
+              f'{a1!r} / {a2!r} ms/batch, p90 {a1_90!r} / {a2_90!r}; '
+              f'Pipeline median {p1!r} / {p2!r} ms/batch, p90 {p1_90!r} / '
+              f'{p2_90!r} (one process, Pipeline, artifact, artifact, '
+              f'Pipeline; {RUNS} calls each, CUDA events); load '
+              f'{res["load_s"]!r} s [{card}]')
+    dispatch_timing(dev, card)
+    return launches
+
+
+def host_us(fn, calls=200):
+    """Host microseconds per call of `fn`, queued behind a device spin so
+    that the card never holds the host back (no synchronisation inside)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(5 * QUEUE_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def dispatch_timing(dev, card):
+    """Each custom op's call against its bare ctypes launch at b1 shapes
+    (yolact_plus_base 550, bf16; dcn_col2im f32 as in training): host us
+    per call (op, launch, launch, op) and device ms per call."""
+    g = torch.Generator().manual_seed(12)
+    proto, coeffs, boxes = mask_inputs(g, dev, 1, 100)
+    nms_boxes = iou_inputs(g, dev, 80, 200)
+    x, w2 = (torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+             for shape in ((1, 12, 275, 275), (64, 12, 4, 4)))
+    # the layers.2 blocks 3-21 shape (DCN_SHAPES)
+    dims = (1, 256, 35, 35, 35, 35, 3, 1, 1, 1)
+    xb, offset, dmask = dcn_inputs(g, dev, 1, 256, 35, 1, torch.bfloat16,
+                                   finite=True)
+    xh = xb.permute(0, 2, 3, 1).contiguous()
+    xf, mf = xh.float(), dmask.float()
+    g_cols = torch.randn(35 * 35, 9 * 256, generator=g).to(dev)
+    ops = torch.ops.yolact_tpu_torch
+    cases = {
+        'mask_assembly': (lambda: ops.mask_assembly(proto, coeffs, boxes, 1),
+                          lambda: mask_assembly._launch(proto, coeffs, boxes,
+                                                        1)),
+        'fast_nms_iou_max': (lambda: ops.nms_iou_max(nms_boxes),
+                             lambda: nms._launch(nms_boxes)),
+        'stem_s2d': (lambda: ops.stem_s2d(x, w2),
+                     lambda: stem._launch(x, w2)),
+        'dcn': (lambda: ops.dcn_columns(xh, offset, dmask, list(dims)),
+                lambda: dcn._launch_im2col(xh, offset, dmask, dims)),
+        'dcn_col2im': (lambda: ops.dcn_col2im(g_cols, xf, offset, mf,
+                                              list(dims)),
+                       lambda: dcn._launch_col2im(g_cols, xf, offset, mf,
+                                                  dims)),
+    }
+    for name, (op, launch) in cases.items():
+        got, want = ((out,) if torch.is_tensor(out) else out
+                     for out in (op(), launch()))
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            if name == 'dcn_col2im' and i == 0:
+                # grad_x: atomics add in another order from run to run
+                same = torch.allclose(a, b, rtol=0,
+                                      atol=1e-5 * float(b.abs().max()))
+            else:
+                same = bool(((a == b) | (a.isnan() & b.isnan())).all())
+            check(same and a.dtype == b.dtype,
+                  f'dispatch {name}: the op and the launch disagree')
+        us = {'op': [], 'launch': []}
+        for which in ('op', 'launch', 'launch', 'op'):
+            us[which].append(host_us(op if which == 'op' else launch))
+        dev_ms = {which: device_ms(fn) for which, fn in
+                  (('op', op), ('launch', launch))}
+        op_us, launch_us = (statistics.mean(us[k]) for k in ('op', 'launch'))
+        print(f'dispatch {name} b1: op {us["op"]} us, bare launch '
+              f'{us["launch"]} us a call (host, 200 calls queued behind a '
+              f'device spin); op - launch {op_us - launch_us!r} us; device '
+              f'{dev_ms["op"]!r} / {dev_ms["launch"]!r} ms a call [{card}]')
+
+
+# ---- phase 11b: deformable PSRoI pooling ----------------------------------
+
+# R-FCN's position-sensitive layout at the stride-8 map of a 550 frame:
+# 7 x 7 bins, 7 x 7 groups, 8 channels each, 128 RoIs, 4 x 4 samples a bin
+PSROI = dict(spatial_scale=1 / 8, pooled_size=7, output_dim=8, group_size=7,
+             sample_per_part=4, trans_std=0.1)
+PSROI_TOL = 1e-4
+
+
+def psroi_phase(dev, card):
+    """kernels/psroi.py (plain PyTorch; no CUDA kernel) on the card against
+    the CPU on the same seeded inputs: the function (deformable and not),
+    its gradients in x and trans, and the module with seeded weights (the
+    last FC non-zero).  Outputs within PSROI_TOL, gradients within
+    PSROI_TOL of their largest entry: the sample coordinates reach 69 px,
+    where a float32 ulp is 7.6e-6, and the card rounds them (fused
+    multiply-adds) otherwise than the CPU, which moves a bilinear weight
+    by an ulp times the map's local slope (a few units here); the card's
+    gather backward adds with atomics in another order."""
+    gen = torch.Generator().manual_seed(13)
+    n, h = 128, 69
+    x = torch.randn(2, h, h, 8 * 49, generator=gen)
+    xy = torch.rand(n, 2, generator=gen) * 500
+    wh = torch.rand(n, 2, generator=gen) * 280 + 16
+    rois = torch.cat([torch.randint(0, 2, (n, 1), generator=gen).float(),
+                      xy, xy + wh], 1)
+    trans = torch.randn(n, 2, 7, 7, generator=gen)
+    cot = torch.randn(n, 8, 7, 7, generator=gen)
+    errs = {}
+    for no_trans in (True, False):
+        outs = []
+        for d in ('cpu', dev):
+            leaves = [t.detach().to(d).requires_grad_() for t in (x, trans)]
+            out = psroi.deform_psroi_pool(
+                leaves[0], rois.to(d), None if no_trans else leaves[1],
+                no_trans=no_trans, **PSROI)
+            (out * cot.to(d)).sum().backward()
+            outs.append([out.detach().cpu()] + [
+                t.grad.cpu() if t.grad is not None else None for t in leaves])
+        (cpu, card_) = outs
+        errs[no_trans] = float((cpu[0] - card_[0]).abs().max())
+        check(errs[no_trans] <= PSROI_TOL
+              and float(cpu[0].abs().max()) > 0.1,
+              f'psroi no_trans={no_trans}: card and CPU differ by '
+              f'{errs[no_trans]!r}')
+        for i, name in ((1, 'x'), (2, 'trans')):
+            if cpu[i] is None:
+                continue
+            gerr = float((cpu[i] - card_[i]).abs().max())
+            top = float(cpu[i].abs().max())
+            print(f'psroi no_trans={no_trans} grad_{name}: card vs CPU '
+                  f'{gerr!r} (max {top!r})')
+            check(top > 0 and gerr <= PSROI_TOL * top,
+                  f'psroi grad_{name} differs by {gerr!r}')
+    torch.manual_seed(14)
+    mod = psroi.DeformRoIPooling(deform_fc_dim=1024, **PSROI)
+    with torch.no_grad():
+        mod.offset_mask_fc[4].weight.normal_(0, 0.02)
+        mod.offset_mask_fc[4].bias.normal_(0, 0.5)
+        want = mod(x, rois)
+        mod.to(dev)
+        got = mod(x.to(dev), rois.to(dev)).cpu()
+        xd, rd = x.to(dev), rois.to(dev)
+        ms = device_ms(lambda: mod(xd, rd), runs=20)
+    merr = float((got - want).abs().max())
+    check(merr <= PSROI_TOL and float((want - 0.5 * psroi.deform_psroi_pool(
+        x, rois, None, no_trans=True, **PSROI)).abs().max()) > 1e-3,
+        f'psroi module: card and CPU differ by {merr!r}')
+    print(f'psroi [2,69,69,392], 128 RoIs, 7x7: card vs CPU forward '
+          f'{errs[True]!r} (no_trans), {errs[False]!r} (deformable), module '
+          f'{merr!r}; the module {ms!r} ms a call on the card (plain PyTorch, '
+          f'no kernel) [{card}]')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this smoke '
@@ -3900,9 +4263,17 @@ def main():
                            trainer_timing_['yolact_base bf16']['ms'], c5_want)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    del sds
     torch.cuda.empty_cache()
     phase_done('10 data parallelism')
+
+    # ---- phase 11: export; 11b: deformable PSRoI pooling ----
+    export_launches = export_phase(sds['yolact_plus_base'], frames8, dev,
+                                   card)
+    del sds
+    torch.cuda.empty_cache()
+    phase_done('11 export')
+    psroi_phase(dev, card)
+    phase_done('11b psroi')
 
     # ---- phase 7: timing; the s2d A/B in the order plain, s2d, s2d, plain
     order = ('yolact_base', 'yolact_base_s2d', 'yolact_base_s2d',
@@ -3964,6 +4335,9 @@ def main():
                            for tag, counts in trainer_per_step.items()
                            if 'device_augment' in tag and counts.get(name)},
                        'dp_launches_per_rank_step': dp_launches.get(name, 0),
+                       'export_launches': {
+                           tag: counts[name]
+                           for tag, counts in export_launches.items()},
                        'option_launches': {
                            path: counts[name]
                            for path, counts in option_launches.items()

@@ -25,6 +25,8 @@ names for it); ``gate_layer``, ``score_layer`` and ``inst_layer`` keep
 their names.  The training-only heads convert like the
 rest: flax ``semantic_seg_conv`` (a conv) and ``class_existence_fc`` (a
 Dense, kernel transposed) become the reference's keys of the same names.
+:func:`psroi_variables_to_state_dict` carries the deformable PSRoI pooling
+module's three Dense layers the same way.
 Inputs are nested dicts of numpy arrays, so this module needs no JAX.
 
 For the train step, :func:`train_state_to_state_dict` takes the ``params``
@@ -157,6 +159,15 @@ def jax_variables_to_state_dict(cfg: YolactConfig, variables: Dict
         heads = init_train_heads(cfg, torch.Generator().manual_seed(0))
         sd.update({k: t for k, t in heads.items() if k not in sd})
     return sd
+
+
+def psroi_variables_to_state_dict(variables: Dict
+                                  ) -> Dict[str, torch.Tensor]:
+    """``yolact_tpu/kernels/psroi.py:DeformRoIPooling``'s flax variables ->
+    the state dict of the port's ``kernels/psroi.py:DeformRoIPooling``:
+    each Dense ``offset_mask_fc_{i}`` (kernel [in, out]) becomes the
+    reference's ``offset_mask_fc.{i}`` Linear (weight [out, in])."""
+    return _state_dict([variables.get('params', {})])
 
 
 def _from_torch(path: Tuple[str, ...], value) -> np.ndarray:

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from yolact_tpu_torch.config import YolactConfig
+from yolact_tpu_torch.kernels import _build
 from yolact_tpu_torch.kernels.nms import nms_iou_max, nms_iou_max_plain
 from yolact_tpu_torch.ops.boxes import decode
 
@@ -151,13 +152,14 @@ def detect(cfg: YolactConfig, pred_outs: Dict[str, torch.Tensor],
     # Candidate pruning: keep only the top-N priors by best class score
     # before the per-class sorts.  It is lossless whenever <= N priors pass
     # conf_thresh, which is checked here; otherwise the batch takes the
-    # unpruned tail, so results are exact either way.  Where JAX's lax.cond
-    # decides on the device, this reads the count on the host: one device
-    # sync per batch.
+    # unpruned tail, so results are exact either way.  JAX decides with
+    # lax.cond on the device; so does torch.cond here while torch.export
+    # traces, and eager mode reads the predicate on the host (one device
+    # sync per batch) and counts the tail it takes.
     n_cand = cfg.nms_candidates
     P = scores_all.shape[-1]
-    if n_cand and n_cand < P and int(cand.sum(dim=1).max()) <= n_cand:
-        branch_counts['pruned'] += 1
+
+    def pruned(best, boxes, coeffs, scores_all):
         _, keep_idx = _top_k(best, n_cand)                   # [B, N]
         s = torch.gather(scores_all, 2,
                          keep_idx[:, None, :].expand(-1, scores_all.shape[1],
@@ -176,8 +178,29 @@ def detect(cfg: YolactConfig, pred_outs: Dict[str, torch.Tensor],
             cl = F.pad(cl, (0, pad))
             sc = F.pad(sc, (0, pad), value=-1.0)
             va = F.pad(va, (0, pad))
+        return ob, oc, cl, sc, va
+
+    def full(best, boxes, coeffs, scores_all):
+        return tail(boxes, coeffs, scores_all)
+
+    operands = (best, boxes, coeffs, scores_all)
+    if not (n_cand and n_cand < P):
+        ob, oc, cl, sc, va = full(*operands)
     else:
-        if n_cand and n_cand < P:
+        fits = cand.sum(dim=1).max() <= n_cand
+        if _build.tracing():
+            # torch.cond wants outputs with the strides of a fresh tensor;
+            # the top-k slices have others (at batch 1 too)
+            def dense(branch):
+                return lambda *a: tuple(
+                    t.clone(memory_format=torch.contiguous_format)
+                    for t in branch(*a))
+            ob, oc, cl, sc, va = torch.cond(fits, dense(pruned), dense(full),
+                                            operands)
+        elif bool(fits):
+            branch_counts['pruned'] += 1
+            ob, oc, cl, sc, va = pruned(*operands)
+        else:
             branch_counts['full'] += 1
-        ob, oc, cl, sc, va = tail(boxes, coeffs, scores_all)
+            ob, oc, cl, sc, va = full(*operands)
     return Detections(ob, oc, cl.to(torch.int32), sc, va, proto)

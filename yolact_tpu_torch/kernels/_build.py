@@ -24,12 +24,25 @@ whatever stream it names, and ``csrc/mask_assembly.cu`` sizes its grid from
 ``cudaGetDevice``, so a wrapper called for ``cuda:1`` while ``cuda:0`` is
 current must switch.
 
-The kernels do not record themselves for autograd.  :func:`no_grad_inputs`
-is the guard of a wrapper whose kernel has no gradient (mask assembly, the
-IoU max; the JAX package's have none either): it raises where a detached
-result would silently cut a graph.  The stem and DCN wrappers go through
-their ``torch.autograd.Function`` instead, and only when :func:`needs_grad`
-says a graph is being recorded: inference launches the kernel directly.
+Each kernel is also a ``torch.library`` custom op in the
+``yolact_tpu_torch`` namespace (``torch.ops.yolact_tpu_torch.<name>``),
+whose CPU implementation is the kernel's plain version, whose CUDA
+implementation is the ctypes launch, and whose fake implementation gives
+the output's shape and dtype, so that ``torch.export`` can trace a graph
+through the kernels (a fake tensor has no ``data_ptr``) and an exported
+program launches them.  :func:`route` says how a wrapper runs: through its
+op while export or ``torch.compile`` traces, or while autograd records a
+call on the card (the stem and DCN ops carry ``register_autograd``); else
+the plain version on the CPU and the bare launch on the card, which skips
+the dispatcher (inference at batch 1 waits for the host).  The launch
+counters sit in the launches, so an exported program's launches count too.
+An exported program keeps no strides (a loaded one can hand an op a
+channels_last tensor that was contiguous in the trace), so each op's CUDA
+implementation makes its inputs contiguous before it launches.
+
+:func:`no_grad_inputs` is the guard of a wrapper whose kernel has no
+gradient (mask assembly, the IoU max; the JAX package's have none either):
+it raises where a detached result would silently cut a graph.
 """
 
 from __future__ import annotations
@@ -170,6 +183,24 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
     """Grad mode is on and one of `tensors` requires grad: autograd would
     record a differentiable call on them."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def tracing() -> bool:
+    """torch.export or torch.compile is tracing the call."""
+    return torch.compiler.is_exporting() or torch.compiler.is_compiling()
+
+
+def route(name: str, device: torch.device,
+          *grad_inputs: torch.Tensor) -> str:
+    """How the wrapper `name` runs its kernel on `device`: 'op' (its custom
+    op) while tracing, or on the card while autograd records a call on
+    `grad_inputs`; else 'plain' on the CPU and 'launch' (the ctypes call)
+    on the card.  Any other device raises."""
+    if device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{name}: unsupported device {device}')
+    if tracing() or (device.type == 'cuda' and needs_grad(*grad_inputs)):
+        return 'op'
+    return 'plain' if device.type == 'cpu' else 'launch'
 
 
 def no_grad_inputs(name: str, *tensors: torch.Tensor) -> None:

@@ -39,9 +39,13 @@ maps under 256 pixels, every map of the YOLACT++ configs).
 
 :func:`dcn_columns` and :func:`deform_conv2d` take the plain version only
 for tensors on the CPU.  For CUDA tensors they launch the kernel or raise.
+The custom ops ``torch.ops.yolact_tpu_torch.dcn_columns`` and
+``dcn_col2im`` carry both for ``torch.export`` and for autograd on the card
+(``_build.route``).
 
-Gradients.  On the card :func:`dcn_columns` runs the sampling kernel inside
-:class:`DCNColumns`, whose backward is a second hand-written kernel,
+Gradients.  On the card autograd records the ``dcn_columns`` op, whose
+backward (``register_autograd``) is the ``dcn_col2im`` op, a second
+hand-written kernel,
 ``csrc/dcn_col2im.cu`` (:func:`dcn_col2im`): from the columns' gradient it
 accumulates ``grad_x`` per tile of output pixels over the tile's window of
 input pixels, in float32, and adds each window pixel into an NHWC buffer
@@ -57,9 +61,11 @@ product's VJP), which is not a Pallas kernel.  The GEMM's gradients stay
 ``torch.matmul``'s own.  The plain version of the backward,
 :func:`dcn_col2im_plain`, is autograd through :func:`dcn_columns_plain`
 (``torch.gather``'s backward is the scatter-add, the selected corner weights
-carry the coordinate gradients, ``floor`` gives none); on the CPU autograd
-runs through the plain forward directly.  Corners outside the map (far and
-infinite offsets included) add exactly nothing to any gradient; a NaN
+carry the coordinate gradients, ``floor`` gives none; taken by
+``torch.func.vjp``, which also works inside the op's CPU implementation,
+below the autograd dispatch); on the CPU autograd runs through the plain
+forward directly.  Corners outside the map (far and infinite offsets
+included) add exactly nothing to any gradient; a NaN
 offset, whose columns are NaN, has NaN gradients.  Two deltas from JAX in
 bfloat16: JAX scatters ``grad_x`` in bfloat16, so its sum depends on the
 order, while the kernel sums in float32 and rounds once; and the atomics'
@@ -386,11 +392,11 @@ def dcn_col2im_plain(g_cols: torch.Tensor, x: torch.Tensor,
                      stride: int = 1, padding: int = 1, dilation: int = 1):
     """The gradients of :func:`dcn_columns_plain` for the columns' gradient
     `g_cols` [B*Ho*Wo, K*K*Cin]: (grad_x [B, Cin, H, W] in x's dtype,
-    grad_offset, grad_mask in the mask's dtype), by autograd."""
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (x, offset, mask)]
-        cols = dcn_columns_plain(*leaves, k, stride, padding, dilation)
-        return torch.autograd.grad(cols, leaves, g_cols.to(cols.dtype))
+    grad_offset, grad_mask in the mask's dtype), by ``torch.func.vjp``."""
+    _, vjp = torch.func.vjp(
+        lambda *t: dcn_columns_plain(*t, k, stride, padding, dilation),
+        x.detach(), offset.detach(), mask.detach())
+    return vjp(g_cols.to(x.dtype))
 
 
 def dcn_col2im(g_cols: torch.Tensor, x: torch.Tensor, offset: torch.Tensor,
@@ -416,25 +422,79 @@ def dcn_col2im(g_cols: torch.Tensor, x: torch.Tensor, offset: torch.Tensor,
     return gx.permute(0, 3, 1, 2), go, gm.to(mask.dtype)
 
 
-class DCNColumns(torch.autograd.Function):
-    """The sampling kernel with a gradient: forward ``csrc/dcn_im2col.cu``,
-    backward ``csrc/dcn_col2im.cu``.  Takes the NHWC x, the float32 offsets,
-    the mask in x's dtype and the launch geometry."""
+def _plain_dims(dims):
+    """The plain versions' geometry arguments from the C entry points'."""
+    return tuple(dims[6:])
 
-    @staticmethod
-    def forward(ctx, xh, offset, mask, dims):
-        ctx.save_for_backward(xh, offset, mask)
-        ctx.dims = dims
-        return _launch_im2col(xh, offset, mask, dims)
 
-    @staticmethod
-    def backward(ctx, g_cols):
-        xh, offset, mask = ctx.saved_tensors
-        gx, go, gm = _launch_col2im(g_cols.contiguous(), xh, offset, mask,
-                                    ctx.dims)
-        need = ctx.needs_input_grad
-        return (gx if need[0] else None, go if need[1] else None,
-                gm if need[2] else None, None)
+@torch.library.custom_op('yolact_tpu_torch::dcn_columns', mutates_args=(),
+                         device_types='cpu')
+def dcn_columns_op(xh: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                   dims: list[int]) -> torch.Tensor:
+    """The sampling kernel as a custom op, on the NHWC x, the float32
+    offsets, the mask in x's dtype and the launch geometry (the ints of
+    the C entry point): the plain version on the CPU."""
+    return dcn_columns_plain(xh.permute(0, 3, 1, 2), offset, mask,
+                             *_plain_dims(dims))
+
+
+@dcn_columns_op.register_kernel('cuda')
+def _dcn_columns_cuda(xh, offset, mask, dims):
+    return _launch_im2col(xh.contiguous(), offset.contiguous(),
+                          mask.contiguous(), tuple(dims))
+
+
+@dcn_columns_op.register_fake
+def _dcn_columns_fake(xh, offset, mask, dims):
+    b, cin, _, _, ho, wo, k = dims[:7]
+    return xh.new_empty((b * ho * wo, k * k * cin))
+
+
+@torch.library.custom_op('yolact_tpu_torch::dcn_col2im', mutates_args=(),
+                         device_types='cpu')
+def dcn_col2im_op(g_cols: torch.Tensor, xh: torch.Tensor,
+                  offset: torch.Tensor, mask: torch.Tensor, dims: list[int]
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel as a custom op, on the inputs of
+    :func:`dcn_columns_op` and the columns' gradient: (grad_x NHWC in x's
+    dtype, grad_offset float32, grad_mask in x's dtype), the plain version
+    on the CPU."""
+    gx, go, gm = dcn_col2im_plain(g_cols, xh.permute(0, 3, 1, 2), offset,
+                                  mask, *_plain_dims(dims))
+    return (gx.permute(0, 2, 3, 1).contiguous(), go.contiguous(),
+            gm.contiguous())
+
+
+@dcn_col2im_op.register_kernel('cuda')
+def _dcn_col2im_cuda(g_cols, xh, offset, mask, dims):
+    # looked up when the op runs: tests and chip_smoke.py record around it
+    return _launch_col2im(g_cols.contiguous(), xh.contiguous(),
+                          offset.contiguous(), mask.contiguous(), tuple(dims))
+
+
+@dcn_col2im_op.register_fake
+def _dcn_col2im_fake(g_cols, xh, offset, mask, dims):
+    return (xh.new_empty(xh.shape), offset.new_empty(offset.shape),
+            mask.new_empty(mask.shape))
+
+
+def _dcn_columns_setup(ctx, inputs, output):
+    xh, offset, mask, dims = inputs
+    ctx.save_for_backward(xh, offset, mask)
+    ctx.dims = dims
+
+
+def _dcn_columns_backward(ctx, g_cols):
+    xh, offset, mask = ctx.saved_tensors
+    gx, go, gm = dcn_col2im_op(g_cols.contiguous(), xh, offset, mask,
+                               ctx.dims)
+    need = ctx.needs_input_grad
+    return (gx if need[0] else None, go if need[1] else None,
+            gm if need[2] else None, None)
+
+
+dcn_columns_op.register_autograd(_dcn_columns_backward,
+                                 setup_context=_dcn_columns_setup)
 
 
 def dcn_columns(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
@@ -442,15 +502,14 @@ def dcn_columns(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                 dilation: int = 1) -> torch.Tensor:
     """Same contract as :func:`dcn_columns_plain`; the CUDA kernels for
     CUDA tensors, differentiable in x, offset and mask."""
-    if x.device.type == 'cpu':
+    how = _build.route('dcn_columns', x.device, x, offset, mask)
+    if how == 'plain':
         return dcn_columns_plain(x, offset, mask, k, stride, padding,
                                  dilation)
-    if x.device.type != 'cuda':
-        raise ValueError(f'dcn_columns: unsupported device {x.device}')
     xh, m, dims = _geometry(x, offset, mask, k, stride, padding, dilation)
-    if not _build.needs_grad(x, offset, mask):      # inference: no graph
-        return _launch_im2col(xh, offset, m, dims)
-    return DCNColumns.apply(xh, offset, m, dims)
+    if how == 'op':
+        return dcn_columns_op(xh, offset, m, list(dims))
+    return _launch_im2col(xh, offset, m, dims)
 
 
 def _gemm(cols: torch.Tensor, weight: torch.Tensor,

@@ -16,7 +16,9 @@ crop, and so the zero pattern, is exact.  The plain version writes and
 rereads the products.
 
 :func:`assemble_masks` takes the plain version only for tensors on the
-CPU.  For CUDA tensors it launches the kernel or raises.
+CPU.  For CUDA tensors it launches the kernel or raises.  The custom op
+``torch.ops.yolact_tpu_torch.mask_assembly`` carries both for
+``torch.export`` (``_build.route``).
 """
 
 from __future__ import annotations
@@ -56,16 +58,8 @@ def assemble_masks_plain(proto: torch.Tensor, coeffs: torch.Tensor,
     return m.permute(0, 3, 1, 2)
 
 
-def assemble_masks(proto: torch.Tensor, coeffs: torch.Tensor,
-                   boxes: torch.Tensor, padding: int = 1) -> torch.Tensor:
-    """Same contract as :func:`assemble_masks_plain`; the CUDA kernel for
-    CUDA tensors.  No gradient (the JAX kernel has none): raises under grad
-    mode when an input requires grad."""
-    _build.no_grad_inputs('assemble_masks', proto, coeffs, boxes)
-    if proto.device.type == 'cpu':
-        return assemble_masks_plain(proto, coeffs, boxes, padding)
-    if proto.device.type != 'cuda':
-        raise ValueError(f'assemble_masks: unsupported device {proto.device}')
+def _checked(proto, coeffs, boxes):
+    """The CUDA inputs checked and made float32 contiguous."""
     b, hp, wp, md = proto.shape
     if coeffs.dim() != 3 or coeffs.shape[0] != b or coeffs.shape[2] != md:
         raise ValueError(f'assemble_masks: coeffs {tuple(coeffs.shape)} does '
@@ -82,9 +76,16 @@ def assemble_masks(proto: torch.Tensor, coeffs: torch.Tensor,
                          f'than {MAX_SMEM}')
     if not (coeffs.device == boxes.device == proto.device):
         raise ValueError('assemble_masks: inputs on different devices')
-    proto = proto.to(torch.float32).contiguous()
-    coeffs = coeffs.to(torch.float32).contiguous()
-    boxes = boxes.to(torch.float32).contiguous()
+    return (proto.to(torch.float32).contiguous(),
+            coeffs.to(torch.float32).contiguous(),
+            boxes.to(torch.float32).contiguous())
+
+
+def _launch(proto: torch.Tensor, coeffs: torch.Tensor, boxes: torch.Tensor,
+            padding: int) -> torch.Tensor:
+    """The kernel on checked float32 contiguous CUDA tensors."""
+    b, hp, wp, md = proto.shape
+    d = coeffs.shape[1]
     out = torch.empty((b, d, hp, wp), dtype=torch.float32, device=proto.device)
     if out.numel() == 0:
         return out
@@ -97,3 +98,40 @@ def assemble_masks(proto: torch.Tensor, coeffs: torch.Tensor,
             _build.stream_ptr(proto.device)), 'yolact_mask_assembly')
     launches += 1
     return out
+
+
+@torch.library.custom_op('yolact_tpu_torch::mask_assembly', mutates_args=(),
+                         device_types='cpu')
+def mask_assembly_op(proto: torch.Tensor, coeffs: torch.Tensor,
+                     boxes: torch.Tensor, padding: int) -> torch.Tensor:
+    """The kernel as a custom op: the plain version on the CPU."""
+    return assemble_masks_plain(proto, coeffs, boxes, padding).contiguous()
+
+
+@mask_assembly_op.register_kernel('cuda')
+def _mask_assembly_cuda(proto, coeffs, boxes, padding):
+    return _launch(proto.contiguous(), coeffs.contiguous(),
+                   boxes.contiguous(), padding)
+
+
+@mask_assembly_op.register_fake
+def _mask_assembly_fake(proto, coeffs, boxes, padding):
+    b, hp, wp, _ = proto.shape
+    return proto.new_empty((b, coeffs.shape[1], hp, wp), dtype=torch.float32)
+
+
+def assemble_masks(proto: torch.Tensor, coeffs: torch.Tensor,
+                   boxes: torch.Tensor, padding: int = 1) -> torch.Tensor:
+    """Same contract as :func:`assemble_masks_plain`; the CUDA kernel for
+    CUDA tensors.  No gradient (the JAX kernel has none): raises under grad
+    mode when an input requires grad."""
+    _build.no_grad_inputs('assemble_masks', proto, coeffs, boxes)
+    how = _build.route('assemble_masks', proto.device)
+    if how == 'plain':
+        return assemble_masks_plain(proto, coeffs, boxes, padding)
+    if proto.device.type == 'cuda':
+        proto, coeffs, boxes = _checked(proto, coeffs, boxes)
+    if how == 'op':
+        return mask_assembly_op(proto, coeffs, boxes, padding)
+    return _launch(proto, coeffs, boxes, padding)
+

@@ -16,7 +16,9 @@ The result is bit-equal to the plain version, which materialises the
 matrix several times over.
 
 :func:`nms_iou_max` takes the plain version only for a tensor on the CPU.
-For a CUDA tensor it launches the kernel or raises.
+For a CUDA tensor it launches the kernel or raises.  The custom op
+``torch.ops.yolact_tpu_torch.nms_iou_max`` carries both for
+``torch.export`` (``_build.route``).
 """
 
 from __future__ import annotations
@@ -121,22 +123,9 @@ def _plan_array(n: int, k: int, sms: int):
     return (ctypes.c_int * len(flat))(*flat)
 
 
-def nms_iou_max(boxes: torch.Tensor) -> torch.Tensor:
-    """Same contract as :func:`nms_iou_max_plain`; the CUDA kernel for a
-    CUDA tensor.  No gradient (the JAX kernel has none): raises under grad
-    mode when `boxes` requires grad."""
-    _build.no_grad_inputs('nms_iou_max', boxes)
-    if boxes.device.type == 'cpu':
-        return nms_iou_max_plain(boxes)
-    if boxes.device.type != 'cuda':
-        raise ValueError(f'nms_iou_max: unsupported device {boxes.device}')
-    if boxes.dim() != 3 or boxes.shape[-1] != 4:
-        raise ValueError(f'nms_iou_max: boxes must be [N, K, 4], '
-                         f'got {tuple(boxes.shape)}')
+def _launch(boxes: torch.Tensor) -> torch.Tensor:
+    """The kernel on a checked float32 contiguous CUDA tensor."""
     n, k, _ = boxes.shape
-    if k > MAX_K:
-        raise ValueError(f'nms_iou_max: K={k} exceeds the kernel limit {MAX_K}')
-    boxes = boxes.to(torch.float32).contiguous()
     out = torch.empty((n, k), dtype=torch.float32, device=boxes.device)
     if n == 0 or k == 0:
         return out
@@ -149,3 +138,41 @@ def nms_iou_max(boxes: torch.Tensor) -> torch.Tensor:
             _build.stream_ptr(boxes.device)), 'yolact_fast_nms_iou_max')
     launches += 1
     return out
+
+
+@torch.library.custom_op('yolact_tpu_torch::nms_iou_max', mutates_args=(),
+                         device_types='cpu')
+def nms_iou_max_op(boxes: torch.Tensor) -> torch.Tensor:
+    """The kernel as a custom op: the plain version on the CPU."""
+    return nms_iou_max_plain(boxes)
+
+
+@nms_iou_max_op.register_kernel('cuda')
+def _nms_iou_max_cuda(boxes):
+    return _launch(boxes.contiguous())
+
+
+@nms_iou_max_op.register_fake
+def _nms_iou_max_fake(boxes):
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.float32)
+
+
+def nms_iou_max(boxes: torch.Tensor) -> torch.Tensor:
+    """Same contract as :func:`nms_iou_max_plain`; the CUDA kernel for a
+    CUDA tensor.  No gradient (the JAX kernel has none): raises under grad
+    mode when `boxes` requires grad."""
+    _build.no_grad_inputs('nms_iou_max', boxes)
+    how = _build.route('nms_iou_max', boxes.device)
+    if how == 'plain':
+        return nms_iou_max_plain(boxes)
+    if boxes.device.type == 'cuda':
+        if boxes.dim() != 3 or boxes.shape[-1] != 4:
+            raise ValueError(f'nms_iou_max: boxes must be [N, K, 4], '
+                             f'got {tuple(boxes.shape)}')
+        if boxes.shape[1] > MAX_K:
+            raise ValueError(f'nms_iou_max: K={boxes.shape[1]} exceeds the '
+                             f'kernel limit {MAX_K}')
+        boxes = boxes.to(torch.float32).contiguous()
+    if how == 'op':
+        return nms_iou_max_op(boxes)
+    return _launch(boxes)

@@ -20,11 +20,13 @@ the sums keep ~2^-21 of each product where one TF32 pass would keep 2^-11
 taken: 12 input and 64 output channels.
 
 :func:`stem_conv_s2d` takes the plain version only for a tensor on the CPU.
-For a CUDA tensor it launches the kernel or raises.
+For a CUDA tensor it launches the kernel or raises.  The custom op
+``torch.ops.yolact_tpu_torch.stem_s2d`` carries both for ``torch.export``
+and for autograd on the card (``_build.route``).
 
-Gradients.  On the card the forward is the kernel inside
-:class:`StemConvS2D`, whose backward is the gradient of the plain version's
-formulation (pad (2, 1), float32 conv) by ``torch.nn.grad.conv2d_weight`` and
+Gradients.  On the card autograd records the op, whose backward
+(``register_autograd``) is the gradient of the plain version's formulation
+(pad (2, 1), float32 conv) by ``torch.nn.grad.conv2d_weight`` and
 ``conv2d_input``: library convs, as the JAX package's backward is XLA's conv
 VJP outside any Pallas body (``yolact_tpu/kernels/stem.py:_bwd``).  Only the
 gradients that are needed are computed; the image never needs one.  On the
@@ -68,13 +70,15 @@ def _check(x: torch.Tensor, w2: torch.Tensor) -> None:
         raise ValueError('stem_conv_s2d: x and w2 must be contiguous')
     if x.device != w2.device:
         raise ValueError('stem_conv_s2d: x and w2 on different devices')
-    if x.dtype == torch.bfloat16 and w2.data_ptr() % 16:
-        raise ValueError('stem_conv_s2d: a bfloat16 w2 must be 16-byte '
-                         'aligned (the kernel copies it in 16-byte pieces)')
 
 
 def _launch(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
-    """The kernel on checked CUDA tensors; records nothing for autograd."""
+    """The kernel on checked CUDA tensors; records nothing for autograd.
+    (A traced call has no data pointer to check: the alignment is checked
+    here, where the kernel launches.)"""
+    if x.dtype == torch.bfloat16 and w2.data_ptr() % 16:
+        raise ValueError('stem_conv_s2d: a bfloat16 w2 must be 16-byte '
+                         'aligned (the kernel copies it in 16-byte pieces)')
     b, _, h, w = x.shape
     out = torch.empty((b, COUT, h, w), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
@@ -106,28 +110,45 @@ def stem_conv_s2d_grads(x: torch.Tensor, w2: torch.Tensor, g: torch.Tensor,
     return gx, gw
 
 
-class StemConvS2D(torch.autograd.Function):
-    """The stem kernel with a gradient (see the module docstring)."""
+@torch.library.custom_op('yolact_tpu_torch::stem_s2d', mutates_args=(),
+                         device_types='cpu')
+def stem_s2d_op(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """The kernel as a custom op: the plain version on the CPU."""
+    return stem_conv_s2d_plain(x, w2)
 
-    @staticmethod
-    def forward(ctx, x, w2):
-        ctx.save_for_backward(x, w2)
-        return _launch(x, w2)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, w2 = ctx.saved_tensors
-        return stem_conv_s2d_grads(x, w2, g, *ctx.needs_input_grad)
+@stem_s2d_op.register_kernel('cuda')
+def _stem_s2d_cuda(x, w2):
+    return _launch(x.contiguous(), w2.contiguous())
+
+
+@stem_s2d_op.register_fake
+def _stem_s2d_fake(x, w2):
+    b, _, h, w = x.shape
+    return x.new_empty((b, w2.shape[0], h, w))
+
+
+def _stem_s2d_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _stem_s2d_backward(ctx, g):
+    x, w2 = ctx.saved_tensors
+    return stem_conv_s2d_grads(x, w2, g, *ctx.needs_input_grad)
+
+
+stem_s2d_op.register_autograd(_stem_s2d_backward,
+                              setup_context=_stem_s2d_setup)
 
 
 def stem_conv_s2d(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """Same contract as :func:`stem_conv_s2d_plain` for the stem's shape;
     the CUDA kernel for CUDA tensors, differentiable in x and w2."""
-    if x.device.type == 'cpu':
+    how = _build.route('stem_conv_s2d', x.device, x, w2)
+    if how == 'plain':
         return stem_conv_s2d_plain(x, w2)
-    if x.device.type != 'cuda':
-        raise ValueError(f'stem_conv_s2d: unsupported device {x.device}')
-    _check(x, w2)
-    if not _build.needs_grad(x, w2):                # inference: no graph
-        return _launch(x, w2)
-    return StemConvS2D.apply(x, w2)
+    if x.device.type == 'cuda':
+        _check(x, w2)
+    if how == 'op':
+        return stem_s2d_op(x, w2)
+    return _launch(x, w2)
