@@ -207,6 +207,26 @@ Phases, each of which raises on failure:
    its gradients in x and trans within 1e-4 of their largest entry, the
    module with seeded weights within 1e-4 (float32 coordinates up to 69
    px, rounded otherwise on the card); its ms a call on the card
+12. spatial partitioning (parallel/mesh.py:make_mesh_2d): two spawned gloo
+   ranks on cuda:0 split data 1 x space 2, each holding its rows of every
+   map of the same 8 images. (a) yolact_plus_base 550 f32, s2d stem,
+   train_remat 'dcn', batch statistics, phase 10's weights, batch and
+   seeds: three steps against phase 10's one-process b8 steps (losses
+   within 1e-4 relative, first gradients within STEM_BATCH_STATS_LIMIT of
+   their max, launches per rank per step equal to one process's), the two
+   ranks' weights bit-equal after each step; a control that must fail
+   the gradient check (the head outputs gathered with the gradient summed
+   over the ranks, the other transpose); ms a step a rank, the
+   collectives' count and share of one more step in which each is timed,
+   peak memory allocated per rank against one process's, and against one
+   process's with its batch norms on the ranks' global-moment path. (b) Pipeline(yolact_plus_base) under the mesh
+   on the raw frames, b1 f32 (phase 4's rule) and b8 bf16 (matched sets)
+   against Pipeline in this process, every rank's detections bit-equal,
+   launches a call equal. (c) the DCN sampling and dcn_col2im on rank 1's
+   output rows (row0 > 0) at the five DCN shapes, f32 and bf16 b8: the
+   columns bit-equal to the plain version and to the whole call's rows,
+   the backward within phase 3's tolerances of its plain version and of
+   the whole call
 7. timing: median and p90 ms per batch at b1 / b8 bf16 for every path
    (CUDA events over 100 calls; the s2d A/B in the order plain, s2d, s2d,
    plain), device busy and idle share per batch (torch.profiler kernel
@@ -221,13 +241,14 @@ Phases, each of which raises on failure:
    five shapes in f32 and bf16 with its global reductions
 
 Each phase prints its seconds, and the end of the run all of them; the
-run order is 1, 2, 3, 4, 4b, 9, 5, 6, 8, 8b, 10, 11, 11b, 7.
+run order is 1, 2, 3, 4, 4b, 9, 5, 6, 8, 8b, 10, 11, 11b, 12, 7.
 The line before the last is a JSON object with each kernel's launches
 (and, as trainer_launches, its launches in the trainer's runs, as
 device_augment_launches_per_step per step of phase 8's device-augment
 runs by run, as
 option_launches in phase 9's runs by path, and as
 dp_launches_per_rank_step per rank in a step of phase 10's two-rank
+run, as spatial_launches_per_rank_step per rank in a step of phase 12's
 run, as export_launches per call of phase 11's artifacts by run), error,
 times and bound; the last line is {"ok": true, "device": {...}}.
 """
@@ -277,6 +298,7 @@ from yolact_tpu_torch.ops.anchors import proto_size, seg_size
 from yolact_tpu_torch.ops.bits import pack_bits_last, unpack_bits_last
 from yolact_tpu_torch.ops.resize import _weights as resize_weights
 from yolact_tpu_torch.ops.resize import resize_bilinear_np
+from yolact_tpu_torch.parallel.mesh import own
 from yolact_tpu_torch.train import checkpoint, step as step_module
 from yolact_tpu_torch.train.loss import multibox_loss
 from yolact_tpu_torch.train.matcher import match as match_priors
@@ -983,7 +1005,8 @@ def col2im_in_step(captured, card):
     total = 0.0
     reductions = collections.Counter()
     for i, (g_cols, xh, offset, mask, dims) in enumerate(captured):
-        _, c, h, w, _, _, k, stride, pad, dil = dims
+        _, c, h, w, _, _, k, stride, pad, dil, row0 = dims
+        check(row0 == 0, f'one process launched dcn_col2im from row {row0}')
         x = xh.permute(0, 3, 1, 2)
         r = dcn.col2im_reductions(offset, c, h, w, k, stride, pad, dil,
                                   dcn.col2im_vec(c, x.element_size(), x))
@@ -3455,6 +3478,12 @@ DP_GRADS = ('backbone.conv1.weight', DCN0 + 'conv_offset_mask.weight',
             DCN0 + 'weight')
 DP_TIMED_STEPS = 3
 DP_SECONDS = 600     # a rank that gives no result in this long fails
+# Phase 12: the same config, batch and seeds on data 1 x space 2 (two gloo
+# ranks on the card, each the rows of all 8 images); per rank per step the
+# same launches as one process (the DCN blocks' replays included)
+SP_SPACE = 2
+SP_TIMED_STEPS = 2
+SP_INFER_RUNS = (('b1 f32', 'float32', 1), ('b8 bf16', 'bfloat16', 8))
 
 
 def free_port():
@@ -3482,7 +3511,7 @@ def timed_collectives(record):
     is its own and not the queued work's it waits for)."""
     import torch.distributed as dist
     real = {name: getattr(dist, name)
-            for name in ('all_reduce', 'all_gather', 'barrier')}
+            for name in ('all_reduce', 'all_gather', 'broadcast', 'barrier')}
 
     def timed(fn):
         def call(*a, **k):
@@ -3628,19 +3657,45 @@ def run_dp_ranks(sd_path):
     return [got[r] for r in range(DP_WORLD)]
 
 
-def dp_two_ranks(sd, dev, card):
-    """Phase 10(a), see the module docstring."""
+def one_process_steps(sd, dev, timed=SP_TIMED_STEPS):
+    """The one-process b8 step that phases 10 and 12 hold their ranks to:
+    TRAIN_STEPS steps of dp_config() from tame_residuals(sd) on
+    make_train_batch's global batch (dp_steps: losses, launches, the
+    DP_GRADS of the first step), then `timed` more timed; with the peak
+    memory allocated over what the process held before (GiB) and the
+    median ms a step (host clock, synchronised)."""
     cfg = dp_config()
-    tag = f'dp {DP_CONFIG} 550 b8 f32 ({DP_WORLD} gloo ranks on one card)'
-    sd = tame_residuals(sd)
     torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    batch = make_train_batch(cfg)
+    gen = torch.Generator(device=dev).manual_seed(11)
     with deterministic_library():
-        state = create_train_state(cfg, device=dev, state_dict=sd)
-        losses, launches, _, grads = dp_steps(
-            state, make_train_batch(cfg), torch.Generator(
-                device=dev).manual_seed(11), DP_GRADS)
+        state = create_train_state(cfg, device=dev,
+                                   state_dict=tame_residuals(sd))
+        losses, launches, _, grads = dp_steps(state, batch, gen, DP_GRADS)
+    ms = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     del state
     torch.cuda.empty_cache()
+    return dict(losses=losses, launches=launches, grads=grads, peak_gib=peak,
+                ms=ms)
+
+
+def dp_two_ranks(sd, dev, card):
+    """Phase 10(a), see the module docstring.  Returns the launches per
+    rank per step and the one-process run (one_process_steps)."""
+    tag = f'dp {DP_CONFIG} 550 b8 f32 ({DP_WORLD} gloo ranks on one card)'
+    one = one_process_steps(sd, dev)
+    losses, launches, grads = one['losses'], one['launches'], one['grads']
+    sd = tame_residuals(sd)
     with tempfile.TemporaryDirectory(prefix='chip_smoke_dp_') as tmp:
         path = os.path.join(tmp, 'weights.pth')
         torch.save(sd, path)
@@ -3712,7 +3767,7 @@ def dp_two_ranks(sd, dev, card):
               f'(share {coll / ms!r}; {run["collectives"]} collectives a '
               f'step, each timed between two synchronisations); peak memory '
               f'{run["peak_gib"]!r} GiB [{card}]')
-    return ranks[0]['launches'][0]
+    return ranks[0]['launches'][0], one
 
 
 def dp_trainer(sd, dev, card, one_device_ms):
@@ -3819,14 +3874,15 @@ def c5_pipeline(sd, frames8, dev, want):
 
 def dp_phase(sds, frames8, dev, card, one_device_ms, c5_want):
     """Phase 10 (see the module docstring).  Returns the launches per rank
-    per step of the two-rank run."""
+    per step of the two-rank run and the one-process run it was held to
+    (one_process_steps)."""
     t0 = time.perf_counter()
-    launches = dp_two_ranks(sds[DP_CONFIG], dev, card)
+    launches, one = dp_two_ranks(sds[DP_CONFIG], dev, card)
     print(f'phase 10(a): {time.perf_counter() - t0:.1f} s')
     dp_trainer(sds['yolact_base'], dev, card, one_device_ms)
     dp_eval(sds['yolact_base'], dev, card)
     c5_pipeline(sds['yolact_base'], frames8, dev, c5_want)
-    return launches
+    return launches, one
 
 
 # ---- phase 11: export ------------------------------------------------------
@@ -4045,7 +4101,7 @@ def dispatch_timing(dev, card):
     x, w2 = (torch.randn(shape, generator=g).to(dev, torch.bfloat16)
              for shape in ((1, 12, 275, 275), (64, 12, 4, 4)))
     # the layers.2 blocks 3-21 shape (DCN_SHAPES)
-    dims = (1, 256, 35, 35, 35, 35, 3, 1, 1, 1)
+    dims = (1, 256, 35, 35, 35, 35, 3, 1, 1, 1, 0)
     xb, offset, dmask = dcn_inputs(g, dev, 1, 256, 35, 1, torch.bfloat16,
                                    finite=True)
     xh = xb.permute(0, 2, 3, 1).contiguous()
@@ -4166,6 +4222,395 @@ def psroi_phase(dev, card):
           f'no kernel) [{card}]')
 
 
+# ---- phase 12: spatial partitioning --------------------------------------
+
+def sp_infer_config():
+    """Phase 12(b)'s inference: yolact_plus_base with the s2d stem (as
+    Pipeline takes raw frames) and its sparse cell's weights shaping."""
+    cfg = config_named(DP_CONFIG)
+    _, scale, bias, branch = [c for c in PATHS[DP_CONFIG]['cells']
+                              if c[0] == 'sparse'][0]
+    return cfg, scale, bias
+
+
+def sp_rank(rank, port, paths, results):
+    """One rank of phase 12, in a process of its own (spawn): the gloo
+    group on cuda:0 split data 1 x space SP_SPACE; (a) TRAIN_STEPS steps
+    of the global b8 batch, its rows of every map on this rank, then
+    SP_TIMED_STEPS timed steps, one more with its collectives timed, then
+    the control (the first step again with the head outputs' gather taking
+    the 'own' gradient, summed over the ranks); (b) Pipeline under the
+    mesh on the raw frames, per SP_INFER_RUNS.  Puts (rank, True, result)
+    or (rank, False, traceback) on `results`."""
+    import traceback
+    from yolact_tpu_torch.models import heads
+    from yolact_tpu_torch.parallel import mesh as parallel
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SP_SPACE),
+                      LOCAL_RANK=str(rank), MASTER_ADDR='127.0.0.1',
+                      MASTER_PORT=str(port))
+    try:
+        dev = torch.device('cuda', 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _build.load()
+        mesh = parallel.make_mesh_2d(
+            parallel.init_from_env('gloo', device=dev), SP_SPACE)
+        cfg = dp_config()
+        sd = torch.load(paths['train_sd'])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state = create_train_state(cfg, state_dict=sd, mesh=mesh)
+        batch = make_train_batch(cfg)        # data 1: all of the batch
+        gen = torch.Generator(device=dev).manual_seed(11)
+        with deterministic_library():
+            losses, launches, digests, grads = dp_steps(state, batch, gen,
+                                                        DP_GRADS)
+        times = []
+        for _ in range(SP_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        # the collectives' share from one more step with each collective
+        # timed (two synchronisations each, so this step runs slower)
+        record = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timed_collectives(record):
+            train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        timed_step = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        del state
+        real = heads.gather_rows
+        heads.gather_rows = lambda x, rows, grad: real(x, rows, 'own')
+        try:
+            control = create_train_state(cfg, state_dict=sd, mesh=mesh)
+            with deterministic_library():
+                c_losses, _, _, c_grads = dp_steps(
+                    control, batch,
+                    torch.Generator(device=dev).manual_seed(11), DP_GRADS,
+                    steps=1)
+        finally:
+            heads.gather_rows = real
+        del control
+        torch.cuda.empty_cache()
+        icfg, _, _ = sp_infer_config()
+        frames = torch.load(paths['frames']).to(dev)
+        wsd = torch.load(paths['infer_sd'])
+        infer = {}
+        for tag, dtype, b in SP_INFER_RUNS:
+            pipe = Pipeline(icfg, wsd, dev, dtype, mesh=mesh)
+            pipe(frames[:b])                                  # warm
+            reset_launches()
+            out = pipe(frames[:b])
+            torch.cuda.synchronize()
+            calls = read_launches(KERNELS)
+            ms = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pipe(frames[:b])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            # numpy: a tensor on the queue would be shared through a file
+            # descriptor that dies with this process
+            infer[tag] = dict(out={k: v.cpu().numpy() for k, v
+                                   in out._asdict().items() if v is not None},
+                              launches=calls, ms=ms)
+            del pipe
+        results.put((rank, True, dict(
+            losses=losses, launches=launches, digests=digests,
+            grads={k: v.numpy() for k, v in grads.items()},
+            ms=[t * 1e3 for t in times], timed_step_ms=timed_step * 1e3,
+            collective_ms=sum(record) * 1e3, collectives=len(record),
+            peak_gib=peak,
+            control=dict(losses=c_losses[0], grads={
+                k: v.numpy() for k, v in c_grads.items()}),
+            infer=infer)))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        parallel.destroy()
+
+
+def run_sp_ranks(paths):
+    """SP_SPACE spawned sp_rank processes; their results in rank order
+    (as run_dp_ranks)."""
+    import multiprocessing as mp
+    import queue
+    ctx = mp.get_context('spawn')
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=sp_rank, args=(rank, port, paths, results))
+             for rank in range(SP_SPACE)]
+    for proc in procs:
+        proc.start()
+    got = {}
+    try:
+        while len(got) < SP_SPACE:
+            try:
+                rank, ok, value = results.get(timeout=DP_SECONDS)
+            except queue.Empty:
+                raise RuntimeError(f'chip_smoke: phase 12 ranks '
+                                   f'{sorted(set(range(SP_SPACE)) - set(got))}'
+                                   f' gave no result in {DP_SECONDS} s')
+            check(ok, f'phase 12 rank {rank} failed:\n{value}')
+            got[rank] = value
+        for proc in procs:
+            proc.join(timeout=60)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    return [got[r] for r in range(SP_SPACE)]
+
+
+def sp_steps(ranks, one, card):
+    """Phase 12(a)'s checks and lines."""
+    tag = (f'spatial {DP_CONFIG} 550 b8 f32 (data 1 x space {SP_SPACE}, '
+           f'gloo ranks on one card)')
+    losses, launches, grads = one['losses'], one['launches'], one['grads']
+    for step in range(TRAIN_STEPS):
+        print(f'{tag} step {step}: one process {json.dumps(losses[step])}; '
+              f'ranks {json.dumps([r["losses"][step] for r in ranks])}')
+        check(len({r['digests'][step] for r in ranks}) == 1,
+              f'{tag}: the ranks\' weights differ after step {step}')
+        for rank, run in enumerate(ranks):
+            got = run['losses'][step]
+            check(got['finite'] and got.keys() == losses[step].keys(),
+                  f'{tag}: rank {rank} step {step} {got}')
+            for k, v in losses[step].items():
+                if k in ('finite', 'lr'):
+                    continue
+                check(np.isfinite(got[k]) and abs(got[k] - v) <= 1e-4 * abs(v),
+                      f'{tag}: rank {rank} step {step} loss {k} {got[k]!r} '
+                      f'against {v!r}')
+            check(run['launches'][step] == launches[step] == DP_PER_STEP,
+                  f'{tag}: rank {rank} step {step} launches '
+                  f'{run["launches"][step]}, one process {launches[step]}, '
+                  f'expected {DP_PER_STEP}')
+    print(f'{tag}: both ranks\' weights bit-equal after each of '
+          f'{TRAIN_STEPS} steps; launches per rank per step '
+          f'{json.dumps(ranks[0]["launches"][0])} (one process '
+          f'{json.dumps(launches[0])})')
+    # as phase 10: the rounding of the row-sharded convs and of the global
+    # moments passes through the random network to the first gradients;
+    # every gradient within STEM_BATCH_STATS_LIMIT.  The control (the head
+    # outputs' gather with the other transpose: every gradient before it
+    # counted twice) must fail it.
+    rel = STEM_BATCH_STATS_LIMIT
+    gaps = {}
+    for name in DP_GRADS:
+        want = grads[name]
+        top = float(want.abs().max())
+        err, control = (float(np.abs(g - want.cpu().numpy()).max())
+                        for g in (ranks[0]['grads'][name],
+                                  ranks[0]['control']['grads'][name]))
+        gaps[name] = control / top
+        print(f'{tag} first-step gradient of {name}: max {top!r}, '
+              f'max_abs_err against one process {err!r} ({err / top!r} of '
+              f'max; criterion {rel!r}); control with the gather\'s '
+              f'gradient summed over the ranks {control!r} '
+              f'({control / top!r} of max)')
+        check(top > 0 and err <= rel * top,
+              f'{tag}: the gradient of {name} differs')
+    check(min(gaps.values()) > rel, f'{tag}: the control passes the '
+          f'gradient check on {min(gaps, key=gaps.get)}: it has no teeth')
+    one_ms = statistics.median(one['ms'])
+    for rank, run in enumerate(ranks):
+        ms, coll, step = (statistics.median(run['ms']), run['collective_ms'],
+                          run['timed_step_ms'])
+        peak = run['peak_gib']
+        print(f'{tag} rank {rank}: median {ms!r} ms per step ({run["ms"]}, '
+              f'host clock, synchronised; one process {one_ms!r}); in one '
+              f'more step with each collective timed between two '
+              f'synchronisations ({step!r} ms) {run["collectives"]} '
+              f'collectives took {coll!r} ms (share {coll / step!r}); peak '
+              f'memory allocated {peak!r} GiB against one process\'s '
+              f'{one["peak_gib"]!r} GiB (share {peak / one["peak_gib"]!r}) '
+              f'and one process\'s on the global batch-norm path '
+              f'{one["global_bn_peak_gib"]!r} GiB (share '
+              f'{peak / one["global_bn_peak_gib"]!r}) [{card}]')
+    return ranks[0]['launches'][0]
+
+
+class LoneRank:
+    """A stand-in mesh for one process's batch norms: their global-moment
+    path (``models/layers.py:BatchNorm2d._global_batch_norm``) with an
+    identity all-reduce and an empty second slot, so the moments are this
+    process's batch's and the memory is that path's."""
+    rank, size = 0, 2
+
+    @staticmethod
+    def all_sum_grad(t):
+        return t
+
+
+def global_bn_peak(sd, dev):
+    """The peak memory allocated (GiB, over what the process held before)
+    of TRAIN_STEPS one-process b8 steps of dp_config() with every batch
+    norm on the global-moment path that the ranks take (LoneRank): what
+    the split's per-rank peak is measured against, apart from that
+    path's own cost."""
+    from yolact_tpu_torch.models.layers import BatchNorm2d
+    cfg = dp_config()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(cfg, device=dev, state_dict=tame_residuals(sd))
+    for m in state.model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.mesh = LoneRank()
+    batch = make_train_batch(cfg)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for _ in range(TRAIN_STEPS):
+        out = train_step(state, batch, gen)
+        check(bool(out['finite']), 'phase 12: the one-process step on the '
+              'global batch-norm path is not finite')
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    del state
+    torch.cuda.empty_cache()
+    return peak
+
+
+def sp_infer(ranks, sd, frames8, dev, card):
+    """Phase 12(b): each rank's detections against Pipeline in this
+    process on the same frames (f32 by phase 4's rule, bf16 as matched
+    sets), every rank the same, and the launches a call equal."""
+    cfg, scale, bias = sp_infer_config()
+    wsd = shape_conf(sd, cfg.num_classes, scale, bias)
+    for tag, dtype, b in SP_INFER_RUNS:
+        pipe = Pipeline(cfg, wsd, dev, dtype)
+        pipe(frames8[:b])
+        reset_launches()
+        want = pipe(frames8[:b])
+        torch.cuda.synchronize()
+        calls = read_launches(KERNELS)
+        ms = time_ms(lambda: pipe(frames8[:b]), runs=5, warmup=1)[0]
+        del pipe
+        outs = []
+        for rank, run in enumerate(ranks):
+            res = run['infer'][tag]
+            got = InferenceOutput(**{k: torch.from_numpy(v).to(dev)
+                                     for k, v in res['out'].items()})
+            outs.append(got)
+            name = f'spatial {DP_CONFIG} 550 {tag} rank {rank} vs Pipeline'
+            check_output(name, got, cfg, b)
+            if dtype == 'float32':
+                compare(name, got, want, exact=True, ties_ok=True)
+            else:
+                match(name, got, want)
+            check(res['launches'] == calls, f'{name}: launches a call '
+                  f'{res["launches"]}, Pipeline {calls}')
+            print(f'{name}: launches a call {json.dumps(res["launches"])} '
+                  f'(Pipeline the same); median {statistics.median(res["ms"])!r} '
+                  f'ms a call against Pipeline\'s {ms!r} (host clock) [{card}]')
+        same = all(torch.equal(getattr(outs[0], f), getattr(o, f))
+                   for o in outs[1:] for f in ('valid', 'classes', 'scores',
+                                               'boxes', 'masks'))
+        print(f'spatial {tag}: every rank\'s detections bit-equal: {same}')
+        check(same, f'spatial {tag}: the ranks\' detections differ')
+
+
+def sp_kernels(dev):
+    """Phase 12(c): the DCN sampling and dcn_col2im on rank 1's output
+    rows of a 2-way split (row0 > 0, the whole map as x) at the five
+    yolact_plus_base shapes, f32 and bf16 b8, finite offsets: the columns
+    bit-equal to the plain version's and to the whole call's rows; the
+    backward against its plain version (phase 3's tolerances) and against
+    the whole call with the column gradient zero outside the rows.
+    Returns the largest f32 error of the backward against its plain
+    version."""
+    gen = torch.Generator().manual_seed(12)
+    tol = KERNELS['dcn_col2im']['tol']
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, _, cin, h, stride in DCN_SHAPES:
+            x, offset, mask = dcn_inputs(gen, dev, 8, cin, h, stride, dtype,
+                                         finite=True)
+            ho = offset.shape[-1]
+            r0, r1 = own(ho, 1, SP_SPACE)
+            sub = [t[:, :, r0:r1].contiguous() for t in (offset, mask)]
+            tag = (f'spatial kernels {name} {str(dtype)[6:]} b8 rows '
+                   f'[{r0}, {r1}) of {ho}')
+            cols = dcn.dcn_columns(x, *sub, 3, stride, 1, 1, r0)
+            plain = dcn.dcn_columns_plain(x, *sub, 3, stride, 1, 1, r0)
+            whole = dcn.dcn_columns(x, offset, mask, 3, stride).view(
+                8, ho, ho, -1)[:, r0:r1].reshape(cols.shape)
+            torch.cuda.synchronize()
+            check(torch.equal(cols, plain), f'{tag}: the columns differ '
+                  f'from the plain version\'s')
+            check(torch.equal(cols, whole), f'{tag}: the columns differ '
+                  f'from the whole call\'s rows')
+            g = torch.randn(8, ho, ho, 9 * cin, generator=gen).to(dtype)\
+                .to(dev)
+            g_rows = g[:, r0:r1].reshape(-1, 9 * cin).contiguous()
+            got = dcn.dcn_col2im(g_rows, x, *sub, 3, stride, 1, 1, r0)
+            want = dcn.dcn_col2im_plain(g_rows, x, *sub, 3, stride, 1, 1,
+                                        r0)
+            zeroed = torch.zeros_like(g)
+            zeroed[:, r0:r1] = g[:, r0:r1]
+            full = dcn.dcn_col2im(zeroed.view(-1, 9 * cin), x, offset, mask,
+                                  3, stride)
+            full = (full[0], full[1][:, :, r0:r1], full[2][:, :, r0:r1])
+            torch.cuda.synchronize()
+            line = []
+            for gname, a, p, f in zip(('grad_x', 'grad_offset', 'grad_mask'),
+                                      got, want, full):
+                top = float(p.float().abs().max())
+                errs = [float((a.float() - o.float()).abs().max())
+                        for o in (p, f)]
+                if dtype == torch.bfloat16:
+                    limit = bf16_ulp(p.float()) + 1e-2 * top
+                    ok = all(bool(((a.float() - o.float()).abs() <= limit)
+                                  .all()) for o in (p, f))
+                else:
+                    ok = max(errs) <= tol * top
+                    worst = max(worst, errs[0])
+                line.append(f'{gname} max_abs_err vs plain {errs[0]!r}, vs '
+                            f'the whole call {errs[1]!r} (max {top!r}, bit-'
+                            f'equal to the whole call: '
+                            f'{bool(torch.equal(a, f))})')
+                check(ok, f'{tag}: {gname} differs ({line[-1]})')
+            print(f'{tag}: columns bit-equal to the plain version and to the '
+                  f'whole call\'s rows; dcn_col2im ' + '; '.join(line))
+            del x, offset, mask, g, got, want, full
+    return worst
+
+
+def spatial_phase(sds, frames8, dev, card, one=None):
+    """Phase 12 (see the module docstring).  `one`: phase 10's one-process
+    run (one_process_steps), made here when None.  Returns the launches per
+    rank per step of the spatial run."""
+    t0 = time.perf_counter()
+    sd = sds[DP_CONFIG]
+    if one is None:
+        one = one_process_steps(sd, dev)
+    one = dict(one, global_bn_peak_gib=global_bn_peak(sd, dev))
+    cfg, scale, bias = sp_infer_config()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_sp_') as tmp:
+        paths = {name: os.path.join(tmp, name + '.pt')
+                 for name in ('train_sd', 'infer_sd', 'frames')}
+        torch.save(tame_residuals(sd), paths['train_sd'])
+        torch.save(shape_conf(sd, cfg.num_classes, scale, bias),
+                   paths['infer_sd'])
+        torch.save(frames8.cpu(), paths['frames'])
+        ranks = run_sp_ranks(paths)
+    print(f'phase 12 ranks done in {time.perf_counter() - t0:.1f} s [{card}]')
+    launches = sp_steps(ranks, one, card)
+    sp_infer(ranks, sd, frames8, dev, card)
+    err = sp_kernels(dev)
+    print(f'phase 12(c): dcn_col2im from row0 > 0, largest f32 error '
+          f'against its plain version {err!r}')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this smoke '
@@ -4259,7 +4704,7 @@ def main():
     phase_done('8b device augmentation')
 
     # ---- phase 10: data parallelism, multi-device eval, C5 ----
-    dp_launches = dp_phase(sds, frames8, dev, card,
+    dp_launches, one_process = dp_phase(sds, frames8, dev, card,
                            trainer_timing_['yolact_base bf16']['ms'], c5_want)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4269,11 +4714,16 @@ def main():
     # ---- phase 11: export; 11b: deformable PSRoI pooling ----
     export_launches = export_phase(sds['yolact_plus_base'], frames8, dev,
                                    card)
-    del sds
     torch.cuda.empty_cache()
     phase_done('11 export')
     psroi_phase(dev, card)
     phase_done('11b psroi')
+
+    # ---- phase 12: spatial partitioning ----
+    sp_launches = spatial_phase(sds, frames8, dev, card, one_process)
+    del sds, one_process
+    torch.cuda.empty_cache()
+    phase_done('12 spatial partitioning')
 
     # ---- phase 7: timing; the s2d A/B in the order plain, s2d, s2d, plain
     order = ('yolact_base', 'yolact_base_s2d', 'yolact_base_s2d',
@@ -4335,6 +4785,8 @@ def main():
                            for tag, counts in trainer_per_step.items()
                            if 'device_augment' in tag and counts.get(name)},
                        'dp_launches_per_rank_step': dp_launches.get(name, 0),
+                       'spatial_launches_per_rank_step': sp_launches.get(
+                           name, 0),
                        'export_launches': {
                            tag: counts[name]
                            for tag, counts in export_launches.items()},

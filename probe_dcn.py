@@ -139,12 +139,19 @@ def parent_kernel(parent):
     with open(src) as f:
         text = f.read()
     vec_arg = 'int vec' in text
+    row0_arg = 'int row0' in text
     out = os.path.join(tempfile.mkdtemp(), 'parent_col2im.so')
     subprocess.run([_build._find_nvcc(), *_build.NVCC_FLAGS, '-shared', '-o',
                     out, src], check=True, capture_output=True, text=True)
     fn = ctypes.CDLL(out).yolact_dcn_col2im
-    sig = _build.SIGNATURES['yolact_dcn_col2im']
-    fn.argtypes = sig if vec_arg else sig[:-2] + sig[-1:]
+    # this tree's signature ends (..., dil, row0, vec, stream); an older
+    # kernel may lack row0 (before spatial partitioning) and vec
+    sig = list(_build.SIGNATURES['yolact_dcn_col2im'])
+    if not row0_arg:
+        del sig[-3]
+    if not vec_arg:
+        del sig[-2]
+    fn.argtypes = sig
     fn.restype = ctypes.c_int
 
     def call(g_cols, xh, offset, mask, dims):
@@ -153,10 +160,11 @@ def parent_kernel(parent):
         grad_mask = torch.empty_like(mask)
         extra = ((int(dcn.col2im_vec(dims[1], xh.element_size(), g_cols, xh,
                                      grad_x)),) if vec_arg else ())
+        geometry = dims if row0_arg else dims[:10]
         _build.check(fn(g_cols.data_ptr(), xh.data_ptr(), offset.data_ptr(),
                         mask.data_ptr(), grad_x.data_ptr(),
                         grad_offset.data_ptr(), grad_mask.data_ptr(),
-                        int(xh.dtype == torch.bfloat16), *dims, *extra,
+                        int(xh.dtype == torch.bfloat16), *geometry, *extra,
                         _build.stream_ptr(xh.device)), 'parent dcn_col2im')
         return grad_x, grad_offset, grad_mask
     return call
@@ -257,7 +265,7 @@ def main():
                 def call():
                     _build.check(fn(xh.data_ptr(), offset.data_ptr(),
                                     mask.data_ptr(), cols.data_ptr(), 1, 8,
-                                    cin, h, h, ho, ho, 3, stride, 1, 1,
+                                    cin, h, h, ho, ho, 3, stride, 1, 1, 0,
                                     _build.stream_ptr(dev)), name)
                 call()
                 torch.cuda.synchronize()

@@ -55,7 +55,7 @@ def main():
     want = smoke.make_pipeline('yolact_base_s2d', smoke.shape_conf(
         sds['yolact_base'], 81, 3.0, 7.0), dev, 'float32')(frames8[:1])
     t0 = time.perf_counter()
-    launches = smoke.dp_phase(sds, frames8, dev, card, None, want)
+    launches, _ = smoke.dp_phase(sds, frames8, dev, card, None, want)
     print(f'phase 10: {time.perf_counter() - t0:.1f} s')
     print(json.dumps({'dp_launches_per_rank_step': launches}))
 

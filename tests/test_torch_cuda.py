@@ -440,6 +440,56 @@ def test_dcn_col2im_kernel_matches_plain(cuda, dtype, b, cin, h, stride, far):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('b,cin,h,stride,rows', [
+    (2, 16, 23, 1, (9, 17)), (2, 60, 12, 2, (3, 6)),
+    (1, 5, 9, 1, (4, 9)), (2, 128, 69, 2, (17, 35)),   # a rank of two
+    (8, 256, 35, 1, (18, 35)), (8, 512, 35, 2, (9, 18)),
+])
+def test_dcn_kernels_from_row0_match_plain(cuda, dtype, b, cin, h, stride,
+                                           rows):
+    """Both DCN kernels on output rows [r0, r1) of the map (row0 = r0, the
+    whole map as x, a spatial rank's call): the columns bit-equal to the
+    plain version's and to the whole call's rows; the backward within the
+    plain version's tolerances, and grad_x against the whole call with the
+    column gradient zero outside the rows."""
+    r0, r1 = rows
+    gen = torch.Generator().manual_seed(cin + h + r0)
+    # finite offsets: a NaN sample outside the rows would put NaN into the
+    # whole call's grad_x through its zero column gradient
+    x, offset, mask = dcn_inputs(gen, cuda, b, cin, h, stride, dtype,
+                                 finite=True)
+    ho = offset.shape[-1]
+    sub = [t[:, :, r0:r1].contiguous() for t in (offset, mask)]
+    n0, c0 = dcn.launches, dcn.col2im_launches
+    got = dcn.dcn_columns(x, *sub, 3, stride, 1, 1, r0)
+    whole = dcn.dcn_columns(x, offset, mask, 3, stride)
+    torch.cuda.synchronize()
+    assert dcn.launches == n0 + 2
+    want = dcn.dcn_columns_plain(x, *sub, 3, stride, 1, 1, r0)
+    assert got.shape == want.shape == (b * (r1 - r0) * ho, 9 * cin)
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert torch.equal(got.isnan(), want.isnan())
+    rows_of_whole = whole.view(b, ho, ho, -1)[:, r0:r1].reshape(got.shape)
+    assert torch.equal(got.nan_to_num(), rows_of_whole.nan_to_num())
+    g_cols = torch.randn(b, ho, ho, 9 * cin, generator=gen).to(dtype)\
+        .to(cuda)
+    g_rows = g_cols[:, r0:r1].reshape(-1, 9 * cin).contiguous()
+    grads = dcn.dcn_col2im(g_rows, x, *sub, 3, stride, 1, 1, r0)
+    torch.cuda.synchronize()
+    assert dcn.col2im_launches == c0 + 1
+    _assert_grads_match(grads, dcn.dcn_col2im_plain(
+        g_rows, x, *sub, 3, stride, 1, 1, r0), dtype)
+    zeroed = torch.zeros_like(g_cols)
+    zeroed[:, r0:r1] = g_cols[:, r0:r1]
+    full = dcn.dcn_col2im(zeroed.view(-1, 9 * cin), x, offset, mask, 3,
+                          stride)
+    _assert_grads_match(
+        grads, (full[0], full[1][:, :, r0:r1], full[2][:, :, r0:r1]), dtype)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('stride', [1, 2])
 def test_deform_conv2d_gradients_on_the_card(cuda, stride):
     """deform_conv2d on CUDA tensors records its two kernels for autograd:
@@ -742,12 +792,13 @@ def test_dcn_col2im_on_train_step_inputs(cuda, train_remat):
     torch.cuda.synchronize()
     assert out['finite'] and len(captured) == 3
     for g_cols, xh, offset, mask, dims in captured:
-        _, _, _, _, _, _, k, stride, pad, dil = dims
+        _, _, _, _, _, _, k, stride, pad, dil, row0 = dims
         x = xh.permute(0, 3, 1, 2)
         assert bool((offset.abs() > 0.5).any())
-        got = dcn.dcn_col2im(g_cols, x, offset, mask, k, stride, pad, dil)
+        got = dcn.dcn_col2im(g_cols, x, offset, mask, k, stride, pad, dil,
+                             row0)
         want = dcn.dcn_col2im_plain(g_cols, x, offset, mask, k, stride, pad,
-                                    dil)
+                                    dil, row0)
         _assert_grads_match(got, want, x.dtype)
 
 

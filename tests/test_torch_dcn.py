@@ -210,7 +210,9 @@ def test_wrappers_take_plain_version_on_cpu(rng):
                                                torch.from_numpy(bias), 2))
     assert dcn.launches == n0
     assert _build.SIGNATURES['yolact_dcn_im2col'][0] is _build._P
-    assert len(_build.SIGNATURES['yolact_dcn_im2col']) == 16
+    # x, offset, mask, cols, dtype, b, c, h, w, ho, wo, k, stride, pad,
+    # dil, row0, stream
+    assert len(_build.SIGNATURES['yolact_dcn_im2col']) == 17
 
 
 @pytest.mark.parametrize('bad', ['x_half', 'offset_bf16', 'offset_shape',

@@ -484,10 +484,22 @@ def test_init_from_env_refuses_what_it_cannot_start():
 
 
 def test_spatial_split_raises_with_its_reason():
+    """A spatial split runs (tests/test_torch_spatial.py holds it): on four
+    ranks make_mesh_2d(mesh, 2) builds the data 2 x space 2 grid, world
+    rank d * 2 + s, with a process group for each row and column; a split
+    that does not divide the ranks raises, saying how JAX differs."""
+    from torch_spatial_worker import grid_run
     mesh = parallel.Mesh(0, 1, torch.device('cpu'))
     assert parallel.make_mesh_2d(mesh, 1) is mesh
-    with pytest.raises(NotImplementedError, match='halo'):
+    with pytest.raises(ValueError, match='trims its mesh'):
         parallel.make_mesh_2d(mesh, 2)
+    got = run_ranks(grid_run, 4, 2)
+    for rank, g in enumerate(got):
+        d, s = divmod(rank, 2)
+        assert g['data'] == (d, 2) and g['space'] == (s, 2)
+        assert g['data_sum'] == s + (2 + s)         # ranks s and 2 + s
+        assert g['space_sum'] == 2 * d + (2 * d + 1)
+        assert g['world_sum'] == 6
 
 
 # ---- multi-device evaluation ----------------------------------------------

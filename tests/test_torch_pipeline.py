@@ -327,9 +327,10 @@ def test_pipeline_cuda_raises_without_gpu():
 
 
 def test_port_imports_no_jax_flax_or_cv2():
-    """Every module of the port, chip_smoke.py (its imports; main() does
-    not run on import) and the ranks' module of the data-parallel tests
-    (tests/torch_parallel_worker.py), in a fresh interpreter: no module of
+    """Every module of the port, chip_smoke.py and probe_spatial.py (their
+    imports; main() does not run on import) and the ranks' modules of the
+    data-parallel and spatial tests (tests/torch_parallel_worker.py,
+    tests/torch_spatial_worker.py), in a fresh interpreter: no module of
     JAX, flax, cv2 or the JAX package (``yolact_tpu``) is loaded, and the
     modules that came with the video entry point, the model options, data
     parallelism and device augmentation (eval/video.py, utils/nvinfo.py,
@@ -340,7 +341,8 @@ def test_port_imports_no_jax_flax_or_cv2():
             'for m in pkgutil.walk_packages(yolact_tpu_torch.__path__,\n'
             '                               "yolact_tpu_torch."):\n'
             '    importlib.import_module(m.name)\n'
-            'import chip_smoke, torch_parallel_worker\n'
+            'import chip_smoke, probe_spatial, torch_parallel_worker\n'
+            'import torch_spatial_worker\n'
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in\n'
             '             ("jax", "flax", "cv2", "yolact_tpu"))\n'
             'n = sum(m.startswith("yolact_tpu_torch.") for m in sys.modules)\n'
@@ -363,8 +365,10 @@ PORT_SOURCES = sorted(
               recursive=True)) + ['chip_smoke.py', 'probe_cells.py',
                                   'probe_dcn.py', 'probe_dp.py',
                                   'probe_host.py', 'probe_small_kernels.py',
+                                  'probe_export.py', 'probe_spatial.py',
                                   'probe_trainer.py',
-                                  'tests/torch_parallel_worker.py']
+                                  'tests/torch_parallel_worker.py',
+                                  'tests/torch_spatial_worker.py']
 
 
 @pytest.mark.parametrize('path', PORT_SOURCES)

@@ -158,12 +158,14 @@ def test_cli_saves_interrupts_resumes_and_validates(tmp_path, monkeypatch):
 
 
 def test_unported_flags_raise():
-    """What the trainer refuses: a spatial split (with its reason), and
-    --distributed outside torchrun's environment (it is ported:
-    tests/test_torch_parallel.py)."""
+    """What the trainer refuses: --distributed outside torchrun's
+    environment (it is ported: tests/test_torch_parallel.py), and a
+    spatial split without it, one process having no ranks to split the
+    image over (the split runs: tests/test_torch_spatial.py::
+    test_cli_spatial_split_trains_and_resumes)."""
     for flag, error, match in (
             (['--distributed'], RuntimeError, 'environment'),
-            (['--spatial_split', '2'], NotImplementedError, 'halo')):
+            (['--spatial_split', '2'], ValueError, '--distributed')):
         with pytest.raises(error, match=match):
             cli.train(['--cuda=False'] + flag)
     if not torch.cuda.is_available():

@@ -27,7 +27,6 @@ JAX's ``use_device_augment``: the loader only resizes (``RawResize``) and
 ships uint8 images with full-resolution packed masks, and the step
 augments (``data/device_augment.py``) with draws from the trainer's
 generator.  ``--batch_alloc`` is accepted and ignored, as in JAX.
-``--spatial_split`` > 1 raises with its reason (``parallel/mesh.py``).
 
 ``--distributed`` trains data parallel, one process per device, started
 by torchrun (``torchrun --nproc_per_node=N -m yolact_tpu_torch.cli.train
@@ -45,6 +44,18 @@ from its identically seeded generator and keeps its rows
 (``train/step.py:train_step``).  Rank 0 alone logs,
 saves and runs the validation while the others wait at a barrier; every
 rank reads ``--resume``.
+
+``--spatial_split S`` (with ``--distributed``) splits the image height over
+S ranks as well: the W ranks form D = W / S data ranks by S space ranks
+(``parallel/mesh.py:make_mesh_2d``; W must divide by S, where JAX trims
+its mesh), each space rank runs its rows of every feature map of its data
+rank's images, and the step is still the one-device step on the global
+batch (``train/step.py``).  ``--batch_size`` must divide over the D data
+ranks; every space rank of a data rank loads that data rank's rows of the
+batch, and the step trains all of them on space rank 0's augmented copy;
+``freeze_bn`` follows the batch per data rank, as JAX's rule.  The ResNet configs take it (both stems,
+YOLACT++'s DCN layers); the others raise with their reason
+(``models/yolact.py:spatial_refusal``).
 
 :func:`train` also takes in-memory datasets (``dataset``, ``val_dataset``:
 objects with ``__len__`` and ``pull_item`` in the ``COCODetection`` item
@@ -123,8 +134,10 @@ def parse_args(argv=None):
                    help='backbone bottleneck checkpointing for the backward '
                         "pass (default: the config's, 'dcn')")
     p.add_argument('--spatial_split', default=1, type=int,
-                   help='only 1: splitting the image height over devices '
-                        'is not ported (parallel/mesh.py)')
+                   help='split the image height over this many ranks (a '
+                        'data x space grid of the --distributed ranks, '
+                        'whose count must divide by it; halos exchanged '
+                        'explicitly, parallel/mesh.py).  ResNet configs')
     p.set_defaults(keep_latest=False, log=True, log_gpu=False, interrupt=True,
                    autoscale=True, distributed=False, device_augment=False,
                    stem_s2d=False)
@@ -133,7 +146,7 @@ def parse_args(argv=None):
 
 def make_config(args, world: int = 1):
     """The run's config from the flags, as the JAX trainer derives it, for
-    `world` data-parallel ranks."""
+    `world` data ranks (the ranks that hold different images)."""
     from yolact_tpu_torch.config import get_config, get_dataset
     from yolact_tpu_torch.train.schedule import scale_config_for_batch
 
@@ -229,15 +242,19 @@ def _start_mesh(args):
     from yolact_tpu_torch.parallel.mesh import (Mesh, init_from_env,
                                                 make_mesh_2d)
     if not args.distributed:
+        if args.spatial_split != 1:
+            raise ValueError(f'--spatial_split {args.spatial_split} needs '
+                             f'--distributed: one process per space rank')
         device = check_device('cuda:0' if args.cuda else 'cpu')
-        return make_mesh_2d(Mesh(0, 1, device), args.spatial_split), False
+        return Mesh(0, 1, device), False
     mesh = init_from_env('nccl' if args.cuda else 'gloo')
     try:
-        make_mesh_2d(mesh, args.spatial_split)
-        if args.batch_size % mesh.size:
+        mesh = make_mesh_2d(mesh, args.spatial_split)
+        data = mesh.data_mesh
+        if args.batch_size % data.size:
             raise ValueError(
                 f'--batch_size {args.batch_size} (the global batch) does not '
-                f'divide over {mesh.size} ranks; the JAX trainer trims its '
+                f'divide over {data.size} ranks; the JAX trainer trims its '
                 f'mesh to a device count that divides the batch, the port '
                 f'asks for a batch that divides')
     except BaseException:
@@ -258,7 +275,8 @@ def _train(args, mesh, dataset, val_dataset):
     from yolact_tpu_torch.utils.functions import MovingAverage, SavePath
     from yolact_tpu_torch.utils.logger import Log
 
-    cfg = make_config(args, mesh.size)
+    data = mesh.data_mesh
+    cfg = make_config(args, data.size)
     device = mesh.device
     lead = mesh.rank == 0       # logs, saves and validates
     if dataset is None:
@@ -282,7 +300,7 @@ def _train(args, mesh, dataset, val_dataset):
                          num_workers=args.num_workers, multires=multires,
                          pack_images=cfg.use_device_augment,
                          pin_memory=device.type == 'cuda',
-                         rank=mesh.rank, world=mesh.size)
+                         rank=data.rank, world=data.size)
 
     state = create_train_state(cfg, device=device, mesh=mesh)
     start_iter = max(args.start_iter, 0)

@@ -16,7 +16,8 @@
 // JAX package computes with XLA scatter-adds and elementwise passes
 // (yolact_tpu/kernels/dcn.py:_bilinear_gather_bwd, not a Pallas kernel, plus
 // the VJP of the mask product in deform_conv2d); its plain PyTorch version is
-// autograd through kernels/dcn.py:dcn_columns_plain.
+// autograd through kernels/dcn.py:dcn_columns_plain.  As in the forward,
+// output row ho samples at row (row0 + ho) * stride - pad + i * dil.
 //
 // Validity follows the forward: it is tested on the integer corner indices,
 // so corners outside the map, far offsets and infinite offsets add exactly
@@ -161,7 +162,7 @@ struct Args {
   float* grad_x;
   float* grad_offset;
   void* grad_mask;
-  int c, h, w, ho, wo, k, stride, pad, dil;
+  int c, h, w, ho, wo, k, stride, pad, dil, row0;
   int chunk, cap, window, tiles_w, vec;
   unsigned as_off, cw_off, m_off, row_off, cnt_off, fb_off, list_off;
 };
@@ -180,7 +181,8 @@ __device__ __forceinline__ Sample sample_at(const Args& a, int b, int ho,
   const int kk = a.k * a.k, n_pix = a.ho * a.wo, p = ho * a.wo + wo;
   const int i = t / a.k, j = t % a.k;
   const size_t off_base = (static_cast<size_t>(b) * 2 * kk + 2 * t) * n_pix + p;
-  const float ys = static_cast<float>(ho * a.stride - a.pad + i * a.dil) +
+  const float ys =
+      static_cast<float>((a.row0 + ho) * a.stride - a.pad + i * a.dil) +
                    a.offset[off_base];
   const float xs = static_cast<float>(wo * a.stride - a.pad + j * a.dil) +
                    a.offset[off_base + n_pix];
@@ -258,7 +260,7 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.z;
   const int ho0 = (blockIdx.y / a.tiles_w) * kTile;
   const int wo0 = (blockIdx.y % a.tiles_w) * kTile;
-  const int wy0 = ho0 * a.stride - a.pad - kHalo;
+  const int wy0 = (a.row0 + ho0) * a.stride - a.pad - kHalo;
   const int wx0 = wo0 * a.stride - a.pad - kHalo;
   const int ws = a.window, n_wpix = ws * ws;
   const int tt = kTile * kTile, kk = a.k * a.k, n_samples = tt * kk;
@@ -544,14 +546,15 @@ int launch(Args a, int b, cudaStream_t stream) {
 // grad_offset and grad_x are float32.  x and grad_x are NHWC; grad_x must be
 // zero on entry.  vec: 1 where every channel vector may be read and reduced
 // with 16-byte accesses (C a multiple of the vector and 16-byte aligned
-// pointers; kernels/dcn.py checks them).
+// pointers; kernels/dcn.py checks them).  ho output rows from row0 on, as
+// in csrc/dcn_im2col.cu.
 extern "C" int yolact_dcn_col2im(const void* g_cols, const void* x,
                                  const void* offset, const void* mask,
                                  void* grad_x, void* grad_offset,
                                  void* grad_mask, int dtype, int b, int c,
                                  int h, int w, int ho, int wo, int k,
-                                 int stride, int pad, int dil, int vec,
-                                 void* stream) {
+                                 int stride, int pad, int dil, int row0,
+                                 int vec, void* stream) {
   Args a = {};
   a.g_cols = g_cols;
   a.x = x;
@@ -569,6 +572,7 @@ extern "C" int yolact_dcn_col2im(const void* g_cols, const void* x,
   a.stride = stride;
   a.pad = pad;
   a.dil = dil;
+  a.row0 = row0;
   a.vec = vec;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(a, b, s);

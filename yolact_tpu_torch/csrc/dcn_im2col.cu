@@ -2,12 +2,14 @@
 // output pixel p = (ho, wo), tap t = (i, j) of the K x K kernel and input
 // channel c,
 //
-//     y = ho * stride - pad + i * dil + offset[b, 2t,     ho, wo]
+//     y = (row0 + ho) * stride - pad + i * dil + offset[b, 2t,     ho, wo]
 //     x = wo * stride - pad + j * dil + offset[b, 2t + 1, ho, wo]
 //     cols[b * Ho * Wo + p, t * C + c] = bilinear(x[b, :, :, c], y, x)
 //                                        * mask[b, t, ho, wo]
 //
-// with per-corner zero outside the map.  x is NHWC [B, H, W, C]; the columns
+// with per-corner zero outside the map.  row0 is the map's output row of
+// the first row computed (0 for the whole map; a spatial rank's first
+// output row, the input x being the whole map).  x is NHWC [B, H, W, C]; the columns
 // are JAX's own layout [B * Ho * Wo, K * K * C] (yolact_tpu/kernels/dcn.py,
 // deform_conv2d), so the GEMM that consumes them is one torch.matmul with
 // leading dimensions K * K * C and Cout (kernels/dcn.py).  Replaces the DCN
@@ -126,7 +128,8 @@ __global__ void __launch_bounds__(kThreads)
     dcn_im2col_kernel(const T* __restrict__ x, const float* __restrict__ offset,
                       const T* __restrict__ mask, T* __restrict__ cols,
                       int n_threads, int c_total, int h, int w, int ho_total,
-                      int wo_total, int k, int stride, int pad, int dil) {
+                      int wo_total, int k, int stride, int pad, int dil,
+                      int row0) {
   const int tid = blockIdx.x * kThreads + threadIdx.x;
   if (tid >= n_threads) return;
   const int groups = (c_total + kGroup - 1) / kGroup;
@@ -145,7 +148,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 9    // the taps of a 3x3 kernel
   for (int t = 0; t < kk; ++t) {
     const int i = t / k, j = t % k;
-    const float ys = static_cast<float>(ho * stride - pad + i * dil) +
+    const float ys = static_cast<float>((row0 + ho) * stride - pad + i * dil) +
                      off[(2 * t) * n_pix];
     const float xs = static_cast<float>(wo * stride - pad + j * dil) +
                      off[(2 * t + 1) * n_pix];
@@ -201,7 +204,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 int launch(const void* x, const void* offset, const void* mask, void* cols,
            int b, int c, int h, int w, int ho, int wo, int k, int stride,
-           int pad, int dil, bool vec, cudaStream_t stream) {
+           int pad, int dil, int row0, bool vec, cudaStream_t stream) {
   const long long n = static_cast<long long>(b) * ho * wo *
                       ((c + kGroup - 1) / kGroup);
   if (n >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
@@ -211,7 +214,7 @@ int launch(const void* x, const void* offset, const void* mask, void* cols,
   kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(offset),
       static_cast<const T*>(mask), static_cast<T*>(cols), n_threads, c, h, w,
-      ho, wo, k, stride, pad, dil);
+      ho, wo, k, stride, pad, dil, row0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -219,23 +222,24 @@ int launch(const void* x, const void* offset, const void* mask, void* cols,
 
 // dtype: 0 float32, 1 bfloat16 (x, mask and cols); offset is float32.
 // x is NHWC; the 16-byte path needs c % 8 == 0 and x and cols 16-byte
-// aligned, else the kernel goes channel by channel.
+// aligned, else the kernel goes channel by channel.  ho output rows from
+// row0 on (row0 + ho <= the map's output height; the wrapper checks it).
 extern "C" int yolact_dcn_im2col(const void* x, const void* offset,
                                  const void* mask, void* cols, int dtype,
                                  int b, int c, int h, int w, int ho, int wo,
                                  int k, int stride, int pad, int dil,
-                                 void* stream) {
+                                 int row0, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = c % kGroup == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(cols) % 16 == 0;
   if (dtype == 0) {
     return launch<float>(x, offset, mask, cols, b, c, h, w, ho, wo, k, stride,
-                         pad, dil, vec, s);
+                         pad, dil, row0, vec, s);
   }
   if (dtype == 1) {
     return launch<__nv_bfloat16>(x, offset, mask, cols, b, c, h, w, ho, wo, k,
-                                 stride, pad, dil, vec, s);
+                                 stride, pad, dil, row0, vec, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -22,7 +22,11 @@ the card (``train/step.py``).
 Data parallelism: with ``rank`` and ``world``, ``batch_size`` is the global
 batch; every rank shuffles with the same seed and loads, augments and
 delivers only its rows ``[rank * b / world, (rank + 1) * b / world)`` of
-each global batch (``parallel/mesh.py:shard_batch``'s rows).
+each global batch (``parallel/mesh.py:shard_batch``'s rows).  Under a
+spatial split ``rank`` and ``world`` are the data rank and the data ranks'
+count: the space ranks of a data rank load the same rows, whole images,
+each augmented on its own rank's draws (the train step takes space rank
+0's copy and keeps its rows of the height).
 
 Determinism: like torch's DataLoader, batches are delivered in epoch order
 regardless of which worker finishes first — the feeder stamps each index

@@ -15,6 +15,13 @@ from the JAX package is deliberate:
   ``FastBaseTransform`` does.  ``jax.image.resize`` antialiases when it
   downscales, so the two differ for frames larger than ``max_size``; for
   equal or smaller frames they agree.
+
+Under a spatial mesh (``parallel/mesh.py:make_mesh_2d``; ``mesh=``) each
+rank takes its data rank's frames whole, preprocesses them and runs the
+model on its space rank's rows of the input (``models/yolact.py``); the
+detection then runs on the gathered outputs on every space rank, which
+all return the same detections, as JAX's spatially sharded
+``forward_and_detect`` does.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from yolact_tpu_torch.models.layers import s2d_input
 from yolact_tpu_torch.models.resnet import DCNLayer
 from yolact_tpu_torch.models.yolact import Yolact, init_train_heads
 from yolact_tpu_torch.ops.boxes import decode
+from yolact_tpu_torch.parallel.mesh import Mesh, Rows
 
 
 def calc_size_preserve_ar(img_w: int, img_h: int, max_size: int):
@@ -131,20 +139,32 @@ class InferenceOutput(NamedTuple):
     mask_scores: Optional[torch.Tensor] = None  # [B, D] maskiou-rescored
 
 
+def _model_outputs(model: Yolact, x: torch.Tensor, use_kernels: bool,
+                   mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
+    """The eval forward on the input `x`: on this rank's rows of it under
+    a spatial `mesh` (the outputs are the whole batch's on every rank)."""
+    if mesh is None or not mesh.spatial:
+        return model(x, use_kernels=use_kernels)
+    rows = Rows(mesh.space, x.shape[2])
+    return model(rows.take(x), use_kernels=use_kernels, rows=rows)
+
+
 def forward_and_detect(cfg: YolactConfig, model: Yolact,
                        images: torch.Tensor, preprocess: bool = True,
                        use_cross_class_nms: bool = False,
                        score_threshold: float = 0.0,
                        crop_masks: bool = True,
-                       use_kernels: bool = True) -> InferenceOutput:
+                       use_kernels: bool = True,
+                       mesh: Optional[Mesh] = None) -> InferenceOutput:
     """The whole device program: preprocess, model, fast NMS, masks and,
     for YOLACT++ configs, the maskiou re-scoring of the masks.  ``images``
     are raw [B, H, W, 3] BGR frames, or with ``preprocess=False`` an
     already normalized [B, H, W, 3] batch (see :func:`_prepare_input`).
     ``use_kernels=False`` runs every kernel's plain PyTorch version, to
-    compare the two."""
+    compare the two.  ``mesh``: a spatial mesh (module docstring), with
+    `images` the data rank's frames."""
     x = _prepare_input(cfg, images, preprocess)
-    preds = model(x, use_kernels=use_kernels)
+    preds = _model_outputs(model, x, use_kernels, mesh)
     dets = detect(cfg, preds, use_cross_class_nms=use_cross_class_nms,
                   use_kernels=use_kernels)
     masks, dets = postprocess_device(cfg, dets, crop_masks=crop_masks,
@@ -159,13 +179,15 @@ def forward_and_detect(cfg: YolactConfig, model: Yolact,
 
 
 def forward_raw(cfg: YolactConfig, model: Yolact, images: torch.Tensor,
-                preprocess: bool = True, use_kernels: bool = True):
+                preprocess: bool = True, use_kernels: bool = True,
+                mesh: Optional[Mesh] = None):
     """The device half of the traditional (host greedy) NMS path: returns
     (decoded boxes [B, P, 4], foreground scores [B, C-1, P], coefficients
     [B, P, Md], proto [B, Hp, Wp, Md] or None), all float32.  Scores use the
-    same eval-branch transform as ``detect``."""
+    same eval-branch transform as ``detect``.  ``mesh``: as in
+    :func:`forward_and_detect`."""
     x = _prepare_input(cfg, images, preprocess)
-    preds = model(x, use_kernels=use_kernels)
+    preds = _model_outputs(model, x, use_kernels, mesh)
     scores = eval_scores(cfg, preds)[..., 1:].transpose(1, 2)
     boxes = decode(preds['loc'].float(), preds['priors'].float()[None],
                    cfg.use_yolo_regressors)
@@ -224,7 +246,9 @@ class Pipeline:
     ``Pipeline``); False the host-normalized frames of the eval loop (see
     :func:`_prepare_input`) and the stem the config names.  ``use_kernels``
     exists for comparisons: False runs the plain PyTorch versions of the
-    kernels on the card."""
+    kernels on the card.  ``mesh``: a spatial mesh (module docstring); a
+    call takes the data rank's frames, and every space rank returns the
+    same detections."""
 
     def __init__(self, cfg: YolactConfig, state_dict: Dict[str, torch.Tensor],
                  device: Union[str, torch.device],
@@ -233,7 +257,8 @@ class Pipeline:
                  score_threshold: float = 0.0,
                  crop_masks: bool = True,
                  use_kernels: bool = True,
-                 preprocess: bool = True):
+                 preprocess: bool = True,
+                 mesh: Optional[Mesh] = None):
         if preprocess:
             cfg = maybe_enable_stem_s2d(cfg)
         self.cfg = cfg
@@ -242,7 +267,8 @@ class Pipeline:
         self._kw = dict(preprocess=preprocess,
                         use_cross_class_nms=use_cross_class_nms,
                         score_threshold=score_threshold,
-                        crop_masks=crop_masks, use_kernels=use_kernels)
+                        crop_masks=crop_masks, use_kernels=use_kernels,
+                        mesh=mesh)
 
     def __call__(self, images) -> InferenceOutput:
         with torch.inference_mode():

@@ -78,18 +78,18 @@ SIGNATURES = {
                              ctypes.c_float, _P),
     # x [b, h, w, c] (NHWC), offset [b, 2k^2, ho, wo] f32, mask [b, k^2,
     # ho, wo], cols [b*ho*wo, k^2*c], dtype (0 f32, 1 bf16), b, c, h, w, ho,
-    # wo, k, stride, pad, dil, stream
+    # wo, k, stride, pad, dil, row0 (the first output row), stream
     'yolact_dcn_im2col': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _P),
+                          _I, _I, _I, _I, _P),
     # x [b, 12, h, w], w2 [64, 12, 4, 4], out [b, 64, h, w], dtype (0 f32,
     # 1 bf16), b, h, w, stream
     'yolact_stem_s2d_conv': (_P, _P, _P, _I, _I, _I, _I, _P),
     # g_cols [b*ho*wo, k^2*c], x [b, h, w, c] (NHWC), offset [b, 2k^2, ho,
     # wo] f32, mask [b, k^2, ho, wo], grad_x [b, h, w, c] f32 (zeroed),
     # grad_offset f32, grad_mask, dtype (0 f32, 1 bf16), b, c, h, w, ho, wo,
-    # k, stride, pad, dil, vec (1: 16-byte channel vectors), stream
+    # k, stride, pad, dil, row0, vec (1: 16-byte channel vectors), stream
     'yolact_dcn_col2im': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _I, _I, _P),
+                          _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -37,6 +37,15 @@ one has every corner outside (zero columns).  The sample grid is
 computed in float32 (JAX builds it in the input dtype, which is exact for
 maps under 256 pixels, every map of the YOLACT++ configs).
 
+Output rows from ``row0``.  Every function takes ``row0`` (default 0):
+the offsets and the mask hold ``Ho`` output rows of the map from ``row0``
+on (``row0 + Ho`` at most the map's output height), and output row ``i``
+samples at ``(row0 + i) * stride - padding + ky * dilation`` plus its
+offset, over the whole map x.  A rank of a spatial split
+(``models/resnet.py:DCNLayer``) passes the whole map and its own output
+rows; with ``row0 = 0`` and every row it is the whole map's call.  The
+kernels take ``row0`` as one more integer, in integer arithmetic.
+
 :func:`dcn_columns` and :func:`deform_conv2d` take the plain version only
 for tensors on the CPU.  For CUDA tensors they launch the kernel or raise.
 The custom ops ``torch.ops.yolact_tpu_torch.dcn_columns`` and
@@ -98,9 +107,10 @@ def out_size(size: int, k: int, stride: int, padding: int,
 
 def _check(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
            k: int, stride: int, padding: int, dilation: int,
-           plain: bool = False):
+           plain: bool = False, row0: int = 0):
     """Shapes, dtypes and layouts both versions take (`plain`: float64 x
-    and offsets as well); returns (ho, wo)."""
+    and offsets as well); returns (ho, wo).  The offsets hold ``ho`` output
+    rows from `row0` on, within the map's output height."""
     if x.dim() != 4:
         raise ValueError(f'dcn: x must be [B, Cin, H, W], got '
                          f'{tuple(x.shape)}')
@@ -111,14 +121,18 @@ def _check(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f'dcn: offset must be float32, got {offset.dtype}')
     if not mask.is_floating_point():
         raise ValueError(f'dcn: mask must be floating point, got {mask.dtype}')
-    if min(k, stride, dilation) < 1 or padding < 0:
+    if min(k, stride, dilation) < 1 or padding < 0 or row0 < 0:
         raise ValueError(f'dcn: bad geometry k={k} stride={stride} '
-                         f'padding={padding} dilation={dilation}')
+                         f'padding={padding} dilation={dilation} '
+                         f'row0={row0}')
     b, _, h, w = x.shape
-    ho, wo = (out_size(n, k, stride, padding, dilation) for n in (h, w))
-    if tuple(offset.shape) != (b, 2 * k * k, ho, wo):
-        raise ValueError(f'dcn: offset must be {(b, 2 * k * k, ho, wo)}, got '
-                         f'{tuple(offset.shape)}')
+    h_out, wo = (out_size(n, k, stride, padding, dilation) for n in (h, w))
+    ho = offset.shape[2] if offset.dim() == 4 else -1
+    if (tuple(offset.shape) != (b, 2 * k * k, ho, wo)
+            or row0 + ho > h_out):
+        raise ValueError(f'dcn: offset must be {(b, 2 * k * k)} + (rows, '
+                         f'{wo}) with row0 + rows <= {h_out} (row0 '
+                         f'{row0}), got {tuple(offset.shape)}')
     if tuple(mask.shape) != (b, k * k, ho, wo):
         raise ValueError(f'dcn: mask must be {(b, k * k, ho, wo)}, got '
                          f'{tuple(mask.shape)}')
@@ -181,15 +195,20 @@ def bilinear_sample_plain(x: torch.Tensor, ys: torch.Tensor,
 
 def dcn_columns_plain(x: torch.Tensor, offset: torch.Tensor,
                       mask: torch.Tensor, k: int = 3, stride: int = 1,
-                      padding: int = 1, dilation: int = 1) -> torch.Tensor:
+                      padding: int = 1, dilation: int = 1,
+                      row0: int = 0) -> torch.Tensor:
     """Modulated im2col columns [B*Ho*Wo, K*K*Cin] in x's dtype, column
-    t*Cin + c."""
-    ho, wo = _check(x, offset, mask, k, stride, padding, dilation, plain=True)
+    t*Cin + c.  Output row i is the map's row ``row0 + i`` (its samples
+    at ``(row0 + i) * stride - padding + ky * dilation`` plus the offset):
+    the offsets hold ``Ho`` rows from `row0` on."""
+    ho, wo = _check(x, offset, mask, k, stride, padding, dilation, plain=True,
+                    row0=row0)
     b, cin = x.shape[:2]
     kk = k * k
     dev = x.device
     tap = torch.arange(kk, device=dev)
-    base_y = ((torch.arange(ho, device=dev) * stride - padding)[:, None, None]
+    base_y = (((torch.arange(ho, device=dev) + row0) * stride
+               - padding)[:, None, None]
               + (tap // k * dilation)[None, None, :]).to(offset.dtype)
     base_x = ((torch.arange(wo, device=dev) * stride - padding)[None, :, None]
               + (tap % k * dilation)[None, None, :]).to(offset.dtype)
@@ -202,13 +221,14 @@ def dcn_columns_plain(x: torch.Tensor, offset: torch.Tensor,
     return cols.view(b * ho * wo, kk * cin)
 
 
-def _geometry(x, offset, mask, k, stride, padding, dilation):
+def _geometry(x, offset, mask, k, stride, padding, dilation, row0=0):
     """Checked launch arguments: (NHWC x, mask in x's dtype, the ints the
     C entry points take after the dtype code)."""
-    ho, wo = _check(x, offset, mask, k, stride, padding, dilation)
+    ho, wo = _check(x, offset, mask, k, stride, padding, dilation,
+                    row0=row0)
     b, cin, h, w = x.shape
     return (_nhwc(x), mask.to(x.dtype).contiguous(),
-            (b, cin, h, w, ho, wo, k, stride, padding, dilation))
+            (b, cin, h, w, ho, wo, k, stride, padding, dilation, row0))
 
 
 def _launch_im2col(xh, offset, mask, dims) -> torch.Tensor:
@@ -275,14 +295,15 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _top_left_corners(offset, h, w, k, stride, padding, dilation):
+def _top_left_corners(offset, h, w, k, stride, padding, dilation, row0=0):
     """The forward's integer top-left corner of every sample: (y0, x0),
     each int64 [B, Ho, Wo, K*K] (floor, clamped, NaN to 0)."""
     b, _, ho, wo = offset.shape
     kk = k * k
     dev = offset.device
     tap = torch.arange(kk, device=dev)
-    base_y = ((torch.arange(ho, device=dev) * stride - padding)[:, None, None]
+    base_y = (((torch.arange(ho, device=dev) + row0) * stride
+               - padding)[:, None, None]
               + tap // k * dilation).to(offset.dtype)
     base_x = ((torch.arange(wo, device=dev) * stride - padding)[None, :, None]
               + tap % k * dilation).to(offset.dtype)
@@ -296,21 +317,23 @@ _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 def col2im_corners(offset: torch.Tensor, h: int, w: int, k: int = 3,
                    stride: int = 1, padding: int = 1, dilation: int = 1,
-                   geometry: Optional[Col2imGeometry] = None
-                   ) -> torch.Tensor:
+                   geometry: Optional[Col2imGeometry] = None,
+                   row0: int = 0) -> torch.Tensor:
     """Where the backward kernel sends each corner's grad_x contribution:
     int8 [B, Ho, Wo, K*K, 4] (corners top-left, top-right, bottom-left,
     bottom-right), 0 for a corner outside the map (no contribution, as in
     the plain scatter), 1 for one inside its tile's window (listed in
     shared memory and summed by the pixel's lanes), 2 for one outside it
     (the global path; the kernel also sends a corner there when its
-    pixel's list is full).  `geometry`: the kernel's by default."""
+    pixel's list is full).  `geometry`: the kernel's by default; `row0`:
+    the offsets' first output row (:func:`dcn_columns_plain`)."""
     b, _, ho, wo = offset.shape
     geo = geometry or col2im_geometry(k, stride, dilation)
-    y0, x0 = _top_left_corners(offset, h, w, k, stride, padding, dilation)
+    y0, x0 = _top_left_corners(offset, h, w, k, stride, padding, dilation,
+                               row0)
     dev = offset.device
-    win_y = ((torch.arange(ho, device=dev) // geo.tile) * geo.tile * stride
-             - padding - geo.halo)[:, None, None]
+    win_y = (((torch.arange(ho, device=dev) // geo.tile) * geo.tile + row0)
+             * stride - padding - geo.halo)[:, None, None]
     win_x = ((torch.arange(wo, device=dev) // geo.tile) * geo.tile * stride
              - padding - geo.halo)[None, :, None]
     out = []
@@ -326,7 +349,8 @@ def col2im_corners(offset: torch.Tensor, h: int, w: int, k: int = 3,
 def col2im_reductions(offset: torch.Tensor, c: int, h: int, w: int,
                       k: int = 3, stride: int = 1, padding: int = 1,
                       dilation: int = 1, vec: bool = True,
-                      geometry: Optional[Col2imGeometry] = None) -> dict:
+                      geometry: Optional[Col2imGeometry] = None,
+                      row0: int = 0) -> dict:
     """Global reductions into grad_x per call, reckoned from the offsets and
     the kernel's geometry: 'scalar', one float per valid corner and channel
     (a kernel with one atomicAdd each); and the tiled kernel's
@@ -338,9 +362,11 @@ def col2im_reductions(offset: torch.Tensor, c: int, h: int, w: int,
     valid corners."""
     b, _, ho, wo = offset.shape
     geo = geometry or col2im_geometry(k, stride, dilation)
-    where = col2im_corners(offset, h, w, k, stride, padding, dilation, geo)
+    where = col2im_corners(offset, h, w, k, stride, padding, dilation, geo,
+                           row0)
     valid = int((where > 0).sum())
-    y0, x0 = _top_left_corners(offset, h, w, k, stride, padding, dilation)
+    y0, x0 = _top_left_corners(offset, h, w, k, stride, padding, dilation,
+                               row0)
     dev = offset.device
     tile = ((torch.arange(ho, device=dev) // geo.tile)[:, None]
             * _ceil(wo, geo.tile)
@@ -389,28 +415,30 @@ def _launch_col2im(g_cols, xh, offset, mask, dims):
 
 def dcn_col2im_plain(g_cols: torch.Tensor, x: torch.Tensor,
                      offset: torch.Tensor, mask: torch.Tensor, k: int = 3,
-                     stride: int = 1, padding: int = 1, dilation: int = 1):
+                     stride: int = 1, padding: int = 1, dilation: int = 1,
+                     row0: int = 0):
     """The gradients of :func:`dcn_columns_plain` for the columns' gradient
     `g_cols` [B*Ho*Wo, K*K*Cin]: (grad_x [B, Cin, H, W] in x's dtype,
     grad_offset, grad_mask in the mask's dtype), by ``torch.func.vjp``."""
     _, vjp = torch.func.vjp(
-        lambda *t: dcn_columns_plain(*t, k, stride, padding, dilation),
+        lambda *t: dcn_columns_plain(*t, k, stride, padding, dilation, row0),
         x.detach(), offset.detach(), mask.detach())
     return vjp(g_cols.to(x.dtype))
 
 
 def dcn_col2im(g_cols: torch.Tensor, x: torch.Tensor, offset: torch.Tensor,
                mask: torch.Tensor, k: int = 3, stride: int = 1,
-               padding: int = 1, dilation: int = 1):
+               padding: int = 1, dilation: int = 1, row0: int = 0):
     """Same contract as :func:`dcn_col2im_plain`; the CUDA kernel for CUDA
     tensors (grad_x comes back as a channels_last view; its last bits
     change from run to run, see the module docstring)."""
     if x.device.type == 'cpu':
         return dcn_col2im_plain(g_cols, x, offset, mask, k, stride, padding,
-                                dilation)
+                                dilation, row0)
     if x.device.type != 'cuda':
         raise ValueError(f'dcn_col2im: unsupported device {x.device}')
-    xh, m, dims = _geometry(x, offset, mask, k, stride, padding, dilation)
+    xh, m, dims = _geometry(x, offset, mask, k, stride, padding, dilation,
+                            row0)
     b, cin, _, _, ho, wo = dims[:6]
     if (tuple(g_cols.shape) != (b * ho * wo, k * k * cin)
             or g_cols.dtype != x.dtype or g_cols.device != x.device):
@@ -499,14 +527,15 @@ dcn_columns_op.register_autograd(_dcn_columns_backward,
 
 def dcn_columns(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                 k: int = 3, stride: int = 1, padding: int = 1,
-                dilation: int = 1) -> torch.Tensor:
+                dilation: int = 1, row0: int = 0) -> torch.Tensor:
     """Same contract as :func:`dcn_columns_plain`; the CUDA kernels for
     CUDA tensors, differentiable in x, offset and mask."""
     how = _build.route('dcn_columns', x.device, x, offset, mask)
     if how == 'plain':
         return dcn_columns_plain(x, offset, mask, k, stride, padding,
-                                 dilation)
-    xh, m, dims = _geometry(x, offset, mask, k, stride, padding, dilation)
+                                 dilation, row0)
+    xh, m, dims = _geometry(x, offset, mask, k, stride, padding, dilation,
+                            row0)
     if how == 'op':
         return dcn_columns_op(xh, offset, m, list(dims))
     return _launch_im2col(xh, offset, m, dims)
@@ -529,20 +558,22 @@ def _gemm(cols: torch.Tensor, weight: torch.Tensor,
 def deform_conv2d_plain(x: torch.Tensor, offset: torch.Tensor,
                         mask: torch.Tensor, weight: torch.Tensor,
                         bias: Optional[torch.Tensor] = None, stride: int = 1,
-                        padding: int = 1, dilation: int = 1) -> torch.Tensor:
+                        padding: int = 1, dilation: int = 1,
+                        row0: int = 0) -> torch.Tensor:
     """DCNv2 forward -> [B, Cout, Ho, Wo] (channels_last) in x's dtype, all
-    plain PyTorch."""
+    plain PyTorch; `row0`: see :func:`dcn_columns_plain`."""
     k = weight.shape[-1]
-    cols = dcn_columns_plain(x, offset, mask, k, stride, padding, dilation)
+    cols = dcn_columns_plain(x, offset, mask, k, stride, padding, dilation,
+                             row0)
     return _gemm(cols, weight, bias, x.shape[0], *offset.shape[-2:])
 
 
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                   weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                  stride: int = 1, padding: int = 1,
-                  dilation: int = 1) -> torch.Tensor:
+                  stride: int = 1, padding: int = 1, dilation: int = 1,
+                  row0: int = 0) -> torch.Tensor:
     """Same contract as :func:`deform_conv2d_plain`; the columns come from
     the CUDA kernel for CUDA tensors."""
     k = weight.shape[-1]
-    cols = dcn_columns(x, offset, mask, k, stride, padding, dilation)
+    cols = dcn_columns(x, offset, mask, k, stride, padding, dilation, row0)
     return _gemm(cols, weight, bias, x.shape[0], *offset.shape[-2:])

@@ -5,12 +5,18 @@ Port of ``yolact_tpu/models/heads.py`` (``ProtoNet``, ``PredictionHead``,
 (``proto_net.{i}``, ``upfeature.{i}``, ``block``, ``conv``, ``bn``,
 ``bbox_layer``, ``conf_layer``, ``mask_layer``, ``gate_layer``,
 ``score_layer``, ``inst_layer``, ``maskiou_net.{i}``, ...).
+
+The protonet and a head also run on a rank's rows of their input under a
+spatial split (``parallel/mesh.py``; ``rows``), through the same wiring as
+on whole maps; the head gathers its raw conv outputs to the whole height
+(every rank then holds the same level, as the loss and the detection
+consume it) before the flatten, whose order is (H, W, anchors).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,8 +24,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from yolact_tpu_torch.config import MaskType, YolactConfig
-from yolact_tpu_torch.models.layers import BatchNorm2d, Conv2d, make_net
+from yolact_tpu_torch.models.layers import (BatchNorm2d, Conv2d, conv_rows,
+                                            height, make_net, run_rows)
 from yolact_tpu_torch.models.resnet import Bottleneck
+from yolact_tpu_torch.parallel.mesh import Rows, gather_rows
 
 
 def _activation(name: str):
@@ -69,6 +77,13 @@ class ProtoNet(nn.Sequential):
         self.register_buffer('grid', grid, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.forward_rows(x, None)[0]
+
+    def forward_rows(self, x: torch.Tensor, rows: Optional[Rows]
+                     ) -> Tuple[torch.Tensor, Optional[Rows]]:
+        """:meth:`forward` on a rank's rows of the input (`rows`; None: the
+        whole map; a grid needs the whole map:
+        ``models/yolact.py:spatial_refusal``), with the output's rows."""
         if self.grid is not None:
             if tuple(self.grid.shape[1:]) != tuple(x.shape[2:]):
                 raise ValueError(
@@ -79,11 +94,12 @@ class ProtoNet(nn.Sequential):
                     f'{x.shape[2]},{x.shape[3]}')
             grid = self.grid.to(x.dtype).expand(x.shape[0], -1, -1, -1)
             x = torch.cat([x, grid], dim=1)
-        x = _activation(self.activation)(super().forward(x))
+        x, rows = run_rows(self, x, rows)
+        x = _activation(self.activation)(x)
         if self.bias:
             x = torch.cat([x, x.new_ones((x.shape[0], 1) + x.shape[2:])],
                           dim=1)
-        return x
+        return x, rows
 
 
 def _flatten(y: torch.Tensor, last: int) -> torch.Tensor:
@@ -156,30 +172,79 @@ class PredictionHead(nn.Module):
                                      k, padding=p)
 
     def forward(self, x: torch.Tensor, head_index: int = 0,
-                bn_train: bool = False) -> Dict[str, torch.Tensor]:
-        cfg = self.cfg
+                bn_train: bool = False,
+                rows: Optional[Rows] = None) -> Dict[str, torch.Tensor]:
+        """The level's outputs.  `rows`: `x` is a rank's rows of the level
+        under a spatial split; the raw conv outputs are then gathered to
+        the level's whole height, with each rank keeping its own rows'
+        gradient (every rank consumes them alike), so every rank returns
+        the whole level's outputs."""
         if self.upfeature is not None:
-            x = self.upfeature(x)
-        if cfg.use_prediction_module:
-            a = self.block(x, bn_train=bn_train)
-            x = a + F.relu(self.bn(self.conv(x), bn_train))
-        bbox = _flatten(self.bbox_layer(self.bbox_extra(x)), 4)
+            x, rows = run_rows(self.upfeature, x, rows)
+        if self.cfg.use_prediction_module:
+            a = self.block.forward_rows(x, rows, bn_train=bn_train)[0]
+            x = a + F.relu(self.bn(conv_rows(self.conv, x, rows)[0],
+                                   bn_train))
+        got = {}
+
+        def run(net, t):
+            y, r = (run_rows(net, t, rows) if isinstance(net, nn.Sequential)
+                    else conv_rows(net, t, rows))
+            got[id(y)] = r
+            return y
+
+        maps = self._maps(x, run)
+        if rows is not None:
+            # one gather per output height (one for the configs' 'same'
+            # convs)
+            full = {}
+            for r in dict.fromkeys(got[id(m)] for m in maps.values()):
+                names = [k for k, m in maps.items() if got[id(m)] == r]
+                whole = gather_rows(torch.cat([maps[k] for k in names], 1),
+                                    r, 'shared')
+                full.update(zip(names, whole.split(
+                    [maps[k].shape[1] for k in names], 1)))
+            maps = full
+        return self._outputs(maps, head_index, (height(x, rows), x.shape[3]))
+
+    def _maps(self, x: torch.Tensor, run) -> Dict[str, torch.Tensor]:
+        """The raw conv outputs [B, A * n, H, W] by output name (and the
+        coefficient gate's), `run(net, x)` running a layer or a net."""
+        cfg = self.cfg
+        maps = {'loc': run(self.bbox_layer, run(self.bbox_extra, x)),
+                'conf': run(self.conf_layer, run(self.conf_extra, x))}
+        if cfg.eval_mask_branch:
+            maps['mask'] = run(self.mask_layer, run(self.mask_extra, x))
+            if cfg.mask_type == MaskType.LINCOMB and \
+                    cfg.mask_proto_coeff_gate:
+                maps['gate'] = run(self.gate_layer, x)
+        if cfg.use_mask_scoring:
+            maps['score'] = run(self.score_layer, x)
+        if cfg.use_instance_coeff:
+            maps['inst'] = run(self.inst_layer, x)
+        return maps
+
+    def _outputs(self, maps: Dict[str, torch.Tensor], head_index: int,
+                 hw) -> Dict[str, torch.Tensor]:
+        """The head's outputs from its raw conv outputs; `hw`: the conv
+        grid's (H, W)."""
+        cfg = self.cfg
+        bbox = _flatten(maps['loc'], 4)
         if cfg.use_yolo_regressors:
-            grid = torch.tensor([x.shape[3], x.shape[2]], dtype=bbox.dtype,
+            grid = torch.tensor([hw[1], hw[0]], dtype=bbox.dtype,
                                 device=bbox.device)
             xy = (torch.sigmoid(bbox[..., :2]) - 0.5) / grid
             bbox = torch.cat([xy, bbox[..., 2:]], dim=-1)
-        conf = _flatten(self.conf_layer(self.conf_extra(x)), cfg.num_classes)
+        conf = _flatten(maps['conf'], cfg.num_classes)
         if cfg.eval_mask_branch:
-            mask = _flatten(self.mask_layer(self.mask_extra(x)),
-                            self.mask_dim)
+            mask = _flatten(maps['mask'], self.mask_dim)
             if cfg.mask_type == MaskType.DIRECT:
                 mask = torch.sigmoid(mask)
             else:
                 mask = _activation(cfg.mask_proto_coeff_activation)(mask)
                 if cfg.mask_proto_coeff_gate:
                     mask = mask * torch.sigmoid(
-                        _flatten(self.gate_layer(x), self.mask_dim))
+                        _flatten(maps['gate'], self.mask_dim))
         else:
             # box-only mode: zero coefficients keep the output shapes
             mask = bbox.new_zeros((bbox.shape[0], bbox.shape[1],
@@ -190,10 +255,9 @@ class PredictionHead(nn.Module):
             mask = F.pad(mask, pad)
         out = {'loc': bbox, 'conf': conf, 'mask': mask}
         if cfg.use_mask_scoring:
-            out['score'] = _flatten(self.score_layer(x), 1)
+            out['score'] = _flatten(maps['score'], 1)
         if cfg.use_instance_coeff:
-            out['inst'] = _flatten(self.inst_layer(x),
-                                   cfg.num_instance_coeffs)
+            out['inst'] = _flatten(maps['inst'], cfg.num_instance_coeffs)
         return out
 
 

@@ -24,11 +24,14 @@ then a no-op.  Batch norm keeps float32 statistics and parameters.
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from yolact_tpu_torch.parallel.mesh import Rows, fetch_rows
 
 
 class Conv2d(nn.Conv2d):
@@ -122,7 +125,11 @@ class BatchNorm2d(nn.Module):
     all-reduce (each rank fills its own slot of a zero buffer, so the sum
     is an exact gather), and each combines them in rank order (Chan's
     pairwise rule): the same moments, bit for bit, on every rank, with
-    their gradient flowing back to every rank's rows."""
+    their gradient flowing back to every rank's rows.  Under a spatial
+    split (``parallel/mesh.py:make_mesh_2d``) every rank holds some rows
+    of its data rank's images, and the same rule over every rank gives
+    the moments over the global N x H x W; a rank that owns no row of a
+    map adds a count of 0."""
 
     momentum = 0.1
 
@@ -164,8 +171,11 @@ class BatchNorm2d(nn.Module):
         mesh = self.mesh
         xf = x.float()
         n = x.numel() // x.shape[1]
-        mean = xf.mean(dim=(0, 2, 3))
-        m2 = (xf - mean[:, None, None]).square().sum(dim=(0, 2, 3))
+        if n:
+            mean = xf.mean(dim=(0, 2, 3))
+            m2 = (xf - mean[:, None, None]).square().sum(dim=(0, 2, 3))
+        else:   # a rank that owns no row of this map (spatial split)
+            mean = m2 = xf.new_zeros(x.shape[1])
         local = torch.stack([torch.full_like(mean, n), mean, m2])[None]
         parts = mesh.all_sum_grad(F.pad(
             local, (0, 0, 0, 0, mesh.rank, mesh.size - 1 - mesh.rank)))
@@ -241,6 +251,145 @@ class InterpolateModule(nn.Module):
         size = (x.shape[2] * self.scale_factor, x.shape[3] * self.scale_factor)
         return F.interpolate(x, size=size, mode='bilinear',
                              align_corners=False)
+
+
+# ---- row-sharded ops (spatial split, ``parallel/mesh.py``) ----------------
+#
+# Each takes this rank's rows of a map and the map's ``Rows`` and returns
+# this rank's rows of the output and the output's ``Rows``: it fetches the
+# global input rows that its output rows need (:func:`fetch_rows`, zeros or
+# -inf outside the map, as the whole-map op pads) and runs the op with no
+# padding along the height.  A rank that owns no output row computes one
+# row at its position and keeps none of it, so every rank issues the same
+# collectives and its (empty) output stays in the graph.  With ``rows``
+# None (no split) each runs the whole-map op and returns None for the
+# rows, so a module's wiring is written once for both.
+
+
+def height(x: torch.Tensor, rows: Optional[Rows]) -> int:
+    """The global height of the map whose rows `x` holds."""
+    return x.shape[2] if rows is None else rows.height
+
+
+def out_size(size: int, k: int, stride: int, padding: int,
+             dilation: int = 1) -> int:
+    """A conv's or pool's output length along one axis."""
+    return (size + 2 * padding - dilation * (k - 1) - 1) // stride + 1
+
+
+def _windows(out: Rows, k: int, stride: int, padding: int,
+             dilation: int = 1) -> List[Tuple[int, int]]:
+    """Every rank's input rows for its output rows of `out` (one row for
+    a rank that owns none)."""
+    span = dilation * (k - 1) + 1
+    return [(o0 * stride - padding,
+             (max(o1, o0 + 1) - 1) * stride - padding + span)
+            for o0, o1 in out.owns()]
+
+
+def _kept(y: torch.Tensor, out: Rows) -> torch.Tensor:
+    lo, hi = out.own()
+    return y if hi > lo else y[:, :, :0]
+
+
+def conv_rows(conv: nn.Conv2d, x: torch.Tensor,
+              rows: Optional[Rows]) -> Tuple[torch.Tensor, Optional[Rows]]:
+    """`conv` (a zero-padded :class:`Conv2d`, computing in x's dtype) on
+    the row-sharded `x`."""
+    if rows is None:
+        return conv(x), None
+    (k, _), (s, _), (p, pw), (d, _) = (conv.kernel_size, conv.stride,
+                                       conv.padding, conv.dilation)
+    out = rows.at(out_size(rows.height, k, s, p, d))
+    xw = fetch_rows(x, rows, _windows(out, k, s, p, d))
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    y = F.conv2d(xw, conv.weight.to(x.dtype), bias, conv.stride, (0, pw),
+                 conv.dilation, conv.groups)
+    return _kept(y, out), out
+
+
+def max_pool_rows(x: torch.Tensor, rows: Optional[Rows], kernel: int,
+                  stride: int, padding: int = 0
+                  ) -> Tuple[torch.Tensor, Optional[Rows]]:
+    """:func:`max_pool` (floor mode) on the row-sharded `x`."""
+    if rows is None:
+        return max_pool(x, kernel, stride, padding), None
+    out = rows.at(out_size(rows.height, kernel, stride, padding))
+    xw = fetch_rows(x, rows, _windows(out, kernel, stride, padding),
+                    fill=-float('inf'))
+    y = F.max_pool2d(xw, kernel, stride, (0, padding))
+    return _kept(y, out), out
+
+
+def _source_rows(n_in: int, n_out: int, mode: str):
+    """Per output row of a resize from `n_in` to `n_out` rows: the first
+    and second source rows and the second's weight (bilinear, half-pixel
+    centers, as ``F.interpolate(align_corners=False)``), or the source row
+    of 'nearest' (``floor(o * n_in / n_out)``) with weight 0."""
+    o = np.arange(n_out)
+    scale = n_in / n_out
+    if mode == 'nearest':
+        i0 = np.minimum(np.floor(o * scale).astype(np.int64), n_in - 1)
+        return i0, i0, np.zeros(n_out)
+    src = np.maximum((o + 0.5) * scale - 0.5, 0.0)
+    i0 = np.minimum(np.floor(src).astype(np.int64), n_in - 1)
+    return i0, np.minimum(i0 + 1, n_in - 1), src - i0
+
+
+def resize_rows(x: torch.Tensor, rows: Optional[Rows],
+                size: Tuple[int, int], mode: str = 'bilinear'
+                ) -> Tuple[torch.Tensor, Optional[Rows]]:
+    """``F.interpolate(x, size, mode)`` (bilinear without corner alignment,
+    or nearest: torch's 'nearest' picks source ``floor(dst * in / out)``,
+    as the JAX package reproduces) on the row-sharded `x`: the width by
+    ``F.interpolate`` at an unchanged height (the identity along it), then
+    the height from the fetched source rows."""
+    if mode not in ('bilinear', 'nearest'):
+        raise NotImplementedError(f'resize mode {mode!r}')
+    kw = {'align_corners': False} if mode == 'bilinear' else {}
+    if rows is None:
+        return F.interpolate(x, size=tuple(size), mode=mode, **kw), None
+    out = rows.at(size[0])
+    i0, i1, lam = _source_rows(rows.height, size[0], mode)
+    wins = [(int(i0[o0]), int(i1[max(o1, o0 + 1) - 1]) + 1)
+            for o0, o1 in out.owns()]
+    xw = fetch_rows(x, rows, wins)
+    xw = F.interpolate(xw, size=(xw.shape[2], size[1]), mode=mode, **kw)
+    o0, o1 = out.own()
+    sel = slice(o0, max(o1, o0 + 1))
+    lo = wins[rows.space.rank][0]
+    dev = x.device
+    a = xw.index_select(2, torch.as_tensor(i0[sel] - lo, device=dev))
+    if mode == 'nearest':
+        y = a
+    else:
+        b = xw.index_select(2, torch.as_tensor(i1[sel] - lo, device=dev))
+        w1 = torch.as_tensor(lam[sel], dtype=x.dtype, device=dev)[:, None]
+        y = a * (1 - w1) + b * w1
+    return _kept(y, out), out
+
+
+def run_rows(net: nn.Sequential, x: torch.Tensor, rows: Optional[Rows]
+             ) -> Tuple[torch.Tensor, Optional[Rows]]:
+    """A :func:`make_net` net's layers in turn on the row-sharded `x`: its
+    convs, ReLUs and bilinear upsamples; a ``'cat'`` entry or a transposed
+    conv raises."""
+    for layer in net:
+        if rows is None:
+            x = layer(x)
+        elif isinstance(layer, nn.ReLU):
+            x = F.relu(x)
+        elif isinstance(layer, InterpolateModule):
+            f = layer.scale_factor
+            x, rows = resize_rows(x, rows, (rows.height * f, x.shape[3] * f))
+        elif isinstance(layer, nn.Conv2d):
+            x, rows = conv_rows(layer, x, rows)
+        else:
+            raise NotImplementedError(
+                f'make_net layer {type(layer).__name__} under a spatial '
+                f'split: only convs, ReLUs and bilinear upsamples are '
+                f'row-sharded')
+    return x, rows
 
 
 class Concat(nn.Module):

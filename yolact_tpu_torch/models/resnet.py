@@ -7,6 +7,13 @@ Atrous stages, SSD-style extra stages, DCNv2 blocks (YOLACT++), the
 space-to-depth stem and group norm (``norm='gn'``, ResNet-GN: every
 ``bn*`` and ``downsample.1`` is a ``models/layers.py:GroupNorm`` under the
 same name) are kept.
+
+Each module's wiring is its ``forward_rows``, which runs on a rank's rows
+of a map split by height over a spatial mesh (``parallel/mesh.py``;
+batch-norm ResNets), with the convs and the pool of ``models/layers.py``
+fetching their halos, or on the whole map (``rows`` None, which
+``forward`` passes); a DCN layer gathers its input's whole height and
+samples it for its own output rows (``kernels/dcn.py``, ``row0``).
 """
 
 from __future__ import annotations
@@ -20,7 +27,9 @@ from torch.utils.checkpoint import checkpoint
 
 from yolact_tpu_torch.kernels import dcn, stem
 from yolact_tpu_torch.models.layers import (BatchNorm2d, Conv2d, GroupNorm,
-                                            max_pool, s2d_stem_kernel)
+                                            conv_rows, max_pool_rows,
+                                            s2d_stem_kernel)
+from yolact_tpu_torch.parallel.mesh import Rows, fetch_rows, gather_rows
 
 EXPANSION = 4
 
@@ -55,13 +64,25 @@ class DCNLayer(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 use_kernels: bool = True) -> torch.Tensor:
+        return self.forward_rows(x, None, use_kernels)[0]
+
+    def forward_rows(self, x: torch.Tensor, rows: Optional[Rows],
+                     use_kernels: bool = True
+                     ) -> Tuple[torch.Tensor, Optional[Rows]]:
+        """:meth:`forward` on a rank's rows of `x` (`rows`; None: the whole
+        map), with the output's rows: the offsets of its output rows from a
+        halo conv, then the samples of the whole map (the offsets reach
+        anywhere), gathered with each rank's gradient summed into the
+        owner's rows, from output row ``row0``."""
         kk = self.weight.shape[-1] ** 2
-        om = self.conv_offset_mask(x)
+        om, out = conv_rows(self.conv_offset_mask, x, rows)
         offset = om[:, :2 * kk].float().contiguous()
         mask = torch.sigmoid(om[:, 2 * kk:]).contiguous()
+        row0 = 0 if out is None else out.own()[0]
         fn = dcn.deform_conv2d if use_kernels else dcn.deform_conv2d_plain
-        return fn(x, offset, mask, self.weight, self.bias,
-                  self.stride, self.padding, self.dilation)
+        return fn(gather_rows(x, rows, 'own'), offset, mask, self.weight,
+                  self.bias, self.stride, self.padding, self.dilation,
+                  row0), out
 
 
 class Bottleneck(nn.Module):
@@ -97,17 +118,26 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor, use_kernels: bool = True,
                 bn_train: bool = False) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x), bn_train))
+        return self.forward_rows(x, None, use_kernels, bn_train)[0]
+
+    def forward_rows(self, x: torch.Tensor, rows: Optional[Rows],
+                     use_kernels: bool = True, bn_train: bool = False
+                     ) -> Tuple[torch.Tensor, Optional[Rows]]:
+        """:meth:`forward` on a rank's rows of the input map (`rows`; None:
+        the whole map), with the output's rows."""
+        out, r = conv_rows(self.conv1, x, rows)
+        out = F.relu(self.bn1(out, bn_train))
         if self.use_dcn:
-            out = self.conv2(out, use_kernels)
+            out, r = self.conv2.forward_rows(out, r, use_kernels)
         else:
-            out = self.conv2(out)
+            out, r = conv_rows(self.conv2, out, r)
         out = F.relu(self.bn2(out, bn_train))
-        out = self.bn3(self.conv3(out), bn_train)
+        out = self.bn3(conv_rows(self.conv3, out, r)[0], bn_train)
         residual = x
         if self.downsample is not None:
-            residual = self.downsample[1](self.downsample[0](x), bn_train)
-        return F.relu(out + residual)
+            residual = self.downsample[1](
+                conv_rows(self.downsample[0], x, rows)[0], bn_train)
+        return F.relu(out + residual), r
 
 
 def _stage_plan(layers: Sequence[int], dcn_layers: Sequence[int],
@@ -211,26 +241,49 @@ class ResNetBackbone(nn.Module):
     def forward(self, x: torch.Tensor, use_kernels: bool = True,
                 bn_train: bool = False,
                 remat: str = 'none') -> Tuple[torch.Tensor, ...]:
+        return self.forward_rows(x, None, use_kernels, bn_train, remat)[0]
+
+    def forward_rows(self, x: torch.Tensor, rows: Optional[Rows],
+                     use_kernels: bool = True, bn_train: bool = False,
+                     remat: str = 'none'
+                     ) -> Tuple[Tuple[torch.Tensor, ...],
+                                Tuple[Optional[Rows], ...]]:
+        """:meth:`forward` on a rank's rows of the input (the image, or
+        its s2d input; `rows`, None: the whole input), with each output's
+        rows.  Split, the s2d stem runs its kernel on the s2d rows
+        ``[o0 - 2, o1 + 1)`` (zeros outside the image) and keeps output
+        rows ``[2, 2 + o1 - o0)``, whose taps never reach the kernel's own
+        padding: the whole image's rows.  Checkpointed blocks fetch their
+        halos again in the backward, on every rank alike."""
         if remat not in ('none', 'dcn', 'all'):
             raise ValueError(f"train_remat={remat!r}: expected one of "
                              f"'none', 'dcn', 'all'")
+        r = rows
         if self.stem_s2d:
             fn = stem.stem_conv_s2d if use_kernels else stem.stem_conv_s2d_plain
-            x = fn(x.contiguous(), self.s2d_weight().to(x.dtype))
+            w = self.s2d_weight().to(x.dtype)
+            if rows is None:
+                x = fn(x.contiguous(), w)
+            else:
+                lo, hi = rows.own()
+                xw = fetch_rows(x, rows, [(o0 - 2, max(o1, o0 + 1) + 1)
+                                          for o0, o1 in rows.owns()])
+                x = fn(xw.contiguous(), w)[:, :, 2:2 + hi - lo]
         else:
-            x = self.conv1(x)
+            x, r = conv_rows(self.conv1, x, rows)
         x = F.relu(self.bn1(x, bn_train))
-        x = max_pool(x, 3, 2, 1)
-        outs = []
+        x, r = max_pool_rows(x, r, 3, 2, 1)
+        outs, heights = [], []
         for stage in self.layers:
             for block in stage:
                 if (torch.is_grad_enabled()
                         and (remat == 'all'
                              or (remat == 'dcn' and block.use_dcn))):
-                    x = checkpoint(block, x, use_kernels, bn_train,
-                                   use_reentrant=False,
-                                   preserve_rng_state=False)
+                    x, r = checkpoint(block.forward_rows, x, r, use_kernels,
+                                      bn_train, use_reentrant=False,
+                                      preserve_rng_state=False)
                 else:
-                    x = block(x, use_kernels, bn_train)
+                    x, r = block.forward_rows(x, r, use_kernels, bn_train)
             outs.append(x)
-        return tuple(outs)
+            heights.append(r)
+        return tuple(outs), tuple(heights)

@@ -23,6 +23,19 @@ training-only heads ``semantic_seg_conv`` and ``class_existence_fc`` carry
 the reference's names, so a reference ``.pth`` loads; the eval forward does
 not run them.
 
+Spatial split (``parallel/mesh.py:make_mesh_2d``; ``rows``): the input is a
+rank's rows of the data rank's images, every module runs on its rows of
+its maps (each module's ``forward_rows``, which with ``rows`` None is its
+whole-map forward), and the head outputs, the prototypes, the
+semantic-segmentation logits and the class-existence features are
+gathered to the whole height before they leave, so every space rank
+returns the whole batch's outputs, as the one-device forward does.  The
+ResNet configs (batch norm, FPN with downsample convs, lincomb masks from
+an FPN level) take it; the rest raise with their reason
+(:func:`spatial_refusal`).  The class-existence layer and the mask scorer
+then run on whole maps on every space rank alike
+(:data:`SPACE_REPLICATED`).
+
 Input is NCHW, already preprocessed (``infer.preprocess_device``); with
 ``cfg.stem_s2d`` (ResNets only) it is the 2x2 space-to-depth
 ``[B, 12, S/2, S/2]`` (``infer.preprocess_device_s2d``) and the trunk's
@@ -45,7 +58,7 @@ and with ``train=True``:
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,10 +69,45 @@ from yolact_tpu_torch.models.darknet import DarkNetBackbone
 from yolact_tpu_torch.models.fpn import FPN
 from yolact_tpu_torch.models.heads import (FastMaskIoUNet, PredictionHead,
                                            ProtoNet)
-from yolact_tpu_torch.models.layers import Conv2d, Linear, drop_batch_stats
+from yolact_tpu_torch.models.layers import (Conv2d, Linear, conv_rows,
+                                            drop_batch_stats, height)
 from yolact_tpu_torch.models.resnet import DCNLayer, ResNetBackbone
 from yolact_tpu_torch.models.vgg import VGGBackbone
 from yolact_tpu_torch.ops.anchors import generate_priors
+from yolact_tpu_torch.parallel.mesh import Rows, gather_rows
+
+# modules whose parameters a spatial split runs after the gather, on every
+# space rank alike: their gradients are summed over the data ranks only
+SPACE_REPLICATED = ('class_existence_fc', 'maskiou_net')
+
+
+def spatial_refusal(cfg: YolactConfig) -> Optional[str]:
+    """Why `cfg` cannot run with its image height split over ranks, or
+    None where it can."""
+    def layers(spec):
+        for entry in spec or ():
+            if isinstance(entry[0], str):
+                return f"a '{entry[0]}' make_net layer"
+            if entry[1] < 0 and entry[0] is not None:
+                return 'a transposed make_net layer'
+        return None
+
+    if cfg.backbone.type != 'resnet':
+        return (f'backbone {cfg.backbone.type!r}: only the batch-norm ResNets '
+                f'are row-sharded (group norm takes per-image moments)')
+    if cfg.fpn is None:
+        return 'no FPN'
+    if cfg.fpn.num_downsample and not cfg.fpn.use_conv_downsample:
+        return 'an FPN without downsample convs (stride-2 subsampling)'
+    if cfg.mask_type != MaskType.LINCOMB:
+        return 'direct masks'
+    if cfg.eval_mask_branch and cfg.mask_proto_src is None:
+        return 'prototypes from the image (mask_proto_src=None)'
+    if cfg.mask_proto_use_grid:
+        return 'mask_proto_use_grid'
+    if cfg.mask_proto_prototypes_as_features:
+        return 'mask_proto_prototypes_as_features'
+    return layers(cfg.mask_proto_net) or layers(cfg.extra_head_net)
 
 
 def head_in_channels(cfg: YolactConfig) -> Tuple[int, ...]:
@@ -195,31 +243,49 @@ class Yolact(nn.Module):
         return self._priors[key]
 
     def forward(self, x: torch.Tensor, use_kernels: bool = True,
-                train: bool = False) -> Dict[str, torch.Tensor]:
+                train: bool = False,
+                rows: Optional[Rows] = None) -> Dict[str, torch.Tensor]:
         """``use_kernels=False`` runs the plain PyTorch versions of the DCN
         sampling and the s2d stem conv on the card too, to compare the
-        two.  ``train``: see the module docstring."""
+        two.  ``train``: see the module docstring.  ``rows``: `x` is this
+        rank's rows of an input of ``rows.height`` under a spatial split
+        (the module docstring)."""
         cfg = self.cfg
+        if rows is not None and spatial_refusal(cfg) is not None:
+            raise NotImplementedError(f'{cfg.name} under a spatial split: '
+                                      f'{spatial_refusal(cfg)}')
         # logical image size: a space-to-depth input is at half resolution
         scale = 2 if cfg.stem_s2d else 1
-        h, w = x.shape[2] * scale, x.shape[3] * scale
+        h, w = height(x, rows) * scale, x.shape[3] * scale
         x = x.to(self.compute_dtype)
         # freeze_bn keeps batch norm on its running statistics in training
         bn_train = train and not cfg.freeze_bn
-        outs = self.backbone(x, use_kernels, bn_train=bn_train,
-                             remat=cfg.train_remat if train else 'none')
+        remat = cfg.train_remat if train else 'none'
+        if rows is None:
+            outs = self.backbone(x, use_kernels, bn_train=bn_train,
+                                 remat=remat)
+            heights = (None,) * len(outs)
+        else:
+            outs, heights = self.backbone.forward_rows(
+                x, rows, use_kernels, bn_train=bn_train, remat=remat)
         if bn_train:
             # a shared head's batch norms chain their statistics over the
             # levels of this forward, from the buffers
             drop_batch_stats(self.prediction_layers)
-        outs = [outs[i] for i in cfg.backbone.selected_layers]
+        sel = cfg.backbone.selected_layers
+        outs, heights = [outs[i] for i in sel], [heights[i] for i in sel]
         if self.fpn is not None:
-            outs = self.fpn(outs)
+            outs, heights = self.fpn.forward_rows(outs, heights)
 
         proto = None
         if self.proto_net is not None:
-            proto = self.proto_net(x if cfg.mask_proto_src is None
-                                   else outs[cfg.mask_proto_src])
+            src = cfg.mask_proto_src
+            if src is None:
+                proto, r = self.proto_net.forward_rows(x, rows)
+            else:
+                proto, r = self.proto_net.forward_rows(outs[src],
+                                                       heights[src])
+            proto = gather_rows(proto, r, 'shared')
         proto_feat = None
         if self.proto_features:
             proto_feat = proto[:, :self.proto_features]
@@ -237,7 +303,8 @@ class Yolact(nn.Module):
                     proto_feat, size=head_x.shape[2:], mode='bilinear',
                     align_corners=False).to(head_x.dtype)
                 head_x = torch.cat([head_x, proto_feat], dim=1)
-            preds.append(head(head_x, head_index=idx, bn_train=bn_train))
+            preds.append(head(head_x, head_index=idx, bn_train=bn_train,
+                              rows=heights[idx]))
         pred_outs = {k: torch.cat([p[k] for p in preds], dim=1)
                      for k in preds[0]}
         pred_outs['priors'] = self.priors(h, w, x.device)
@@ -245,9 +312,12 @@ class Yolact(nn.Module):
             pred_outs['proto'] = proto.permute(0, 2, 3, 1)
         if train:
             if cfg.use_class_existence_loss:
+                last = gather_rows(outs[-1], heights[-1], 'shared')
                 pred_outs['classes'] = self.class_existence_fc(
-                    outs[-1].mean(dim=(2, 3)))
+                    last.mean(dim=(2, 3)))
             if cfg.use_semantic_segmentation_loss:
-                pred_outs['segm'] = self.semantic_seg_conv(
-                    outs[0]).permute(0, 2, 3, 1)
+                segm, r = conv_rows(self.semantic_seg_conv, outs[0],
+                                    heights[0])
+                pred_outs['segm'] = gather_rows(segm, r, 'shared').permute(
+                    0, 2, 3, 1)
         return pred_outs

@@ -36,6 +36,23 @@ of collectives the same on every rank.  The finite guard's flag is agreed
 over the ranks, so they skip a step together, and the returned losses are
 the global batch's.
 
+Spatial partitioning (a mesh from ``parallel/mesh.py:make_mesh_2d``): each
+rank passes its DATA rank's rows of the global batch, whole images and
+targets; the step takes its space rank 0's copy on every space rank (one
+broadcast over the space group: a host loader augments each rank's copy
+on that rank's own draws) and keeps its space rank's rows of the model
+input (the s2d input's rows under the s2d stem) after the loader's
+transports and the device augmentation are undone on the whole images.  The forward runs
+on those rows and returns the data rank's whole outputs on every space
+rank (``models/yolact.py``); batch norm takes its moments over every rank,
+the global N x H x W; the loss is the data rank's share, with its
+reductions over the data ranks only, and the draws are taken by data
+rank.  The gradient all-reduce sums the parameters that run on rows over
+every rank (each space rank holds its rows' part of its data rank's
+gradient) and those that run after the gather, on every space rank alike
+(``models/yolact.py:SPACE_REPLICATED``), over the data ranks only; the
+returned losses are summed over the data ranks.
+
 The step computes in ``cfg.compute_dtype`` over float32 master weights, as
 the JAX trainer's flax modules with ``dtype`` over float32 params do:
 ``create_train_state`` leaves the parameters float32 and sets the model's
@@ -75,9 +92,10 @@ from yolact_tpu_torch.infer import (check_device, random_state_dict,
                                     use_float32_math)
 from yolact_tpu_torch.models.layers import (BatchNorm2d, commit_batch_stats,
                                             drop_batch_stats, s2d_input)
-from yolact_tpu_torch.models.yolact import Yolact
+from yolact_tpu_torch.models.yolact import (SPACE_REPLICATED, Yolact,
+                                            spatial_refusal)
 from yolact_tpu_torch.ops.bits import packed_width, unpack_bits_last
-from yolact_tpu_torch.parallel.mesh import Mesh, shard_batch
+from yolact_tpu_torch.parallel.mesh import Mesh, Rows, shard_batch
 from yolact_tpu_torch.train.loss import multibox_loss
 from yolact_tpu_torch.train.schedule import learning_rate
 
@@ -107,8 +125,11 @@ def create_train_state(cfg: YolactConfig, seed: int = 0,
     mesh's device, else ``cuda:0``), computing in ``cfg.compute_dtype``
     (float32 turns TF32 off, ``infer.use_float32_math``), and its
     optimizer.  With a `mesh` of more than one rank the step is data
-    parallel (module docstring); every rank must start from the same
-    weights."""
+    parallel, or spatially partitioned under a 2-D mesh (module
+    docstring); every rank must start from the same weights."""
+    if mesh is not None and mesh.spatial and spatial_refusal(cfg):
+        raise NotImplementedError(f'{cfg.name} under a spatial split: '
+                                  f'{spatial_refusal(cfg)}')
     if device is None:
         device = 'cuda:0' if mesh is None else mesh.device
     device = check_device(device)
@@ -217,29 +238,70 @@ def loss_and_grads(state: TrainState, batch: Dict[str, Any],
     if isinstance(num_gts, torch.Tensor):
         # a count on the card would cost a sync: the matcher loops all rows
         num_gts = num_gts.numpy() if num_gts.device.type == 'cpu' else None
-    tensors = prepare_batch(cfg, batch_to_device(batch, state.device),
-                            augment_draws)
+    tensors = batch_to_device(batch, state.device)
+    mesh = state.mesh
+    if mesh is not None and mesh.spatial:
+        # one batch per data rank, its space rank 0's: a host loader
+        # augments each space rank's copy on that rank's own draws
+        tensors = {k: mesh.space.broadcast(v)
+                   for k, v in sorted(tensors.items())}
+        if num_gts is not None:
+            num_gts = tensors['num_gts'].cpu().numpy()
+    tensors = prepare_batch(cfg, tensors, augment_draws)
     state.optimizer.zero_grad(set_to_none=True)
-    preds = model(model_input(cfg, tensors['image']),
-                  use_kernels=use_kernels, train=True)
+    losses = forward_loss(state, tensors, mask_priorities,
+                          maskiou_priorities, use_kernels, num_gts)
+    losses['total'].backward()
+    return sum_over_ranks(state, losses)
+
+
+def forward_loss(state: TrainState, tensors: Dict[str, torch.Tensor],
+                 mask_priorities: torch.Tensor,
+                 maskiou_priorities: torch.Tensor, use_kernels: bool = True,
+                 num_gts=None) -> Dict[str, torch.Tensor]:
+    """The training forward and the loss on a prepared batch
+    (:func:`prepare_batch`): the losses by letter and ``total``, still
+    attached to the graph; ``state.conf_state`` moves on.  Under a
+    spatial mesh the model takes this rank's rows of the input."""
+    cfg, model, mesh = state.cfg, state.model, state.mesh
+    x = model_input(cfg, tensors['image'])
+    rows = None
+    if mesh is not None and mesh.spatial:
+        rows = Rows(mesh.space, x.shape[2])
+        x = rows.take(x)
+    preds = model(x, use_kernels=use_kernels, train=True, rows=rows)
     losses, _ = multibox_loss(
         cfg, preds, tensors, mask_priorities, maskiou_priorities,
         maskiou_net=model.maskiou_net, conf_state=state.conf_state,
         num_gts=None if num_gts is None else np.asarray(num_gts),
-        mesh=state.mesh)
-    new_conf_state = losses.pop('_conf_state', state.conf_state)
-    total = sum(losses.values())
-    total.backward()
-    state.conf_state = new_conf_state
-    out = dict({k: v.detach() for k, v in losses.items()},
-               total=total.detach())
+        mesh=None if mesh is None else mesh.data_mesh)
+    state.conf_state = losses.pop('_conf_state', state.conf_state)
+    return dict(losses, total=sum(losses.values()))
+
+
+def sum_over_ranks(state: TrainState, losses: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """After the backward: each trained parameter's gradient summed over
+    the ranks (over the data ranks only for the parameters a spatial
+    split runs on every space rank alike), and the detached losses summed
+    over the data ranks (module docstring)."""
+    out = {k: v.detach() for k, v in losses.items()}
     mesh = state.mesh
-    if mesh is not None and mesh.size > 1:
-        mesh.all_sum_grads([p for group in state.optimizer.param_groups
-                            for p in group['params']])
-        summed = mesh.all_sum(torch.stack(list(out.values())))
-        out = dict(zip(out, summed.unbind()))
-    return out
+    if mesh is None or mesh.size == 1:
+        return out
+    params = [p for group in state.optimizer.param_groups
+              for p in group['params']]
+    if mesh.spatial:
+        model = state.model
+        shared = {id(p) for name in SPACE_REPLICATED
+                  if getattr(model, name, None) is not None
+                  for p in getattr(model, name).parameters()}
+        mesh.all_sum_grads([p for p in params if id(p) not in shared])
+        mesh.data_mesh.all_sum_grads([p for p in params if id(p) in shared])
+    else:
+        mesh.all_sum_grads(params)
+    summed = mesh.data_mesh.all_sum(torch.stack(list(out.values())))
+    return dict(zip(out, summed.unbind()))
 
 
 def grads_finite(state: TrainState) -> torch.Tensor:
@@ -280,12 +342,14 @@ def train_step(state: TrainState, batch: Dict[str, Any],
     """One SGD step in place on `state`.  Returns the losses by letter
     (detached device scalars) with ``total``, ``lr`` (a float) and
     ``finite`` (whether the update was applied).  Under a mesh `batch` is
-    the rank's rows of the global batch, and `generator` is seeded alike
-    on every rank: the draws are the global batch's."""
+    the rank's rows of the global batch (its data rank's under a spatial
+    split), and `generator` is seeded alike on every rank: the draws are
+    the global batch's."""
     image = batch['image']
     priors = state.model.priors(image.shape[1], image.shape[2], state.device)
     mesh = state.mesh
-    world = 1 if mesh is None else mesh.size
+    data = None if mesh is None else mesh.data_mesh
+    world = 1 if data is None else data.size
     n = image.shape[0] * world
     # the draws' order: the augmentation's first (as JAX's step splits its
     # key before the loss's), then the loss's priorities
@@ -296,9 +360,9 @@ def train_step(state: TrainState, batch: Dict[str, Any],
     mask_priorities, maskiou_priorities = draw_priorities(
         state.cfg, n, priors.shape[0], generator, state.device)
     if world > 1:
-        mask_priorities = mask_priorities[mesh.rows(n)]
+        mask_priorities = mask_priorities[data.rows(n)]
         if augment_draws is not None:
-            augment_draws = shard_batch(augment_draws, mesh.rank, mesh.size)
+            augment_draws = shard_batch(augment_draws, data.rank, data.size)
     return apply_gradients(
         state, loss_and_grads(state, batch, mask_priorities,
                               maskiou_priorities, use_kernels=use_kernels,
