@@ -227,6 +227,23 @@ Phases, each of which raises on failure:
    columns bit-equal to the plain version and to the whole call's rows,
    the backward within phase 3's tolerances of its plain version and of
    the whole call
+12b. spatial partitioning of every other config (run after phase 12):
+   the same two ranks' set-up for yolact_darknet53, yolact_vgg16,
+   yolact_base_gn, yolact_base_direct and yolact_base_options at 550 and
+   full width (the ResNets with the s2d stem): (a) one f32 b8 step with
+   batch statistics from phase 10's seeds and schedule against the
+   one-process step, with native convolutions on both sides (cuDNN
+   picks its algorithm by shape, and its weight gradients on a rank's
+   row windows round otherwise), (losses within 1e-4 relative; first
+   gradients as
+   accurate as one process's: within twice the one-process float32
+   step's distance from its float64 step, plus 1e-3 of their max, of that
+   float64 step; the ranks' weights bit-equal, launches per rank per step
+   equal), two controls that must fail the gradient check (group norm's moments over
+   a rank's own rows; the prototype features gathered with the loss's
+   gradient); then with cuDNN, ms a step a rank and its peak memory
+   against one process's, the collectives' count and share in one more; (b) Pipeline under the mesh at b1
+   f32 and b8 bf16 against Pipeline, as in phase 12
 7. timing: median and p90 ms per batch at b1 / b8 bf16 for every path
    (CUDA events over 100 calls; the s2d A/B in the order plain, s2d, s2d,
    plain), device busy and idle share per batch (torch.profiler kernel
@@ -241,7 +258,7 @@ Phases, each of which raises on failure:
    five shapes in f32 and bf16 with its global reductions
 
 Each phase prints its seconds, and the end of the run all of them; the
-run order is 1, 2, 3, 4, 4b, 9, 5, 6, 8, 8b, 10, 11, 11b, 12, 7.
+run order is 1, 2, 3, 4, 4b, 9, 5, 6, 8, 8b, 10, 11, 11b, 12, 12b, 7.
 The line before the last is a JSON object with each kernel's launches
 (and, as trainer_launches, its launches in the trainer's runs, as
 device_augment_launches_per_step per step of phase 8's device-augment
@@ -249,7 +266,8 @@ runs by run, as
 option_launches in phase 9's runs by path, and as
 dp_launches_per_rank_step per rank in a step of phase 10's two-rank
 run, as spatial_launches_per_rank_step per rank in a step of phase 12's
-run, as export_launches per call of phase 11's artifacts by run), error,
+run, as spatial_config_launches per config of phase 12b per rank per step
+and per call, as export_launches per call of phase 11's artifacts by run), error,
 times and bound; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -4336,15 +4354,16 @@ def sp_rank(rank, port, paths, results):
         parallel.destroy()
 
 
-def run_sp_ranks(paths):
-    """SP_SPACE spawned sp_rank processes; their results in rank order
-    (as run_dp_ranks)."""
+def run_ranks(target, paths, label):
+    """SP_SPACE spawned `target(rank, port, paths, results)` processes (a
+    spatial phase's ranks); their results in rank order (as run_dp_ranks,
+    `label` naming the phase in its errors)."""
     import multiprocessing as mp
     import queue
     ctx = mp.get_context('spawn')
     results = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=sp_rank, args=(rank, port, paths, results))
+    procs = [ctx.Process(target=target, args=(rank, port, paths, results))
              for rank in range(SP_SPACE)]
     for proc in procs:
         proc.start()
@@ -4354,10 +4373,10 @@ def run_sp_ranks(paths):
             try:
                 rank, ok, value = results.get(timeout=DP_SECONDS)
             except queue.Empty:
-                raise RuntimeError(f'chip_smoke: phase 12 ranks '
+                raise RuntimeError(f'chip_smoke: {label} ranks '
                                    f'{sorted(set(range(SP_SPACE)) - set(got))}'
                                    f' gave no result in {DP_SECONDS} s')
-            check(ok, f'phase 12 rank {rank} failed:\n{value}')
+            check(ok, f'{label} rank {rank} failed:\n{value}')
             got[rank] = value
         for proc in procs:
             proc.join(timeout=60)
@@ -4601,13 +4620,395 @@ def spatial_phase(sds, frames8, dev, card, one=None):
         torch.save(shape_conf(sd, cfg.num_classes, scale, bias),
                    paths['infer_sd'])
         torch.save(frames8.cpu(), paths['frames'])
-        ranks = run_sp_ranks(paths)
+        ranks = run_ranks(sp_rank, paths, 'phase 12')
     print(f'phase 12 ranks done in {time.perf_counter() - t0:.1f} s [{card}]')
     launches = sp_steps(ranks, one, card)
     sp_infer(ranks, sd, frames8, dev, card)
     err = sp_kernels(dev)
     print(f'phase 12(c): dcn_col2im from row0 > 0, largest f32 error '
           f'against its plain version {err!r}')
+    return launches
+
+
+# ---- phase 12b: spatial partitioning of every other config ----------------
+
+# Phase 12b: the configs outside phase 12's ResNet slice on the same two
+# gloo ranks (data 1 x space 2), each at 550 and full width, one f32 b8
+# step with batch statistics on phase 10's batch, draws and schedule, and
+# Pipeline under the mesh; the ResNets take the s2d stem, as Pipeline does
+SPC_CONFIGS = ('yolact_darknet53', 'yolact_vgg16', 'yolact_base_gn',
+               'yolact_base_direct', 'yolact_base_options')
+# the first-step gradients held per config: the first conv, a norm where
+# the backbone's is group norm, and the heads and the protonet
+SPC_GRADS = {
+    'yolact_darknet53': ('backbone._preconv.0.weight',
+                         'backbone.layers.2.0.1.weight',
+                         'prediction_layers.0.mask_layer.weight',
+                         'proto_net.0.weight'),
+    # (the stride-8 head's anchors, ~40 px, match none of this batch's
+    # boxes, and the last head's priors are neither positive nor mined:
+    # their mask and conf layers get no gradient)
+    'yolact_vgg16': ('backbone.layers.0.0.weight', 'backbone.norms.0.weight',
+                     'prediction_layers.0.conf_layer.weight',
+                     'prediction_layers.1.mask_layer.weight',
+                     'proto_net.0.weight'),
+    'yolact_base_gn': ('backbone.conv1.weight', 'backbone.bn1.weight',
+                       'backbone.layers.3.0.bn2.weight',
+                       'prediction_layers.0.mask_layer.weight',
+                       'proto_net.0.weight'),
+    'yolact_base_direct': OPTION_TRAIN_GRADS['yolact_base_direct'],
+    # and the protonet's last conv, which the prototype features' gradient
+    # reaches first
+    'yolact_base_options': OPTION_TRAIN_GRADS['yolact_base_options']
+    + ('proto_net.10.weight',),
+}
+# the two controls that must fail the gradient check: group norm's
+# moments over each rank's own rows, and the prototype features gathered
+# with the loss's 'shared' gradient (each rank's feature gradient of the
+# other ranks' prototype rows dropped)
+SPC_CONTROLS = {'yolact_base_gn': 'local_gn',
+                'yolact_base_options': 'shared_features'}
+
+
+def spc_config(name):
+    """Phase 12b's train config of `name`: phase 10's schedule, batch
+    statistics, the s2d stem on the ResNets."""
+    cfg = config_named(name).copy(lr=1e-4, lr_warmup_init=1e-7)
+    return maybe_enable_stem_s2d(cfg)
+
+
+@contextlib.contextmanager
+def spatial_control(control):
+    """Break one piece of the spatial step (SPC_CONTROLS), or nothing for
+    None."""
+    from yolact_tpu_torch.models import layers, yolact
+    from yolact_tpu_torch.parallel import mesh as parallel
+    real_gn, real_gather = layers.GroupNorm.forward, parallel.gather_rows
+    if control == 'local_gn':
+        layers.GroupNorm.forward = \
+            lambda self, x, train=False, rows=None: real_gn(self, x, train)
+    elif control == 'shared_features':
+        yolact.gather_rows = \
+            lambda x, rows, grad: real_gather(x, rows, 'shared')
+    try:
+        yield
+    finally:
+        layers.GroupNorm.forward, yolact.gather_rows = real_gn, real_gather
+
+
+@contextlib.contextmanager
+def native_convolutions():
+    """PyTorch's own convolutions instead of cuDNN's.  cuDNN picks its
+    algorithm by shape, and on a rank's row windows its float32 weight
+    gradients round otherwise than on the whole map: VGG's proto_net.0
+    gradient (a sum that cancels to 1e-3 of its terms) lands 7.0e-3 of
+    its max from the float64 step on the ranks against 1.5e-3 in one
+    process, and 1.5e-3 on both with cuDNN off (PERF.md §6 PR 15)."""
+    before = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = before
+
+
+def spc_step(cfg, sd, dev, names, mesh=None, control=None,
+             convolutions=native_convolutions):
+    """One f32 b8 train step of `cfg` from `sd` on make_train_batch's batch
+    (phase 10's seeds), on this rank's rows under `mesh`, under
+    `convolutions` (native ones on both sides of the comparison; a
+    probe may pass contextlib.nullcontext for cuDNN's): the state and the
+    losses, the launches, the named gradients, the weights' digest and
+    the memory allocated before the state (bytes)."""
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with spatial_control(control), deterministic_library(), convolutions():
+        state = create_train_state(cfg, device=dev, state_dict=sd, mesh=mesh)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        losses, launches, digests, grads = dp_steps(
+            state, make_train_batch(cfg), gen, names, steps=1)
+    return state, dict(losses=losses[0], launches=launches[0],
+                       digest=digests[0], base=base,
+                       grads={k: v.numpy() for k, v in grads.items()})
+
+
+def spc_timed_step(state, cfg, dev, base):
+    """One more step of `state` as the main path runs it (cuDNN's
+    convolutions): its ms (host clock, synchronised) and its peak memory
+    allocated over `base`, what the process held before the state (GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_step(state, make_train_batch(cfg),
+               torch.Generator(device=dev).manual_seed(12))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return dict(ms=ms,
+                peak_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+
+
+def spc_float64_grads(cfg, sd, dev, names):
+    """The one-process step's first gradients of `names` in float64 on the
+    card (the plain versions of the kernels, which have no float64 build;
+    ``.float()`` meaning float64, as the CPU tests' float64 runs), on
+    spc_step's batch and draws: the yardstick of float32's rounding."""
+    state = create_train_state(cfg, device=dev, state_dict=sd)
+    model = state.model.double()
+    model.compute_dtype = torch.float64
+    if state.conf_state is not None:
+        state.conf_state = {k: v.double() for k, v in state.conf_state.items()}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    batch = make_train_batch(cfg)
+    mask_pri, miou_pri = (d.double() for d in draw_priorities(
+        cfg, len(batch['image']), model.priors(cfg.max_size, cfg.max_size,
+                                               dev).shape[0], gen, dev))
+    real = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        with deterministic_library(), native_convolutions():
+            tensors = batch_to_device(
+                dict(batch, image=batch['image'].astype(np.float64)), dev)
+            step_module.forward_loss(state, tensors, mask_pri, miou_pri,
+                                     use_kernels=False,
+                                     num_gts=batch['num_gts'])['total'] \
+                .backward()
+    finally:
+        torch.Tensor.float = real
+    params = dict(model.named_parameters())
+    grads = {k: params[k].grad.cpu().numpy() for k in names}
+    del state, model, params
+    torch.cuda.empty_cache()
+    return grads
+
+
+def spc_infer(name, wsd, frames8, dev, mesh=None):
+    """Pipeline of `name` (under `mesh`) per SP_INFER_RUNS on the raw
+    frames: the detections (numpy), the launches of one call counted from
+    0 and the ms of two more calls (host clock, synchronised)."""
+    out = {}
+    for tag, dtype, b in SP_INFER_RUNS:
+        pipe = Pipeline(config_named(name), wsd, dev, dtype, mesh=mesh)
+        pipe(frames8[:b])                                 # warm
+        reset_launches()
+        got = pipe(frames8[:b])
+        torch.cuda.synchronize()
+        calls = read_launches(KERNELS)
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe(frames8[:b])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[tag] = dict(out={k: v.cpu().numpy() for k, v
+                             in got._asdict().items() if v is not None},
+                        launches=calls, ms=ms)
+        del pipe
+    return out
+
+
+def spc_rank(rank, port, paths, results):
+    """One rank of phase 12b, in a process of its own (spawn): the gloo
+    group on cuda:0 split data 1 x space SP_SPACE; per config of
+    ``paths['configs']`` the checked step (spc_step), a timed one
+    (spc_timed_step), one more with its collectives timed, the config's
+    control where it has one, and Pipeline under the mesh (spc_infer).  Puts (rank, True, result) or (rank, False, traceback)
+    on `results`."""
+    import traceback
+    from yolact_tpu_torch.parallel import mesh as parallel
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SP_SPACE),
+                      LOCAL_RANK=str(rank), MASTER_ADDR='127.0.0.1',
+                      MASTER_PORT=str(port))
+    try:
+        dev = torch.device('cuda', 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _build.load()
+        mesh = parallel.make_mesh_2d(
+            parallel.init_from_env('gloo', device=dev), SP_SPACE)
+        frames8 = torch.load(paths['frames']).to(dev)
+        got = {}
+        for name in paths['configs']:
+            cfg = spc_config(name)
+            sd = torch.load(paths[name, 'train'])
+            state, run = spc_step(cfg, sd, dev, SPC_GRADS[name], mesh,
+                                  convolutions=paths['convolutions'])
+            run.update(spc_timed_step(state, cfg, dev, run['base']))
+            record = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with timed_collectives(record):
+                train_step(state, make_train_batch(cfg),
+                           torch.Generator(device=dev).manual_seed(12))
+            torch.cuda.synchronize()
+            run.update(timed_step_ms=(time.perf_counter() - t0) * 1e3,
+                       collective_ms=sum(record) * 1e3,
+                       collectives=len(record))
+            del state
+            if name in SPC_CONTROLS:
+                control, c_run = spc_step(cfg, sd, dev, SPC_GRADS[name],
+                                          mesh, SPC_CONTROLS[name],
+                                          paths['convolutions'])
+                del control
+                run['control'] = dict(losses=c_run['losses'],
+                                      grads=c_run['grads'])
+            run['infer'] = spc_infer(name, torch.load(paths[name, 'infer']),
+                                     frames8, dev, mesh)
+            got[name] = run
+        results.put((rank, True, got))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        parallel.destroy()
+
+
+def spc_train_checks(name, ranks, one, card):
+    """Phase 12b(a)'s checks and lines for one config."""
+    cfg = spc_config(name)
+    tag = (f'spatial {name} 550 b8 f32 (data 1 x space {SP_SPACE}, gloo '
+           f'ranks on one card)')
+    print(f'{tag}: one process {json.dumps(one["losses"])}; ranks '
+          f'{json.dumps([r[name]["losses"] for r in ranks])}')
+    check(len({r[name]['digest'] for r in ranks}) == 1,
+          f'{tag}: the ranks\' weights differ after the step')
+    for rank, run in enumerate(ranks):
+        got = run[name]['losses']
+        check(got['finite'] and got.keys() == one['losses'].keys(),
+              f'{tag}: rank {rank} {got}')
+        for k, v in one['losses'].items():
+            if k in ('finite', 'lr'):
+                continue
+            check(np.isfinite(got[k]) and abs(got[k] - v) <= 1e-4 * abs(v),
+                  f'{tag}: rank {rank} loss {k} {got[k]!r} against {v!r}')
+        check(run[name]['launches'] == one['launches'],
+              f'{tag}: rank {rank} launches {run[name]["launches"]}, one '
+              f'process {one["launches"]}')
+    # From random weights under batch statistics float32's rounding alone
+    # moves the first gradients by up to 7e-2 of their max (one process,
+    # float32 against float64 on the card, yolact_darknet53's first conv;
+    # PERF.md §6 PR 15), so the split is held to be as accurate as one
+    # process: its distance from the float64 step within twice the
+    # one-process float32 step's own, plus 1e-3 of the max
+    gaps = {}
+    for g in SPC_GRADS[name]:
+        exact, want = one['grads64'][g], one['grads'][g]
+        top = float(np.abs(exact).max())
+        check(top > 0, f'{tag}: the gradient of {g} is zero')
+        top = max(top, 1e-30)
+        noise = float(np.abs(want - exact).max())
+        limit = 2 * noise + 1e-3 * top
+        got = ranks[0][name]['grads'][g]
+        err, gap = (float(np.abs(got - ref).max()) for ref in (exact, want))
+        line = (f'{tag} first-step gradient of {g}: max {top!r}; one process '
+                f'f32 against f64 {noise / top!r} of max, the ranks against '
+                f'f64 {err / top!r} (criterion {limit / top!r}), against '
+                f'one process f32 {gap / top!r}')
+        if 'control' in ranks[0][name]:
+            c = float(np.abs(ranks[0][name]['control']['grads'][g]
+                             - exact).max())
+            gaps[g] = c - limit
+            line += (f'; control {SPC_CONTROLS[name]} against f64 '
+                     f'{c / top!r}')
+        print(line)
+        check(err <= limit, f'{tag}: the gradient of {g} differs')
+    if gaps:
+        check(max(gaps.values()) > 0, f'{tag}: the control '
+              f'{SPC_CONTROLS[name]} passes the gradient check: it has no '
+              f'teeth')
+    for rank, run in enumerate(ranks):
+        r = run[name]
+        print(f'{tag} rank {rank}: {r["ms"]!r} ms for a second step (host '
+              f'clock, synchronised; one process {one["ms"]!r}); in a third '
+              f'step with each collective timed '
+              f'({r["timed_step_ms"]!r} ms) {r["collectives"]} collectives '
+              f'took {r["collective_ms"]!r} ms (share '
+              f'{r["collective_ms"] / r["timed_step_ms"]!r}); peak memory '
+              f'allocated {r["peak_gib"]!r} GiB against one process\'s '
+              f'{one["peak_gib"]!r} (share {r["peak_gib"] / one["peak_gib"]!r}'
+              f') [{card}]')
+    return ranks[0][name]['launches']
+
+
+def spc_infer_checks(name, ranks, want, card):
+    """Phase 12b(b)'s checks and lines for one config: each rank against
+    Pipeline in this process (f32 by phase 4's rule, bf16 as matched
+    sets), every rank the same, the launches a call equal."""
+    cfg = config_named(name)
+    launches = {}
+    for tag, dtype, b in SP_INFER_RUNS:
+        outs = []
+        ref = InferenceOutput(**{k: torch.from_numpy(v) for k, v
+                                 in want[tag]['out'].items()})
+        for rank, run in enumerate(ranks):
+            res = run[name]['infer'][tag]
+            got = InferenceOutput(**{k: torch.from_numpy(v)
+                                     for k, v in res['out'].items()})
+            outs.append(got)
+            line = f'spatial {name} 550 {tag} rank {rank} vs Pipeline'
+            check_output(line, got, cfg, b)
+            if dtype == 'float32':
+                compare(line, got, ref, exact=True, ties_ok=True)
+            else:
+                match(line, got, ref)
+            check(res['launches'] == want[tag]['launches'],
+                  f'{line}: launches a call {res["launches"]}, Pipeline '
+                  f'{want[tag]["launches"]}')
+            print(f'{line}: launches a call {json.dumps(res["launches"])} '
+                  f'(Pipeline the same); {res["ms"]!r} ms a call against '
+                  f'Pipeline\'s {want[tag]["ms"]!r} (host clock) [{card}]')
+        check(bool(ref.valid.any()), f'spatial {name} {tag}: no detections')
+        same = all(torch.equal(getattr(outs[0], f), getattr(o, f))
+                   for o in outs[1:] for f in ('valid', 'classes', 'scores',
+                                               'boxes', 'masks'))
+        print(f'spatial {name} {tag}: every rank\'s detections bit-equal: '
+              f'{same}')
+        check(same, f'spatial {name} {tag}: the ranks\' detections differ')
+        launches[tag] = want[tag]['launches']
+    return launches
+
+
+def spatial_configs_phase(sds, frames8, dev, card, configs=SPC_CONFIGS,
+                          convolutions=native_convolutions):
+    """Phase 12b (see the module docstring): the one-process references,
+    then `configs` on the two ranks, the checked steps under
+    `convolutions` (spc_step).  Returns per config the launches per rank
+    per step and per call."""
+    t0 = time.perf_counter()
+    one, want = {}, {}
+    paths = {'configs': tuple(configs), 'convolutions': convolutions}
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_spc_') as tmp:
+        for name in configs:
+            cfg = config_named(name)
+            sd = tame_residuals(sds[name])
+            _, scale, bias, _ = [c for c in PATHS[name]['cells']
+                                 if c[0] == 'sparse'][0]
+            wsd = shape_conf(sds[name], cfg.num_classes, scale, bias)
+            for kind, d in (('train', sd), ('infer', wsd)):
+                paths[name, kind] = os.path.join(tmp, f'{name}_{kind}.pt')
+                torch.save(d, paths[name, kind])
+            state, one[name] = spc_step(spc_config(name), sd, dev,
+                                        SPC_GRADS[name],
+                                        convolutions=convolutions)
+            one[name].update(spc_timed_step(state, spc_config(name), dev,
+                                            one[name]['base']))
+            del state
+            one[name]['grads64'] = spc_float64_grads(
+                spc_config(name), sd, dev, SPC_GRADS[name])
+            want[name] = spc_infer(name, wsd, frames8, dev)
+        paths['frames'] = os.path.join(tmp, 'frames.pt')
+        torch.save(frames8.cpu(), paths['frames'])
+        torch.cuda.empty_cache()
+        print(f'phase 12b one-process references done in '
+              f'{time.perf_counter() - t0:.1f} s [{card}]')
+        ranks = run_ranks(spc_rank, paths, 'phase 12b')
+    print(f'phase 12b ranks done in {time.perf_counter() - t0:.1f} s '
+          f'[{card}]')
+    launches = {}
+    for name in configs:
+        launches[name] = dict(
+            per_step=spc_train_checks(name, ranks, one[name], card),
+            per_call=spc_infer_checks(name, ranks, want[name], card))
     return launches
 
 
@@ -4721,9 +5122,13 @@ def main():
 
     # ---- phase 12: spatial partitioning ----
     sp_launches = spatial_phase(sds, frames8, dev, card, one_process)
-    del sds, one_process
+    del one_process
     torch.cuda.empty_cache()
     phase_done('12 spatial partitioning')
+    spc_launches = spatial_configs_phase(sds, frames8, dev, card)
+    del sds
+    torch.cuda.empty_cache()
+    phase_done('12b spatial partitioning, other configs')
 
     # ---- phase 7: timing; the s2d A/B in the order plain, s2d, s2d, plain
     order = ('yolact_base', 'yolact_base_s2d', 'yolact_base_s2d',
@@ -4787,6 +5192,12 @@ def main():
                        'dp_launches_per_rank_step': dp_launches.get(name, 0),
                        'spatial_launches_per_rank_step': sp_launches.get(
                            name, 0),
+                       'spatial_config_launches': {
+                           config: dict(per_step=counts['per_step'].get(
+                               name, 0), per_call={
+                                   tag: calls[name] for tag, calls
+                                   in counts['per_call'].items()})
+                           for config, counts in spc_launches.items()},
                        'export_launches': {
                            tag: counts[name]
                            for tag, counts in export_launches.items()},

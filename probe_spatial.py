@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""``chip_smoke.py``'s phase 12 (spatial partitioning) alone.
+"""``chip_smoke.py``'s phase 12 (spatial partitioning) alone, or its
+phase 12b (the other configs).
 
-    python3 probe_spatial.py [--memory]
+    python3 probe_spatial.py [--memory | --configs [NAME ...] [--cudnn]]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the kernels, makes the smoke script's seeded weights of
@@ -22,9 +23,20 @@ of 4 images (phase 10's split; same config, weights, batch and seeds):
 the memory allocated before the step (weights, momentum, the batch), what
 the forward adds (the activations kept for the backward and the
 outputs), what the loss adds, and the peak over the step, in GiB.
+
+``--configs`` runs ``chip_smoke.spatial_configs_phase`` instead: the
+configs named (default: all of ``chip_smoke.SPC_CONFIGS``, yolact_darknet53,
+yolact_vgg16, yolact_base_gn, yolact_base_direct and yolact_base_options)
+from the smoke script's seeded weights, one-process references, then the
+two ranks' step, controls and ``Pipeline`` under the mesh; it goes on
+past a failed check, prints each, and exits 1 at the end if any failed.
+With ``--cudnn`` the checked steps run cuDNN's convolutions instead of
+PyTorch's own (what ``chip_smoke.native_convolutions`` avoids: cuDNN's
+per-shape algorithms round a rank's row windows otherwise).
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -156,6 +168,9 @@ def memory(sd, dev, card):
 def main():
     args = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     args.add_argument('--memory', action='store_true')
+    args.add_argument('--configs', nargs='*', default=None,
+                      choices=smoke.SPC_CONFIGS)
+    args.add_argument('--cudnn', action='store_true')
     args = args.parse_args()
     if not torch.cuda.is_available():
         print('probe_spatial: needs a CUDA device', file=sys.stderr)
@@ -170,6 +185,31 @@ def main():
     t0 = time.perf_counter()
     _build.load()
     print(f'build {time.perf_counter() - t0:.1f} s')
+    frames8 = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (8, 550, 550, 3)).astype(np.float32)).to(dev)
+    if args.configs is not None:
+        configs = tuple(args.configs) or smoke.SPC_CONFIGS
+        sds = {name: random_state_dict(smoke.config_named(name),
+                                       torch.Generator().manual_seed(0))
+               for name in configs}
+        failed = []
+
+        def keep_going(cond, msg):
+            if not cond:
+                failed.append(msg)
+                print(f'FAILED: {msg}', flush=True)
+        smoke.check = keep_going
+        t0 = time.perf_counter()
+        launches = smoke.spatial_configs_phase(
+            sds, frames8, dev, card, configs,
+            contextlib.nullcontext if args.cudnn
+            else smoke.native_convolutions)
+        print(f'phase 12b: {time.perf_counter() - t0:.1f} s')
+        print(json.dumps({'spatial_config_launches': launches}))
+        if failed:
+            print(f'{len(failed)} checks failed', file=sys.stderr)
+            sys.exit(1)
+        return
     config = smoke.DP_CONFIG
     sd = random_state_dict(smoke.config_named(config),
                            torch.Generator().manual_seed(0))
@@ -178,8 +218,6 @@ def main():
     if args.memory:
         memory(sds[config], dev, card)
         return
-    frames8 = torch.from_numpy(np.random.RandomState(0).randint(
-        0, 256, (8, 550, 550, 3)).astype(np.float32)).to(dev)
     t0 = time.perf_counter()
     launches = smoke.spatial_phase(sds, frames8, dev, card)
     print(f'phase 12: {time.perf_counter() - t0:.1f} s')

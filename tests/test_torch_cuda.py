@@ -861,3 +861,40 @@ def test_float32_pipeline_runs_without_tf32_under_the_default_flags(cuda):
     torch.testing.assert_close(got.scores, want.scores, rtol=0, atol=1e-5)
     torch.testing.assert_close(got.boxes, want.boxes, rtol=0, atol=1e-5)
     torch.testing.assert_close(got.masks, want.masks, rtol=0, atol=1e-4)
+
+
+CUDA_ROW_OPS = ('group_norm', 'group_norm_1_group', 'conv_transpose_k2_s2',
+                'conv_transpose_k3_s2_p1_op1', 'cat')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('space,height', [(2, 11), (3, 2)])
+def test_group_norm_and_transposed_rows_on_the_card(cuda, space, height):
+    """Group norm's moments over the space ranks, the transposed convs'
+    rows and a 'cat' entry (tests/torch_spatial_worker.py:
+    config_op_cases) on gloo ranks sharing the card, float32, against the
+    whole-map op on the card: outputs and input gradients within 1e-5 of
+    their largest entry (the moments and the convs sum in another order);
+    on a map of 2 rows over 3 ranks one rank owns none."""
+    import torch_spatial_worker as W
+    from torch_parallel_worker import run_ranks
+    from yolact_tpu_torch.parallel.mesh import own
+    ranks = run_ranks(W.cuda_config_ops_run, space, space, height,
+                      CUDA_ROW_OPS)
+    for name in CUDA_ROW_OPS:
+        whole = W.config_op_cases(height)[name][0].to(cuda, torch.float32)
+        x = W.whole_map(0, W.map_shape(height)).to(cuda, torch.float32)
+        x.requires_grad_(True)
+        y = whole(x)
+        (y * W.whole_map(1, tuple(y.shape)).to(cuda, torch.float32)
+         ).sum().backward()
+        y, g = y.detach().cpu().numpy(), x.grad.cpu().numpy()
+        for rank, got in enumerate(ranks):
+            lo, hi = got[name]['own']
+            assert (lo, hi) == own(y.shape[2], rank, space)
+            np.testing.assert_allclose(got[name]['y'], y[:, :, lo:hi],
+                                       rtol=0, err_msg=name,
+                                       atol=1e-5 * np.abs(y).max())
+        grad = np.concatenate([r[name]['grad'] for r in ranks], 2)
+        np.testing.assert_allclose(grad, g, rtol=0, err_msg=name,
+                                   atol=1e-5 * np.abs(g).max())

@@ -34,6 +34,9 @@ to the smoke script's inputs does not move the unit tests.
   ``tests/_tiny.py``'s small configs built with the port's own config
   module (``test_torch_config.py`` holds them equal to ``_tiny.py``'s), for
   the tests that import nothing of the JAX package;
+  :func:`tiny_darknet_config`, :func:`tiny_vgg_config` and
+  :func:`tiny_gn_config` the other backbone families at small widths (the
+  spatial tests);
   :func:`tiny_option_overrides` turns on every lincomb head and protonet
   option of the reference at once (with a grid from :func:`write_grid`
   and ``CAT_DECONV_HEAD``).
@@ -100,6 +103,53 @@ def tiny_plus_config(**kw):
         maskiou_net=((8, 3, (('stride', 2),)), (16, 3, (('stride', 2),)),
                      (32, 3, (('stride', 2),))),
         **kw)
+
+
+def tiny_vgg_config(**kw):
+    """yolact_vgg16 (no FPN, one head per level, protonet on the stride-8
+    group, BN on group 3, the ceil-mode pool, fc6's dilation 6, four SSD
+    extras whose last two shrink without padding) at 8-64 channels and
+    300 px: levels of 38, 19, 10, 5, 3 and 1 rows."""
+    arch = ((8, 8),
+            ('M', 16, 16),
+            ('M', 16, 16, 16),
+            (('M', (('ceil_mode', True), ('kernel_size', 2), ('stride', 2))),
+             32, 32, 32),
+            ('M', 32, 32, 32),
+            (('M', (('kernel_size', 3), ('padding', 1), ('stride', 1))),
+             (64, (('dilation', 6), ('kernel_size', 3), ('padding', 6))),
+             (64, (('kernel_size', 1),))))
+    cfg = C.get_config('yolact_vgg16')
+    return cfg.copy(
+        max_size=300, num_classes=5,
+        dataset=cfg.dataset.copy(class_names=('a', 'b', 'c', 'd')),
+        backbone=cfg.backbone.copy(
+            args=(arch, ((16, 2), (8, 2), (8, 1), (8, 1)), (3,))),
+        mask_proto_net=((8, 3, (('padding', 1),)), (None, -2, ()),
+                        (8, 1, ())),
+        extra_head_net=((16, 3, (('padding', 1),)),), **kw)
+
+
+def tiny_darknet_config(**kw):
+    """yolact_darknet53's topology (stride-2 convs, LeakyReLU, batch norm,
+    FPN with downsample convs) with one block a stage, at 128 px
+    (``tests/_tiny.py``'s)."""
+    cfg = C.get_config('yolact_darknet53')
+    return cfg.copy(
+        max_size=128, num_classes=5,
+        backbone=cfg.backbone.copy(
+            args=((1, 1, 1, 1, 1),),
+            pred_scales=((6,), (12,), (24,), (48,), (96,))),
+        mask_proto_net=((8, 3, (('padding', 1),)), (None, -2, ()),
+                        (8, 1, ())),
+        extra_head_net=((16, 3, (('padding', 1),)),),
+        fpn=cfg.fpn.copy(num_features=16), **kw)
+
+
+def tiny_gn_config(**kw):
+    """The tiny ResNet with group norm (RESNET101_GN_BACKBONE's type)."""
+    cfg = tiny_resnet_config(**kw)
+    return cfg.copy(backbone=cfg.backbone.copy(type='resnet_gn'))
 
 
 PAD1 = (('padding', 1),)

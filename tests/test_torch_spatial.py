@@ -27,9 +27,17 @@ What is held:
   for the losses;
 * ``cli/train.train(['--distributed', '--spatial_split', '2', ...])`` on
   two ranks, then ``--resume latest``;
-* the refusals that stay: configs outside the ResNet slice, a world size
-  that does not divide by the split, a split without ``--distributed``.
+* every config the port refused before this split covered it (DarkNet,
+  VGG, group norm, direct masks, ``'cat'`` and transposed protonet layers,
+  an FPN without downsample convs, grid prototypes, prototypes as
+  features): a float64 split forward on two ranks against one process
+  (``tests/test_torch_spatial_configs.py`` holds their steps); every
+  registered config is made of modules the row-sharded wiring runs;
+* the refusals that stay: a world size that does not divide by the
+  split, a split without ``--distributed``.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -37,11 +45,13 @@ import torch
 
 import torch_spatial_worker as W
 from test_torch_inputs import (make_train_batch, seed_offsets_state_dict,
-                               tiny_plus_config, tiny_resnet_config)
+                               tiny_darknet_config, tiny_gn_config,
+                               tiny_plus_config, tiny_resnet_config,
+                               tiny_vgg_config)
 from torch_parallel_worker import Ranks, cli_train, free_port, run_ranks
 from yolact_tpu_torch.infer import random_state_dict
 from yolact_tpu_torch.kernels import dcn
-from yolact_tpu_torch.models.yolact import spatial_refusal
+from yolact_tpu_torch.config import MaskType
 from yolact_tpu_torch.parallel import mesh as parallel
 
 torch.set_num_threads(2)
@@ -547,22 +557,15 @@ def test_cli_spatial_split_refuses_what_it_cannot_run():
         cli.train(['--cuda=False', '--spatial_split', '2'])
 
 
-# ---- the refusals that stay ----------------------------------------------
+# ---- every config takes the split -------------------------------------------
 
-def _fake_grid():
-    """A 2-D mesh's view without a process group (the refusals raise
-    before any collective)."""
-    cpu = torch.device('cpu')
-    return parallel.Mesh(0, 2, cpu, data=parallel.Mesh(0, 1, cpu),
-                         space=parallel.Mesh(0, 2, cpu))
+_FORWARDS = {}
 
-
-@pytest.mark.parametrize('what,make', [
-    ('darknet', lambda: _port_config('tiny_darknet_config')),
-    ('vgg', lambda: _registered('yolact_vgg16')),
-    ('group norm', lambda: tiny_resnet_config().copy(
-        backbone=tiny_resnet_config().backbone.copy(type='resnet_gn'))),
-    ('direct masks', lambda: _registered('yolact_base_direct_test')),
+SPLIT_CONFIGS = [
+    ('darknet', lambda: tiny_darknet_config()),
+    ('vgg', lambda: tiny_vgg_config()),
+    ('group norm', lambda: tiny_gn_config()),
+    ('direct masks', lambda: tiny_resnet_config(mask_type=MaskType.DIRECT)),
     ("'cat'", lambda: tiny_resnet_config().copy(
         mask_proto_net=(('cat', (((8, 3, (('padding', 1),)),),
                                  ((8, 1, ()),))),))),
@@ -570,37 +573,98 @@ def _fake_grid():
         mask_proto_net=((8, -2, (('stride', 2),)),))),
     ('without downsample convs', lambda: tiny_resnet_config().copy(
         fpn=tiny_resnet_config().fpn.copy(use_conv_downsample=False))),
-    ('grid', lambda: tiny_resnet_config(mask_proto_use_grid=True)),
+    ('grid', lambda: tiny_resnet_config(
+        mask_proto_use_grid=True, mask_proto_grid_file=_grid_file())),
     ('as_features', lambda: tiny_resnet_config(
         mask_proto_prototypes_as_features=True)),
-])
+]
+
+
+def _grid_file():
+    if 'grid' not in _FORWARDS:
+        import tempfile
+
+        from test_torch_inputs import write_grid
+        _FORWARDS['grid'] = write_grid(os.path.join(
+            tempfile.mkdtemp(prefix='spatial_grid_'), 'grid.npy'))
+    return _FORWARDS['grid']
+
+
+def _split_forwards():
+    """Every SPLIT_CONFIGS config's float64 eval forward on two ranks
+    (data 1 x space 2), one set of ranks for all of them."""
+    if 'ranks' not in _FORWARDS:
+        cases = [(what, make()) for what, make in SPLIT_CONFIGS]
+        _FORWARDS['ranks'] = run_ranks(W.forward_run, 2, 2, cases)
+    return _FORWARDS['ranks']
+
+
+@pytest.mark.parametrize('what,make', SPLIT_CONFIGS)
 def test_configs_outside_the_slice_raise_with_their_reason(what, make):
+    """Named for when the port refused these configs under a split (every
+    config outside the batch-norm ResNets with an FPN of downsample convs
+    and plain lincomb prototypes): each now builds a split train state on
+    a grid without a process group, and its float64 eval forward on two
+    ranks gives both ranks the one-process forward's outputs within
+    1e-9 of each output's largest entry."""
     from yolact_tpu_torch.train.step import create_train_state
     cfg = make()
-    assert what in spatial_refusal(cfg)
-    with pytest.raises(NotImplementedError, match='spatial split'):
-        create_train_state(cfg, device='cpu', mesh=_fake_grid())
+    state = create_train_state(cfg, device='cpu', mesh=_fake_grid())
+    assert state.mesh.spatial
+    want = W.forward_run(None, None, [(what, cfg)])[what]
+    for got in _split_forwards():
+        assert got[what].keys() == want.keys()
+        for k, w in want.items():
+            np.testing.assert_allclose(
+                got[what][k], w, rtol=0, err_msg=k,
+                atol=1e-9 * max(float(np.abs(w).max()), 1e-12))
 
 
-def _port_config(name):
-    import _tiny
-    from yolact_tpu_torch.convert.from_jax import config_from_jax as P
-    return P(getattr(_tiny, name)())
+def _fake_grid():
+    """A 2-D mesh's view without a process group (building a state issues
+    no collective)."""
+    cpu = torch.device('cpu')
+    return parallel.Mesh(0, 2, cpu, data=parallel.Mesh(0, 1, cpu),
+                         space=parallel.Mesh(0, 2, cpu))
 
 
-def _registered(name):
-    from yolact_tpu_torch.config import MaskType, get_config
-    if name == 'yolact_base_direct_test':
-        return tiny_resnet_config(mask_type=MaskType.DIRECT)
-    return get_config(name)
+# the row-sharded wiring's leaf modules; a config's other leaves run after
+# the gather (SPACE_REPLICATED)
+ROW_LEAVES = ('Conv2d', 'ConvTranspose2d', 'BatchNorm2d', 'GroupNorm',
+              'ReLU', 'LeakyReLU', 'MaxPool2d', 'InterpolateModule')
 
 
 def test_the_resnet_configs_are_in_the_slice():
-    from yolact_tpu_torch.config import get_config
-    for name in ('yolact_base', 'yolact_plus_base', 'yolact_resnet50',
-                 'yolact_plus_resnet50', 'yolact_im700'):
-        assert spatial_refusal(get_config(name)) is None, name
-        assert spatial_refusal(get_config(name).copy(stem_s2d=True)) is None
+    """Named for when only the ResNet configs took a split: every
+    registered model config and ResNet-GN's (the repo registers none), and
+    each with the s2d stem where its backbone has one, builds, and every leaf module of it is one the row-sharded
+    wiring runs (``models/layers.py:run_rows`` and the modules'
+    ``forward_rows``), or one that runs after the gather on every space
+    rank alike."""
+    from yolact_tpu_torch import config as C
+    from yolact_tpu_torch.models.yolact import SPACE_REPLICATED, Yolact
+    base, gn = C.get_config('yolact_base'), C.RESNET101_GN_BACKBONE
+    models = dict({n: c for n, c in C._CONFIG_REGISTRY.items()
+                   if c.backbone is not None},
+                  yolact_base_gn=base.copy(backbone=base.backbone.copy(
+                      name=gn.name, path=gn.path, type=gn.type,
+                      args=gn.args)))
+    assert len(models) >= 10
+    for name, cfg in models.items():
+        cfgs = [cfg]
+        if cfg.backbone.type in ('resnet', 'resnet_gn') and \
+                cfg.mask_proto_src is not None:
+            cfgs.append(cfg.copy(stem_s2d=True))
+        for c in cfgs:
+            with torch.device('meta'):
+                model = Yolact(c)
+            for path, m in model.named_modules():
+                # containers (an empty Sequential is the identity)
+                if next(m.children(), None) is not None or \
+                        isinstance(m, torch.nn.Sequential) or \
+                        path.split('.')[0] in SPACE_REPLICATED:
+                    continue
+                assert type(m).__name__ in ROW_LEAVES, (name, path, m)
 
 
 def test_make_mesh_2d_needs_a_world_that_divides():

@@ -64,28 +64,111 @@ def op_cases(height: int = MAP[2]):
     return cases
 
 
+def seeded(module, seed):
+    """`module` in float64 with every parameter a seeded normal draw."""
+    module = module.double()
+    with torch.no_grad():
+        for i, p in enumerate(module.parameters()):
+            p.copy_(whole_map(seed + i, tuple(p.shape)))
+    return module
+
+
+def config_op_cases(height: int = MAP[2]):
+    """As :func:`op_cases`, for the op geometries the other configs add:
+    VGG's ceil-mode and 3/1/1 pools and its dilation-6 fc6 conv, transposed
+    convs (strides 1 and 2, ``output_padding``), the FPN's stride-2
+    subsample without downsample convs, a ``'cat'`` entry of a conv and a
+    transposed conv pair, and group norm on the map's rows."""
+    from torch import nn
+
+    from yolact_tpu_torch.models import layers as L
+
+    def pool(k, s, p, ceil):
+        return (lambda x: L.max_pool(x, k, s, p, ceil),
+                lambda x, r: L.max_pool_rows(x, r, k, s, p, ceil))
+
+    def transposed(k, s, p, op=0):
+        c = seeded(L.ConvTranspose2d(3, 4, k, stride=s, padding=p,
+                                     output_padding=op), 9)
+        return c, lambda x, r: L.conv_transpose_rows(c, x, r)
+
+    def group_norm(groups):
+        gn = seeded(L.GroupNorm(3, num_groups=groups), 11)
+        return gn, lambda x, r: (gn(x, rows=r), r)
+
+    fc6 = seeded(L.Conv2d(3, 4, 3, padding=6, dilation=6), 7)
+    cat = seeded(L.Concat([
+        nn.Sequential(L.Conv2d(3, 2, 3, padding=1), nn.ReLU()),
+        nn.Sequential(L.ConvTranspose2d(3, 2, 2, stride=2), nn.ReLU(),
+                      L.Conv2d(2, 2, 2, stride=2), nn.LeakyReLU(0.1))]), 13)
+    return {
+        'max_pool_ceil': pool(2, 2, 0, True),
+        'max_pool_ceil_k3_p1': pool(3, 2, 1, True),
+        'max_pool_3_1_1': pool(3, 1, 1, False),
+        'conv_dilation6': (fc6, lambda x, r: L.conv_rows(fc6, x, r)),
+        'conv_transpose_k2_s2': transposed(2, 2, 0),
+        'conv_transpose_k3_s1_p1': transposed(3, 1, 1),
+        'conv_transpose_k3_s2_p1_op1': transposed(3, 2, 1, 1),
+        'conv_transpose_k4_s2_p1': transposed(4, 2, 1),
+        'subsample': (lambda x: x[:, :, ::2, ::2],
+                      lambda x, r: L.max_pool_rows(x, r, 1, 2)),
+        'cat': (cat, lambda x, r: L.run_rows([cat], x, r)),
+        'group_norm': group_norm(3),
+        'group_norm_1_group': group_norm(1),
+    }
+
+
+def _op_outputs(cases, rows, shape, to=lambda t: t):
+    """Each row-sharded op of `cases` on this rank's rows of the seeded
+    float64 map of `shape` (`to` moves a map where the ops run): its
+    output rows, their owner's range and the gradient of
+    ``sum(output * weight)`` (the weight a seeded map of the output's
+    shape, this rank's rows of it)."""
+    out = {}
+    for name, (_, sharded) in cases.items():
+        x = to(rows.take(whole_map(0, shape))).clone().requires_grad_(True)
+        y, r = sharded(x, rows)
+        full_shape = y.shape[:2] + (r.height, y.shape[3])
+        w = to(r.take(whole_map(1, full_shape)))
+        (y * w).sum().backward()
+        out[name] = dict(y=y.detach().cpu().numpy(),
+                         grad=x.grad.cpu().numpy(), own=r.own())
+    return out
+
+
+def config_ops_run(mesh, space, height):
+    """:func:`config_op_cases` on this rank's rows (:func:`_op_outputs`)."""
+    from yolact_tpu_torch.parallel.mesh import Rows, make_mesh_2d
+    grid = make_mesh_2d(mesh, space)
+    return _op_outputs(config_op_cases(height), Rows(grid.space, height),
+                       map_shape(height))
+
+
+def cuda_config_ops_run(mesh, space, height, names):
+    """:func:`config_ops_run` for the cases `names`, in float32 on
+    ``cuda:0`` (gloo carries the card's tensors)."""
+    from yolact_tpu_torch.parallel.mesh import Rows, make_mesh_2d
+    torch.backends.cudnn.allow_tf32 = False      # float32 means float32
+    grid = make_mesh_2d(mesh, space)
+    cases = {n: c for n, c in config_op_cases(height).items() if n in names}
+    for whole, _ in cases.values():
+        whole.to('cuda', torch.float32)
+    return _op_outputs(cases, Rows(grid.space, height), map_shape(height),
+                       to=lambda t: t.to('cuda', torch.float32))
+
+
 def ops_run(mesh, space, height):
-    """Every op case of :func:`op_cases`, the row fetch and the two gathers
-    on this rank's rows of one float64 map of `height` rows (:func:`map_shape`):
-    this rank's output rows and its
-    gradient of ``sum(output * weight)`` (the weight a seeded map of the
-    output's shape, this rank's rows of it), and for the gathers the whole
-    output and the gradient of a loss on it ('shared': the same on every
-    rank; 'own': weighted by a rank's own seeded map)."""
+    """Every op case of :func:`op_cases` (:func:`_op_outputs`), the row
+    fetch and the two gathers on this rank's rows of one float64 map of
+    `height` rows (:func:`map_shape`); for the gathers the whole output and
+    the gradient of a loss on it ('shared': the same on every rank; 'own':
+    weighted by a rank's own seeded map)."""
     from yolact_tpu_torch.parallel.mesh import (Rows, fetch_rows,
                                                 gather_rows, make_mesh_2d)
     grid = make_mesh_2d(mesh, space)
     rows = Rows(grid.space, height)
     shape = map_shape(height)
-    out = {}
-    for name, (_, sharded) in op_cases(height).items():
-        x = rows.take(whole_map(0, shape)).clone().requires_grad_(True)
-        y, r = sharded(x, rows)
-        full_shape = y.shape[:2] + (r.height, y.shape[3])
-        w = r.take(whole_map(1, full_shape))
-        (y * w).sum().backward()
-        out[name] = dict(y=y.detach().numpy(), grad=x.grad.numpy(),
-                         own=r.own())
+    out = _op_outputs(op_cases(height), rows, shape)
     # the fetch: rows [lo - 3, hi + 2) of every rank, -7 outside the map
     x = rows.take(whole_map(0, shape)).clone().requires_grad_(True)
     wins = [(lo - 3, hi + 2) for lo, hi in rows.owns()]
@@ -104,6 +187,34 @@ def ops_run(mesh, space, height):
         seed = 3 if how == 'shared' else 4 + grid.space.rank
         (y * whole_map(seed, shape)).sum().backward()
         out[how] = dict(y=y.detach().numpy(), grad=x.grad.numpy())
+    return out
+
+
+def forward_run(mesh, space, cases):
+    """The float64 eval forward (``Yolact.forward``; ``rows`` on this
+    rank's rows of the input under the 2-D mesh, or the whole input when
+    `mesh` is None) per ``(name, cfg)`` of `cases`, from seeded weights on
+    a seeded image batch of 2: name -> the outputs as numpy arrays."""
+    from yolact_tpu_torch.infer import random_state_dict
+    from yolact_tpu_torch.models.yolact import Yolact
+    from yolact_tpu_torch.parallel.mesh import Rows, make_mesh_2d
+    if mesh is not None:
+        mesh = make_mesh_2d(mesh, space)
+    out = {}
+    for name, cfg in cases:
+        model = Yolact(cfg)
+        model.load_state_dict(random_state_dict(
+            cfg, torch.Generator().manual_seed(0)))
+        model.double()
+        model.compute_dtype = torch.float64
+        x = whole_map(5, (2, 3, cfg.max_size, cfg.max_size))
+        rows = None
+        if mesh is not None:
+            rows = Rows(mesh.space, x.shape[2])
+            x = rows.take(x)
+        with torch.no_grad():
+            out[name] = {k: v.numpy().copy() for k, v in
+                         model(x, rows=rows).items()}
     return out
 
 
@@ -189,9 +300,8 @@ def float64_run(mesh, space, cfg, state_dict, batches, seed=0,
     pieces, ``forward_loss``, ``sum_over_ranks`` and ``apply_gradients``:
     one step per global batch, the draws as ``train_step`` takes them.
     Per step the losses; the first step's gradients; the weights and
-    buffers after the last.  `control` breaks one piece on purpose:
-    'local_bn' (each rank's own batch-norm moments) or 'own_gather' (the
-    head outputs' gather with the 'own' gradient)."""
+    buffers after the last.  `control` breaks one piece on purpose
+    (:func:`_control`)."""
     from yolact_tpu_torch.parallel import mesh as parallel
     from yolact_tpu_torch.train.step import (apply_gradients,
                                              batch_to_device,
@@ -207,14 +317,7 @@ def float64_run(mesh, space, cfg, state_dict, batches, seed=0,
     if state.conf_state is not None:
         state.conf_state = {k: v.double()
                             for k, v in state.conf_state.items()}
-    if control == 'local_bn':
-        for m in model.modules():
-            if hasattr(m, 'pending'):
-                m.mesh = None
-    real_gather = parallel.gather_rows
-    if control == 'own_gather':
-        from yolact_tpu_torch.models import heads
-        heads.gather_rows = lambda x, rows, grad: real_gather(x, rows, 'own')
+    undo = _control(control, model)
     priors = model.priors(cfg.max_size, cfg.max_size, 'cpu')
     generator = torch.Generator().manual_seed(seed)
     steps, grads = [], None
@@ -246,11 +349,54 @@ def float64_run(mesh, space, cfg, state_dict, batches, seed=0,
                                 model.named_parameters()
                                 if p.grad is not None})
     finally:
-        if control == 'own_gather':
-            from yolact_tpu_torch.models import heads
-            heads.gather_rows = real_gather
+        undo()
     return dict(steps=steps, grads=grads,
                 weights=_numpy(model.state_dict()))
+
+
+def _control(control, model):
+    """Break one piece of the spatial step on purpose; returns what undoes
+    it.  'local_bn': each rank's own batch-norm moments; 'own_gather': the
+    head outputs' gather with the 'own' gradient; 'local_gn': group norm's
+    moments over each rank's own rows; 'shared_features': the prototypes
+    as features gathered with the 'shared' gradient, as the loss's are."""
+    from yolact_tpu_torch.models import heads, layers, yolact
+    from yolact_tpu_torch.parallel import mesh as parallel
+    real_gather = parallel.gather_rows
+    if control == 'local_bn':
+        for m in model.modules():
+            if hasattr(m, 'pending'):
+                m.mesh = None
+    elif control == 'own_gather':
+        heads.gather_rows = lambda x, rows, grad: real_gather(x, rows, 'own')
+    elif control == 'shared_features':
+        yolact.gather_rows = \
+            lambda x, rows, grad: real_gather(x, rows, 'shared')
+    elif control == 'local_gn':
+        real_gn = layers.GroupNorm.forward
+        layers.GroupNorm.forward = \
+            lambda self, x, train=False, rows=None: real_gn(self, x, train)
+    elif control is not None:
+        raise ValueError(f'control {control!r}')
+
+    def undo():
+        heads.gather_rows = yolact.gather_rows = real_gather
+        if control == 'local_gn':
+            layers.GroupNorm.forward = real_gn
+    return undo
+
+
+def cases_run(mesh, space, cases):
+    """:func:`case_run` per ``(name, cfg, state_dict, batches, f64_steps,
+    f32, controls)`` of `cases` on one set of ranks (`controls`: the
+    names of :func:`_control`'s controls to run): name -> its results."""
+    out = {}
+    for name, cfg, sd, batches, steps, f32, controls in cases:
+        out[name] = case_run(mesh, space, cfg, sd, batches, steps, f32)
+        out[name]['controls'] = {
+            c: float64_run(mesh, space, cfg, sd, batches[:1], control=c)
+            for c in controls}
+    return out
 
 
 def infer_run(mesh, space, cfg, state_dict, images, dtype='float32'):

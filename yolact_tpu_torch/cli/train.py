@@ -53,9 +53,10 @@ rank's images, and the step is still the one-device step on the global
 batch (``train/step.py``).  ``--batch_size`` must divide over the D data
 ranks; every space rank of a data rank loads that data rank's rows of the
 batch, and the step trains all of them on space rank 0's augmented copy;
-``freeze_bn`` follows the batch per data rank, as JAX's rule.  The ResNet configs take it (both stems,
-YOLACT++'s DCN layers); the others raise with their reason
-(``models/yolact.py:spatial_refusal``).
+``freeze_bn`` follows the batch per data rank, as JAX's rule.  Every
+config takes it, as JAX's trainer does: each backbone family (group
+norm's moments then span the space ranks, in inference too), with an
+FPN or without one, and every mask option.
 
 :func:`train` also takes in-memory datasets (``dataset``, ``val_dataset``:
 objects with ``__len__`` and ``pull_item`` in the ``COCODetection`` item
@@ -137,7 +138,7 @@ def parse_args(argv=None):
                    help='split the image height over this many ranks (a '
                         'data x space grid of the --distributed ranks, '
                         'whose count must divide by it; halos exchanged '
-                        'explicitly, parallel/mesh.py).  ResNet configs')
+                        'explicitly, parallel/mesh.py); any config')
     p.set_defaults(keep_latest=False, log=True, log_gpu=False, interrupt=True,
                    autoscale=True, distributed=False, device_augment=False,
                    stem_s2d=False)

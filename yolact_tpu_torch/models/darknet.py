@@ -5,6 +5,11 @@ names (``backbone.py:222-318``), which JAX's importer reads
 (``yolact_tpu/convert/torch_import.py:150-175``): ``_preconv.{0,1}`` (conv,
 batch norm), ``layers.{s}.0.{0,1}`` (the stage-opening stride-2 conv) and
 ``layers.{s}.{b}.conv{1,2}.{0,1}`` (the residual blocks).
+
+Each module's wiring is its ``forward_rows``, which runs on a rank's rows
+of a map split by height over a spatial mesh (``parallel/mesh.py``), the
+convs fetching their halos (``models/layers.py:conv_rows``), or on the
+whole map (``rows`` None, which ``forward`` passes).
 """
 
 from __future__ import annotations
@@ -15,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolact_tpu_torch.models.layers import BatchNorm2d, Conv2d
+from yolact_tpu_torch.models.layers import BatchNorm2d, Conv2d, conv_rows
+from yolact_tpu_torch.parallel.mesh import Rows
 
 
 class DarkConv(nn.Sequential):
@@ -31,7 +37,13 @@ class DarkConv(nn.Sequential):
 
     def forward(self, x: torch.Tensor, bn_train: bool = False
                 ) -> torch.Tensor:
-        return F.leaky_relu(self[1](self[0](x), bn_train), 0.1)
+        return self.forward_rows(x, None, bn_train)[0]
+
+    def forward_rows(self, x: torch.Tensor, rows: Optional[Rows],
+                     bn_train: bool = False
+                     ) -> Tuple[torch.Tensor, Optional[Rows]]:
+        y, r = conv_rows(self[0], x, rows)
+        return F.leaky_relu(self[1](y, bn_train, r), 0.1), r
 
 
 class DarkBlock(nn.Module):
@@ -44,7 +56,14 @@ class DarkBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, bn_train: bool = False
                 ) -> torch.Tensor:
-        return self.conv2(self.conv1(x, bn_train), bn_train) + x
+        return self.forward_rows(x, None, bn_train)[0]
+
+    def forward_rows(self, x: torch.Tensor, rows: Optional[Rows],
+                     bn_train: bool = False
+                     ) -> Tuple[torch.Tensor, Optional[Rows]]:
+        y, r = self.conv1.forward_rows(x, rows, bn_train)
+        y, r = self.conv2.forward_rows(y, r, bn_train)
+        return y + x, r
 
 
 class DarkNetBackbone(nn.Module):
@@ -74,10 +93,20 @@ class DarkNetBackbone(nn.Module):
     def forward(self, x: torch.Tensor, use_kernels: bool = True,
                 bn_train: bool = False,
                 remat: str = 'none') -> Tuple[torch.Tensor, ...]:
-        x = self._preconv(x, bn_train)
-        outs = []
+        return self.forward_rows(x, None, use_kernels, bn_train, remat)[0]
+
+    def forward_rows(self, x: torch.Tensor, rows: Optional[Rows],
+                     use_kernels: bool = True, bn_train: bool = False,
+                     remat: str = 'none'
+                     ) -> Tuple[Tuple[torch.Tensor, ...],
+                                Tuple[Optional[Rows], ...]]:
+        """:meth:`forward` on a rank's rows of the input (`rows`; None:
+        the whole input), with each output's rows."""
+        x, r = self._preconv.forward_rows(x, rows, bn_train)
+        outs, heights = [], []
         for stage in self.layers:
             for block in stage:
-                x = block(x, bn_train)
+                x, r = block.forward_rows(x, r, bn_train)
             outs.append(x)
-        return tuple(outs)
+            heights.append(r)
+        return tuple(outs), tuple(heights)

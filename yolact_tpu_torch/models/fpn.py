@@ -9,8 +9,9 @@ level ``n-1-i``.  The FPN only upsamples, so ``F.interpolate`` (bilinear,
 The wiring is ``forward_rows``, which runs on a rank's rows of each level
 under a spatial split (``parallel/mesh.py``), or on whole maps: the resize
 to each lateral's global size reads its source rows across ranks
-(``models/layers.py:resize_rows``) and the 3x3 convs fetch their halos (an
-FPN with downsample convs: ``models/yolact.py:spatial_refusal``).
+(``models/layers.py:resize_rows``), the 3x3 convs fetch their halos, and
+the stride-2 subsampling of an FPN without downsample convs, a 1x1
+stride-2 pool, fetches its rows.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from torch import nn
 
 from yolact_tpu_torch.config import FPNConfig
 from yolact_tpu_torch.models.layers import (Conv2d, conv_rows, height,
-                                            resize_rows)
+                                            max_pool_rows, resize_rows)
 from yolact_tpu_torch.parallel.mesh import Rows
 
 
@@ -81,10 +82,12 @@ class FPN(nn.Module):
                 y, r = conv_rows(layer, out[-1], out_rows[-1])
                 out.append(y)
                 out_rows.append(r)
-        else:   # whole maps only (models/yolact.py:spatial_refusal)
+        else:
             for _ in range(fc.num_downsample):
-                out.append(out[-1][:, :, ::2, ::2])
-                out_rows.append(None)
+                # x[:, :, ::2, ::2], a 1x1 stride-2 window
+                y, r = max_pool_rows(out[-1], out_rows[-1], 1, 2)
+                out.append(y)
+                out_rows.append(r)
 
         if fc.relu_downsample_layers:
             # reference quirk: the relu'd downsample outputs overwrite

@@ -30,6 +30,10 @@ from yolact_tpu_torch.models.resnet import Bottleneck
 from yolact_tpu_torch.parallel.mesh import Rows, gather_rows
 
 
+# head outputs that inference reads and no training loss does
+EVAL_ONLY = ('score', 'inst')
+
+
 def _activation(name: str):
     return {
         'tanh': torch.tanh,
@@ -82,18 +86,20 @@ class ProtoNet(nn.Sequential):
     def forward_rows(self, x: torch.Tensor, rows: Optional[Rows]
                      ) -> Tuple[torch.Tensor, Optional[Rows]]:
         """:meth:`forward` on a rank's rows of the input (`rows`; None: the
-        whole map; a grid needs the whole map:
-        ``models/yolact.py:spatial_refusal``), with the output's rows."""
+        whole map), with the output's rows.  The grid is the whole map's:
+        a rank joins its own rows of it."""
         if self.grid is not None:
-            if tuple(self.grid.shape[1:]) != tuple(x.shape[2:]):
+            hw = (height(x, rows), x.shape[3])
+            if tuple(self.grid.shape[1:]) != hw:
                 raise ValueError(
                     f'mask_proto_grid_file {self.grid_file!r} has spatial '
                     f'shape {tuple(self.grid.shape[1:])} but the proto-net '
-                    f'input convout is {tuple(x.shape[2:])}; regenerate '
-                    f'with scripts/make_grid.py --size '
-                    f'{x.shape[2]},{x.shape[3]}')
-            grid = self.grid.to(x.dtype).expand(x.shape[0], -1, -1, -1)
-            x = torch.cat([x, grid], dim=1)
+                    f'input convout is {hw}; regenerate with '
+                    f'scripts/make_grid.py --size {hw[0]},{hw[1]}')
+            grid = self.grid.to(x.dtype)
+            if rows is not None:
+                grid = rows.take(grid, dim=1)
+            x = torch.cat([x, grid.expand(x.shape[0], -1, -1, -1)], dim=1)
         x, rows = run_rows(self, x, rows)
         x = _activation(self.activation)(x)
         if self.bias:
@@ -196,12 +202,16 @@ class PredictionHead(nn.Module):
         maps = self._maps(x, run)
         if rows is not None:
             # one gather per output height (one for the configs' 'same'
-            # convs)
+            # convs), the outputs no loss reads apart: in training their
+            # gather's backward then runs on no rank, and their layers get
+            # no gradient (and no weight decay), as in one process
             full = {}
-            for r in dict.fromkeys(got[id(m)] for m in maps.values()):
-                names = [k for k, m in maps.items() if got[id(m)] == r]
+            for group in dict.fromkeys((got[id(m)], k in EVAL_ONLY)
+                                       for k, m in maps.items()):
+                names = [k for k, m in maps.items()
+                         if (got[id(m)], k in EVAL_ONLY) == group]
                 whole = gather_rows(torch.cat([maps[k] for k in names], 1),
-                                    r, 'shared')
+                                    group[0], 'shared')
                 full.update(zip(names, whole.split(
                     [maps[k].shape[1] for k in names], 1)))
             maps = full

@@ -96,6 +96,35 @@ def s2d_input(x: torch.Tensor, from_rgb: bool = False) -> torch.Tensor:
     return x.permute(0, 3, 5, 1, 2, 4).reshape(b, 4 * c, h // 2, w // 2)
 
 
+def mesh_moments(mesh, x: torch.Tensor, dims: Tuple[int, ...]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mean and biased variance of `x` over `dims` and over the ranks
+    of `mesh`, differentiable, the same bits on every rank: each rank's
+    (count, mean, sum of squared deviations) goes to every rank in one
+    differentiable all-reduce (each rank fills its own slot of a zero
+    buffer, so the sum is an exact gather), and each combines them in rank
+    order (Chan's pairwise rule), their gradient flowing back to every
+    rank's `x`.  A rank whose `x` is empty (it owns no row of a split map)
+    adds a count of 0, its zeros still in the graph, so that its backward
+    issues the all-reduce too."""
+    count = int(np.prod([x.shape[d] for d in dims]))
+    if count:
+        mean = x.mean(dim=dims, keepdim=True)
+        m2 = (x - mean).square().sum(dim=dims)
+        mean = mean.squeeze(dims)
+    else:
+        mean = m2 = x.sum(dim=dims)
+    local = torch.stack([torch.full_like(mean, count), mean, m2])[None]
+    parts = mesh.all_sum_grad(F.pad(
+        local, (0, 0) * (local.dim() - 1)
+        + (mesh.rank, mesh.size - 1 - mesh.rank)))
+    counts, means, m2s = parts.unbind(1)        # [ranks, ...] each
+    total = counts.sum(0)
+    mean = (counts * means).sum(0) / total
+    var = (m2s + counts * (means - mean).square()).sum(0) / total
+    return mean, var
+
+
 class BatchNorm2d(nn.Module):
     """Batch norm (eps 1e-5) with the reference's parameter names.
     Statistics stay float32 whatever the input dtype; the output has the
@@ -120,16 +149,10 @@ class BatchNorm2d(nn.Module):
     ``mesh`` (a ``parallel/mesh.py:Mesh`` of more than one rank, set by
     ``train/step.py:create_train_state``): each rank holds its rows of the
     global batch, and ``train=True`` normalises with the GLOBAL batch's
-    moments, as JAX's sharded step does.  Every rank's (count, mean, sum of
-    squared deviations) goes to every rank in one differentiable
-    all-reduce (each rank fills its own slot of a zero buffer, so the sum
-    is an exact gather), and each combines them in rank order (Chan's
-    pairwise rule): the same moments, bit for bit, on every rank, with
-    their gradient flowing back to every rank's rows.  Under a spatial
-    split (``parallel/mesh.py:make_mesh_2d``) every rank holds some rows
-    of its data rank's images, and the same rule over every rank gives
-    the moments over the global N x H x W; a rank that owns no row of a
-    map adds a count of 0."""
+    moments (:func:`mesh_moments`), as JAX's sharded step does.  Under a
+    spatial split (``parallel/mesh.py:make_mesh_2d``) every rank holds
+    some rows of its data rank's images, and the same rule over every rank
+    gives the moments over the global N x H x W."""
 
     momentum = 0.1
 
@@ -144,7 +167,10 @@ class BatchNorm2d(nn.Module):
         self.pending = None     # (running_mean, running_var) after this batch
         self.mesh = None
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rows: Optional[Rows] = None) -> torch.Tensor:
+        """`rows` (the map's, under a spatial split) is unused: batch norm
+        takes its ranks from ``mesh``."""
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
@@ -168,21 +194,8 @@ class BatchNorm2d(nn.Module):
         """``train=True`` over the ranks' rows together (see the class
         docstring); the pending statistics as the one-device forward leaves
         them for the global batch."""
-        mesh = self.mesh
         xf = x.float()
-        n = x.numel() // x.shape[1]
-        if n:
-            mean = xf.mean(dim=(0, 2, 3))
-            m2 = (xf - mean[:, None, None]).square().sum(dim=(0, 2, 3))
-        else:   # a rank that owns no row of this map (spatial split)
-            mean = m2 = xf.new_zeros(x.shape[1])
-        local = torch.stack([torch.full_like(mean, n), mean, m2])[None]
-        parts = mesh.all_sum_grad(F.pad(
-            local, (0, 0, 0, 0, mesh.rank, mesh.size - 1 - mesh.rank)))
-        counts, means, m2s = parts.unbind(1)               # [W, C] each
-        total = counts.sum(0)
-        mean = (counts * means).sum(0) / total
-        var = (m2s + counts * (means - mean).square()).sum(0) / total
+        mean, var = mesh_moments(self.mesh, xf, (0, 2, 3))
         scale = self.weight * torch.rsqrt(var + self.eps)
         out = (xf - mean[:, None, None]) * scale[:, None, None] \
             + self.bias[:, None, None]
@@ -196,17 +209,34 @@ class BatchNorm2d(nn.Module):
 
 class GroupNorm(nn.GroupNorm):
     """Group norm (32 groups, eps 1e-5) behind the batch-norm call
-    signature ``(x, train)``, whose ``train`` it ignores: it holds no
+    signature ``(x, train, rows)``, whose ``train`` it ignores: it holds no
     running statistics (JAX ``layers.py:GroupNorm``).  As flax's, it
-    computes in float32 whatever the input dtype and returns the input's
-    dtype."""
+    computes in float32 (float64 for a float64 input) and returns the
+    input's dtype.
+
+    ``rows`` (a spatial split, ``parallel/mesh.py``): `x` is a rank's rows
+    of its data rank's images, and the moments of each image's group span
+    the whole height: :func:`mesh_moments` per ``[N, G]`` over the SPACE
+    group only (the data ranks hold other images).  Having no running
+    statistics, group norm takes this collective in inference too."""
 
     def __init__(self, num_channels: int, num_groups: int = 32):
         super().__init__(num_groups, num_channels, eps=1e-5)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight,
-                            self.bias, self.eps).to(x.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rows: Optional[Rows] = None) -> torch.Tensor:
+        wide = x.to(torch.promote_types(x.dtype, torch.float32))
+        if rows is None or rows.space.size == 1:
+            return F.group_norm(wide, self.num_groups, self.weight,
+                                self.bias, self.eps).to(x.dtype)
+        b, c, n, w = x.shape
+        g = self.num_groups
+        xg = wide.reshape(b, g, (c // g) * n * w)
+        mean, var = mesh_moments(rows.space, xg, (2,))
+        out = ((xg - mean[..., None]) * torch.rsqrt(var + self.eps)[..., None]
+               ).reshape(b, c, n, w)
+        out = out * self.weight[:, None, None] + self.bias[:, None, None]
+        return out.to(x.dtype)
 
 
 def commit_batch_stats(model: nn.Module) -> int:
@@ -232,7 +262,8 @@ def drop_batch_stats(model: nn.Module) -> None:
 
 def max_pool(x: torch.Tensor, kernel: int, stride: int, padding: int = 0,
              ceil_mode: bool = False) -> torch.Tensor:
-    """torch-style max pool (pads with -inf; floor or ceil output size).
+    """torch-style max pool (pads with -inf; floor or ceil output size,
+    :func:`pool_out_size`).
     JAX's version pads the right edge for ``ceil_mode``, which keeps a last
     window starting in the right padding that torch drops; the two agree
     where ``ceil_mode`` is off or ``padding`` is 0 (every pool of the
@@ -308,16 +339,67 @@ def conv_rows(conv: nn.Conv2d, x: torch.Tensor,
     return _kept(y, out), out
 
 
+def pool_out_size(size: int, k: int, stride: int, padding: int,
+                  ceil_mode: bool = False) -> int:
+    """A max pool's output length along one axis, torch's rule: in ceil
+    mode a last window must still start inside the input or its left
+    padding."""
+    if not ceil_mode:
+        return out_size(size, k, stride, padding)
+    n = -(-(size + 2 * padding - k) // stride) + 1
+    return n - 1 if (n - 1) * stride >= size + padding else n
+
+
 def max_pool_rows(x: torch.Tensor, rows: Optional[Rows], kernel: int,
-                  stride: int, padding: int = 0
+                  stride: int, padding: int = 0, ceil_mode: bool = False
                   ) -> Tuple[torch.Tensor, Optional[Rows]]:
-    """:func:`max_pool` (floor mode) on the row-sharded `x`."""
+    """:func:`max_pool` (floor or ceil mode) on the row-sharded `x`: rows
+    of a window beyond the map, a ceil-mode last window's too, come back
+    -inf from the fetch, as the whole-map pool pads."""
     if rows is None:
-        return max_pool(x, kernel, stride, padding), None
-    out = rows.at(out_size(rows.height, kernel, stride, padding))
+        return max_pool(x, kernel, stride, padding, ceil_mode), None
+    out = rows.at(pool_out_size(rows.height, kernel, stride, padding,
+                                ceil_mode))
     xw = fetch_rows(x, rows, _windows(out, kernel, stride, padding),
                     fill=-float('inf'))
-    y = F.max_pool2d(xw, kernel, stride, (0, padding))
+    # the window holds exactly the output rows' taps: either mode gives
+    # their count along the height, and the width keeps the whole map's
+    y = F.max_pool2d(xw, kernel, stride, (0, padding), ceil_mode=ceil_mode)
+    return _kept(y, out), out
+
+
+def conv_transpose_rows(conv: nn.ConvTranspose2d, x: torch.Tensor,
+                        rows: Optional[Rows]
+                        ) -> Tuple[torch.Tensor, Optional[Rows]]:
+    """`conv` (a :class:`ConvTranspose2d`, computing in x's dtype) on the
+    row-sharded `x`.  Output row o takes input row i through tap t where
+    ``o = i s - p + t d``, so output rows ``[o0, o1)`` need input rows
+    ``[ceil((o0 + p - d (k - 1)) / s), floor((o1 - 1 + p) / s) + 1)``
+    (zeros outside the map).  The fetched rows go through the transposed
+    conv without height padding, whose row j is global row
+    ``i0 s - p + j``; the rank's rows are cut from it (zero rows where
+    no input reaches, the ``output_padding`` rows among them) and take the
+    bias after."""
+    if rows is None:
+        return conv(x), None
+    (k, _), (s, _), (p, pw), (op, opw), (d, _) = (
+        conv.kernel_size, conv.stride, conv.padding, conv.output_padding,
+        conv.dilation)
+    span = d * (k - 1) + 1
+    out = rows.at((rows.height - 1) * s - 2 * p + span + op)
+    wins = []
+    for o0, o1 in out.owns():
+        i0 = -(-(o0 + p - span + 1) // s)
+        wins.append((i0, max((max(o1, o0 + 1) - 1 + p) // s + 1, i0 + 1)))
+    xw = fetch_rows(x, rows, wins)
+    y = F.conv_transpose2d(xw, conv.weight.to(x.dtype), None, conv.stride,
+                           (0, pw), (0, opw), conv.groups, conv.dilation)
+    o0, o1 = out.own()
+    top = o0 + p - wins[rows.space.rank][0] * s
+    m = max(o1, o0 + 1) - o0
+    y = F.pad(y, (0, 0, -top, top + m - y.shape[2]))
+    if conv.bias is not None:
+        y = y + conv.bias.to(x.dtype)[:, None, None]
     return _kept(y, out), out
 
 
@@ -371,24 +453,31 @@ def resize_rows(x: torch.Tensor, rows: Optional[Rows],
 
 def run_rows(net: nn.Sequential, x: torch.Tensor, rows: Optional[Rows]
              ) -> Tuple[torch.Tensor, Optional[Rows]]:
-    """A :func:`make_net` net's layers in turn on the row-sharded `x`: its
-    convs, ReLUs and bilinear upsamples; a ``'cat'`` entry or a transposed
-    conv raises."""
+    """A :func:`make_net` net's or a VGG group's layers in turn on the
+    row-sharded `x`: convs, transposed convs, max pools, bilinear
+    upsamples, (leaky) ReLUs and ``'cat'`` entries, whose sub-nets run on
+    the same rows."""
     for layer in net:
-        if rows is None:
+        if rows is None or isinstance(layer, (nn.ReLU, nn.LeakyReLU)):
             x = layer(x)
-        elif isinstance(layer, nn.ReLU):
-            x = F.relu(x)
         elif isinstance(layer, InterpolateModule):
             f = layer.scale_factor
             x, rows = resize_rows(x, rows, (rows.height * f, x.shape[3] * f))
+        elif isinstance(layer, nn.ConvTranspose2d):
+            x, rows = conv_transpose_rows(layer, x, rows)
         elif isinstance(layer, nn.Conv2d):
             x, rows = conv_rows(layer, x, rows)
+        elif isinstance(layer, nn.MaxPool2d):
+            x, rows = max_pool_rows(x, rows, layer.kernel_size, layer.stride,
+                                    layer.padding, layer.ceil_mode)
+        elif isinstance(layer, Concat):
+            parts = [run_rows(sub, x, rows) for sub in layer.nets]
+            assert all(r == parts[0][1] for _, r in parts), \
+                "a 'cat' entry's sub-nets leave maps of different heights"
+            x, rows = torch.cat([y for y, _ in parts], dim=1), parts[0][1]
         else:
-            raise NotImplementedError(
-                f'make_net layer {type(layer).__name__} under a spatial '
-                f'split: only convs, ReLUs and bilinear upsamples are '
-                f'row-sharded')
+            raise TypeError(f'run_rows: no row-sharded '
+                            f'{type(layer).__name__}')
     return x, rows
 
 

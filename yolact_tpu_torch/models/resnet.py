@@ -9,11 +9,12 @@ space-to-depth stem and group norm (``norm='gn'``, ResNet-GN: every
 same name) are kept.
 
 Each module's wiring is its ``forward_rows``, which runs on a rank's rows
-of a map split by height over a spatial mesh (``parallel/mesh.py``;
-batch-norm ResNets), with the convs and the pool of ``models/layers.py``
-fetching their halos, or on the whole map (``rows`` None, which
-``forward`` passes); a DCN layer gathers its input's whole height and
-samples it for its own output rows (``kernels/dcn.py``, ``row0``).
+of a map split by height over a spatial mesh (``parallel/mesh.py``), with
+the convs and the pool of ``models/layers.py`` fetching their halos and
+every norm taking the map's rows (group norm's moments span the space
+ranks), or on the whole map (``rows`` None, which ``forward`` passes); a
+DCN layer gathers its input's whole height and samples it for its own
+output rows (``kernels/dcn.py``, ``row0``).
 """
 
 from __future__ import annotations
@@ -126,17 +127,17 @@ class Bottleneck(nn.Module):
         """:meth:`forward` on a rank's rows of the input map (`rows`; None:
         the whole map), with the output's rows."""
         out, r = conv_rows(self.conv1, x, rows)
-        out = F.relu(self.bn1(out, bn_train))
+        out = F.relu(self.bn1(out, bn_train, r))
         if self.use_dcn:
             out, r = self.conv2.forward_rows(out, r, use_kernels)
         else:
             out, r = conv_rows(self.conv2, out, r)
-        out = F.relu(self.bn2(out, bn_train))
-        out = self.bn3(conv_rows(self.conv3, out, r)[0], bn_train)
+        out = F.relu(self.bn2(out, bn_train, r))
+        out = self.bn3(conv_rows(self.conv3, out, r)[0], bn_train, r)
         residual = x
         if self.downsample is not None:
             residual = self.downsample[1](
-                conv_rows(self.downsample[0], x, rows)[0], bn_train)
+                conv_rows(self.downsample[0], x, rows)[0], bn_train, r)
         return F.relu(out + residual), r
 
 
@@ -271,7 +272,7 @@ class ResNetBackbone(nn.Module):
                 x = fn(xw.contiguous(), w)[:, :, 2:2 + hi - lo]
         else:
             x, r = conv_rows(self.conv1, x, rows)
-        x = F.relu(self.bn1(x, bn_train))
+        x = F.relu(self.bn1(x, bn_train, r))
         x, r = max_pool_rows(x, r, 3, 2, 1)
         outs, heights = [], []
         for stage in self.layers:

@@ -10,6 +10,11 @@ the reference's ``layers.{g}.{i}`` with ``i`` counting the ReLU slots
 (``yolact_tpu/convert/torch_import.py:177-191``).  ``norm_layers`` puts a
 batch norm (``norms.{i}``) on those groups' outputs; ``extra_args`` are the
 SSD extra stages, a 1x1 squeeze then a 3x3 conv with stride ``ds``.
+
+The wiring is ``forward_rows``, which runs each group on a rank's rows of
+its map under a spatial split (``parallel/mesh.py``; the convs and pools
+of ``models/layers.py:run_rows`` fetch their halos, -inf for the pools),
+or on the whole map (``rows`` None, which ``forward`` passes).
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from yolact_tpu_torch.models.layers import BatchNorm2d, Conv2d
+from yolact_tpu_torch.models.layers import BatchNorm2d, Conv2d, run_rows
+from yolact_tpu_torch.parallel.mesh import Rows
 
 
 def _parse(v):
@@ -80,10 +86,20 @@ class VGGBackbone(nn.Module):
     def forward(self, x: torch.Tensor, use_kernels: bool = True,
                 bn_train: bool = False,
                 remat: str = 'none') -> Tuple[torch.Tensor, ...]:
-        outs = []
+        return self.forward_rows(x, None, use_kernels, bn_train, remat)[0]
+
+    def forward_rows(self, x: torch.Tensor, rows: Optional[Rows],
+                     use_kernels: bool = True, bn_train: bool = False,
+                     remat: str = 'none'
+                     ) -> Tuple[Tuple[torch.Tensor, ...],
+                                Tuple[Optional[Rows], ...]]:
+        """:meth:`forward` on a rank's rows of the input (`rows`; None:
+        the whole input), with each output's rows."""
+        outs, heights = [], []
         for gi, group in enumerate(self.layers):
-            x = group(x)
+            x, rows = run_rows(group, x, rows)
             if gi in self.norm_layers:
-                x = self.norms[self.norm_layers.index(gi)](x, bn_train)
+                x = self.norms[self.norm_layers.index(gi)](x, bn_train, rows)
             outs.append(x)
-        return tuple(outs)
+            heights.append(rows)
+        return tuple(outs), tuple(heights)

@@ -29,12 +29,12 @@ its maps (each module's ``forward_rows``, which with ``rows`` None is its
 whole-map forward), and the head outputs, the prototypes, the
 semantic-segmentation logits and the class-existence features are
 gathered to the whole height before they leave, so every space rank
-returns the whole batch's outputs, as the one-device forward does.  The
-ResNet configs (batch norm, FPN with downsample convs, lincomb masks from
-an FPN level) take it; the rest raise with their reason
-(:func:`spatial_refusal`).  The class-existence layer and the mask scorer
-then run on whole maps on every space rank alike
-(:data:`SPACE_REPLICATED`).
+returns the whole batch's outputs, as the one-device forward does.  Every
+config takes it: each backbone family, with an FPN or without one, and
+every mask option.  The class-existence layer and the mask scorer then
+run on whole maps on every space rank alike (:data:`SPACE_REPLICATED`).
+Prototypes as features are gathered a second time for the heads, with the
+other gradient (:meth:`Yolact.forward`).
 
 Input is NCHW, already preprocessed (``infer.preprocess_device``); with
 ``cfg.stem_s2d`` (ResNets only) it is the 2x2 space-to-depth
@@ -79,35 +79,6 @@ from yolact_tpu_torch.parallel.mesh import Rows, gather_rows
 # modules whose parameters a spatial split runs after the gather, on every
 # space rank alike: their gradients are summed over the data ranks only
 SPACE_REPLICATED = ('class_existence_fc', 'maskiou_net')
-
-
-def spatial_refusal(cfg: YolactConfig) -> Optional[str]:
-    """Why `cfg` cannot run with its image height split over ranks, or
-    None where it can."""
-    def layers(spec):
-        for entry in spec or ():
-            if isinstance(entry[0], str):
-                return f"a '{entry[0]}' make_net layer"
-            if entry[1] < 0 and entry[0] is not None:
-                return 'a transposed make_net layer'
-        return None
-
-    if cfg.backbone.type != 'resnet':
-        return (f'backbone {cfg.backbone.type!r}: only the batch-norm ResNets '
-                f'are row-sharded (group norm takes per-image moments)')
-    if cfg.fpn is None:
-        return 'no FPN'
-    if cfg.fpn.num_downsample and not cfg.fpn.use_conv_downsample:
-        return 'an FPN without downsample convs (stride-2 subsampling)'
-    if cfg.mask_type != MaskType.LINCOMB:
-        return 'direct masks'
-    if cfg.eval_mask_branch and cfg.mask_proto_src is None:
-        return 'prototypes from the image (mask_proto_src=None)'
-    if cfg.mask_proto_use_grid:
-        return 'mask_proto_use_grid'
-    if cfg.mask_proto_prototypes_as_features:
-        return 'mask_proto_prototypes_as_features'
-    return layers(cfg.mask_proto_net) or layers(cfg.extra_head_net)
 
 
 def head_in_channels(cfg: YolactConfig) -> Tuple[int, ...]:
@@ -251,9 +222,6 @@ class Yolact(nn.Module):
         rank's rows of an input of ``rows.height`` under a spatial split
         (the module docstring)."""
         cfg = self.cfg
-        if rows is not None and spatial_refusal(cfg) is not None:
-            raise NotImplementedError(f'{cfg.name} under a spatial split: '
-                                      f'{spatial_refusal(cfg)}')
         # logical image size: a space-to-depth input is at half resolution
         scale = 2 if cfg.stem_s2d else 1
         h, w = height(x, rows) * scale, x.shape[3] * scale
@@ -277,20 +245,26 @@ class Yolact(nn.Module):
         if self.fpn is not None:
             outs, heights = self.fpn.forward_rows(outs, heights)
 
-        proto = None
+        proto = proto_feat = None
         if self.proto_net is not None:
             src = cfg.mask_proto_src
             if src is None:
-                proto, r = self.proto_net.forward_rows(x, rows)
+                local, r = self.proto_net.forward_rows(x, rows)
             else:
-                proto, r = self.proto_net.forward_rows(outs[src],
+                local, r = self.proto_net.forward_rows(outs[src],
                                                        heights[src])
-            proto = gather_rows(proto, r, 'shared')
-        proto_feat = None
-        if self.proto_features:
-            proto_feat = proto[:, :self.proto_features]
-            if cfg.mask_proto_prototypes_as_features_no_grad:
-                proto_feat = proto_feat.detach()
+            # the loss consumes the whole prototypes alike on every rank:
+            # each rank keeps its own rows' gradient
+            proto = gather_rows(local, r, 'shared')
+            if self.proto_features:
+                # as features, each rank consumes only its own rows of each
+                # level: every rank's gradient of the gathered map is
+                # summed into the owner's rows ('own'; the 'shared' gather
+                # above would drop the other ranks' feature gradients)
+                proto_feat = gather_rows(local[:, :self.proto_features], r,
+                                         'own')
+                if cfg.mask_proto_prototypes_as_features_no_grad:
+                    proto_feat = proto_feat.detach()
 
         preds = []
         for idx, head_x in enumerate(outs):
@@ -298,11 +272,15 @@ class Yolact(nn.Module):
                 0 if cfg.share_prediction_module else idx]
             if proto_feat is not None:
                 # the reference resizes the tensor resized for the level
-                # before, a progressive chain (JAX reproduces it)
+                # before, a progressive chain (JAX reproduces it), at each
+                # level's whole size; a rank joins its rows of it
                 proto_feat = F.interpolate(
-                    proto_feat, size=head_x.shape[2:], mode='bilinear',
-                    align_corners=False).to(head_x.dtype)
-                head_x = torch.cat([head_x, proto_feat], dim=1)
+                    proto_feat, size=(height(head_x, heights[idx]),
+                                      head_x.shape[3]),
+                    mode='bilinear', align_corners=False).to(head_x.dtype)
+                feat = proto_feat if heights[idx] is None else \
+                    heights[idx].take(proto_feat)
+                head_x = torch.cat([head_x, feat], dim=1)
             preds.append(head(head_x, head_index=idx, bn_train=bn_train,
                               rows=heights[idx]))
         pred_outs = {k: torch.cat([p[k] for p in preds], dim=1)

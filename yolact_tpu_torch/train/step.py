@@ -45,11 +45,13 @@ input (the s2d input's rows under the s2d stem) after the loader's
 transports and the device augmentation are undone on the whole images.  The forward runs
 on those rows and returns the data rank's whole outputs on every space
 rank (``models/yolact.py``); batch norm takes its moments over every rank,
-the global N x H x W; the loss is the data rank's share, with its
+the global N x H x W, group norm its per-image moments over the space
+ranks; the loss is the data rank's share, with its
 reductions over the data ranks only, and the draws are taken by data
 rank.  The gradient all-reduce sums the parameters that run on rows over
 every rank (each space rank holds its rows' part of its data rank's
-gradient) and those that run after the gather, on every space rank alike
+gradient; group norm's scale and bias among them) and those that run
+after the gather, on every space rank alike
 (``models/yolact.py:SPACE_REPLICATED``), over the data ranks only; the
 returned losses are summed over the data ranks.
 
@@ -92,8 +94,7 @@ from yolact_tpu_torch.infer import (check_device, random_state_dict,
                                     use_float32_math)
 from yolact_tpu_torch.models.layers import (BatchNorm2d, commit_batch_stats,
                                             drop_batch_stats, s2d_input)
-from yolact_tpu_torch.models.yolact import (SPACE_REPLICATED, Yolact,
-                                            spatial_refusal)
+from yolact_tpu_torch.models.yolact import SPACE_REPLICATED, Yolact
 from yolact_tpu_torch.ops.bits import packed_width, unpack_bits_last
 from yolact_tpu_torch.parallel.mesh import Mesh, Rows, shard_batch
 from yolact_tpu_torch.train.loss import multibox_loss
@@ -127,9 +128,6 @@ def create_train_state(cfg: YolactConfig, seed: int = 0,
     optimizer.  With a `mesh` of more than one rank the step is data
     parallel, or spatially partitioned under a 2-D mesh (module
     docstring); every rank must start from the same weights."""
-    if mesh is not None and mesh.spatial and spatial_refusal(cfg):
-        raise NotImplementedError(f'{cfg.name} under a spatial split: '
-                                  f'{spatial_refusal(cfg)}')
     if device is None:
         device = 'cuda:0' if mesh is None else mesh.device
     device = check_device(device)
