@@ -58,7 +58,20 @@ Phases, each of which raises on failure:
    yolact_vgg16 (no FPN, six per-level heads, 56,992 priors) and
    yolact_base with RESNET101_GN_BACKBONE (group norm; Pipeline takes the
    s2d stem): the NMS and mask-assembly kernels on all three, the stem on
-   the GN path only, no DCN
+   the GN path only, no DCN; then the registered configs no earlier run
+   took (A14_CONFIGS: yolact_im400, yolact_im700, yolact_resnet50,
+   yolact_resnet50_pascal, yolact_plus_resnet50), each at its own size
+   (400, 700, 550) and full width from seeded weights: Pipeline at b1 f32
+   with the kernels against the plain versions by phase 4's rule, its conf
+   head scaled and background-biased so that 100-900 priors pass
+   conf_thresh (the bias read in the run from the plain model's logits,
+   the count printed), the launches of each kernel (above 0 on the path,
+   0 for one the config does not run); then one b8 f32 train step at the
+   config's size by phase 6's rule (the s2d stem on the four ResNets
+   without DCN, 'dcn' remat on yolact_plus_resnet50; losses within 1e-4
+   relative, conv1's first gradient within STEM_BATCH_STATS_LIMIT behind
+   the s2d stem under batch statistics, the other first gradients within
+   1e-3, launches per step)
 5. eval: evaluate_dataset over 16 seeded in-memory 550x550 frames with
    boxes and masks (no image files, no cv2), yolact_base sparse cell, b8
    bf16: fast NMS with the s2d stem (kernels, then plain versions: the same
@@ -211,9 +224,10 @@ Phases, each of which raises on failure:
    ranks on cuda:0 split data 1 x space 2, each holding its rows of every
    map of the same 8 images. (a) yolact_plus_base 550 f32, s2d stem,
    train_remat 'dcn', batch statistics, phase 10's weights, batch and
-   seeds: three steps against phase 10's one-process b8 steps (losses
-   within 1e-4 relative, first gradients within STEM_BATCH_STATS_LIMIT of
-   their max, launches per rank per step equal to one process's), the two
+   seeds: one step (SP_CHECKED_STEPS) against phase 10's first
+   one-process b8 step (losses within 1e-4 relative, first gradients
+   within STEM_BATCH_STATS_LIMIT of their max, launches per rank per step
+   equal to one process's), the two
    ranks' weights bit-equal after each step; a control that must fail
    the gradient check (the head outputs gathered with the gradient summed
    over the ranks, the other transpose); ms a step a rank, the
@@ -244,6 +258,21 @@ Phases, each of which raises on failure:
    gradient); then with cuDNN, ms a step a rank and its peak memory
    against one process's, the collectives' count and share in one more; (b) Pipeline under the mesh at b1
    f32 and b8 bf16 against Pipeline, as in phase 12
+13. the horizon tools (yolact_tpu_torch/scripts/, run after phase 12b):
+   yolact_plus_resnet50_horizon at 550 b8 bf16 through cli/train.train
+   with train_horizon's flags and its 64 in-memory synthetic images (host
+   augmentation on 4 loader threads), from the trainer's seeded random
+   weights: 20 iterations ending in a checkpoint, then --resume latest to
+   40; every step applied and every logged loss finite, launches per step
+   (DCN sampling 26, dcn_col2im 13), the second segment starting at step
+   20 at learning_rate(cfg, 20) from a state bit-equal to the first
+   segment's final state (weights and buffers, momentum, step); ms per
+   iteration and peak memory; the loss letters per 200 iterations beside
+   the JAX run's committed log; train_horizon's --eval of the final
+   checkpoint with the kernels, then map_ab's seven rows on it (CLEAN:
+   the nms_candidates rows equal, the kernel row equal to the plain row
+   and to the --eval); flops of yolact_base and yolact_plus_base at b1
+   and b8 inference and of their b8 train step
 7. timing: median and p90 ms per batch at b1 / b8 bf16 for every path
    (CUDA events over 100 calls; the s2d A/B in the order plain, s2d, s2d,
    plain), device busy and idle share per batch (torch.profiler kernel
@@ -258,7 +287,7 @@ Phases, each of which raises on failure:
    five shapes in f32 and bf16 with its global reductions
 
 Each phase prints its seconds, and the end of the run all of them; the
-run order is 1, 2, 3, 4, 4b, 9, 5, 6, 8, 8b, 10, 11, 11b, 12, 12b, 7.
+run order is 1, 2, 3, 4, 4b, 9, 5, 6, 8, 8b, 10, 11, 11b, 12, 12b, 13, 7.
 The line before the last is a JSON object with each kernel's launches
 (and, as trainer_launches, its launches in the trainer's runs, as
 device_augment_launches_per_step per step of phase 8's device-augment
@@ -267,7 +296,10 @@ option_launches in phase 9's runs by path, and as
 dp_launches_per_rank_step per rank in a step of phase 10's two-rank
 run, as spatial_launches_per_rank_step per rank in a step of phase 12's
 run, as spatial_config_launches per config of phase 12b per rank per step
-and per call, as export_launches per call of phase 11's artifacts by run), error,
+and per call, as export_launches per call of phase 11's artifacts by run,
+as a14_launches per phase-4b registered config on its b1 f32 inference
+path and per train step, as horizon_launches_per_step per step of phase
+13's training), error,
 times and bound; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -306,12 +338,14 @@ from yolact_tpu_torch.eval.coco_json import inverse_label_map
 from yolact_tpu_torch.eval.evaluate import evaluate_dataset
 from yolact_tpu_torch.infer import (InferenceOutput, Pipeline,
                                     forward_and_detect, load_model,
-                                    maybe_enable_stem_s2d, random_state_dict)
+                                    maybe_enable_stem_s2d, preprocess_device,
+                                    random_state_dict)
 from yolact_tpu_torch.convert.export import export_inference
 from yolact_tpu_torch.kernels import (_build, dcn, mask_assembly, nms, psroi,
                                       stem)
 from yolact_tpu_torch.models.layers import BatchNorm2d, drop_batch_stats
 from yolact_tpu_torch.models.resnet import DCNLayer
+from yolact_tpu_torch.models.yolact import Yolact
 from yolact_tpu_torch.ops.anchors import proto_size, seg_size
 from yolact_tpu_torch.ops.bits import pack_bits_last, unpack_bits_last
 from yolact_tpu_torch.ops.resize import _weights as resize_weights
@@ -2266,16 +2300,16 @@ def tame_residuals(sd, scale=0.1):
 
 
 def run_train_steps(cfg, sd, batch, dev, use_kernels, grad_names,
-                    captured=None):
-    """TRAIN_STEPS steps from `sd` with seeded draws: (state, the losses of
-    each step, the named gradients of the first step, the kernels' launches
-    of each step).  `captured`, a list: the first step's dcn_col2im inputs
-    are appended to it (capture_col2im)."""
+                    captured=None, steps=TRAIN_STEPS):
+    """`steps` steps from `sd` with seeded draws: (state, the losses of each
+    step, the named gradients of the first step, the kernels' launches of
+    each step).  `captured`, a list: the first step's dcn_col2im inputs are
+    appended to it (capture_col2im)."""
     state = create_train_state(cfg, device=dev, state_dict=sd)
     gen = torch.Generator(device=dev).manual_seed(11)
     params = dict(state.model.named_parameters())
     losses, launches, grads = [], [], None
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         reset_launches()
         with (capture_col2im() if captured is not None and i == 0
               else contextlib.nullcontext([])) as got:
@@ -2623,6 +2657,167 @@ def col2im_timing(dev, card):
               + ', '.join(f'{k} {v!r}' for k, v in per_step.items())
               + f' [{card}]')
     return line
+
+
+# ---- phase 4b, continued: the registered configs no card run had taken ---
+
+# Each at its own size and full width: inference at b1 f32 through Pipeline
+# (the s2d stem for raw frames) with the kernels against the plain
+# versions by phase 4's rule, then one b8 f32 train step by phase 6's rule
+# (train overrides: the s2d stem on the ResNets without DCN, which
+# phase 6 runs on yolact_base; 'dcn' remat on yolact_plus_resnet50, as
+# phase 6 runs yolact_plus_base).  yolact_im700 is the first 700 x 700
+# input of any kernel; yolact_plus_resnet50's 13 DCN blocks (every block
+# of stages 2-4) give both DCN kernels shapes no other config has, among
+# them 512 channels at 18 x 18; yolact_resnet50_pascal's 21 classes run the
+# IoU max at [20, 200].
+A14_CONFIGS = {
+    'yolact_im400': dict(stem_s2d=True),
+    'yolact_im700': dict(stem_s2d=True),
+    'yolact_resnet50': dict(stem_s2d=True),
+    'yolact_resnet50_pascal': dict(stem_s2d=True),
+    'yolact_plus_resnet50': dict(train_remat='dcn'),
+}
+# the conf cell: the head scaled by the first of A14_SCALES and biased by
+# the first of A14_BIASES that leave A14_CANDIDATES priors of a frame
+# passing conf_thresh in float32 (the pruned NMS tail), read in the run
+# from the plain model's conf logits on the path's frame (probe_cells.py's
+# count).  The biases are an eighth apart: yolact_resnet50_pascal's count
+# falls from 4906 at +5 to 55 at +6; yolact_plus_resnet50's random head is
+# flatter (no candidate at x3 from +4 on)
+A14_SCALES = (3.0, 6.0, 12.0)
+A14_BIASES = tuple(k / 8 for k in range(89))
+A14_CANDIDATES = (100, 900)
+
+
+def a14_cell(name, cfg, sd, frame, dev):
+    """(scale, background bias) of the first cell of A14_SCALES x
+    A14_BIASES that leaves A14_CANDIDATES priors passing conf_thresh."""
+    model = load_model(cfg, sd, dev, 'float32')
+    with torch.inference_mode():
+        conf = model(preprocess_device(cfg, frame))['conf'].float()
+    del model
+    check(bool(torch.isfinite(conf).all()), f'{name}: non-finite conf logits '
+          f'(std {float(conf.nan_to_num().std())!r})')
+    counts = {}
+    for scale in A14_SCALES:
+        for bias in A14_BIASES:
+            logits = conf * scale
+            logits[..., 0] += bias
+            best = torch.softmax(logits, -1)[..., 1:].max(-1).values
+            n = counts[scale, bias] = int((best > cfg.nms_conf_thresh).sum())
+            if A14_CANDIDATES[0] <= n <= A14_CANDIDATES[1]:
+                print(f'{name} conf cell: x{scale} +{bias}, {n} of '
+                      f'{conf.shape[1]} priors pass conf_thresh (float32; '
+                      f'the count at x{scale} by bias: ' + ', '.join(
+                          f'+{b} {c}' for (s, b), c in counts.items()
+                          if s == scale and c) + ')')
+                return scale, bias
+    raise RuntimeError(f'chip_smoke: {name}: no cell of {A14_SCALES} x '
+                       f'{A14_BIASES} leaves {A14_CANDIDATES} candidates: '
+                       f'{counts}')
+
+
+def a14_inference(name, sd, dev):
+    """b1 f32 on a seeded frame of the config's size, kernels against plain
+    (phase 4's rule).  Returns the kernel run's launches."""
+    cfg = config_named(name)
+    size = (1, cfg.max_size, cfg.max_size, 3)
+    frame = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, size).astype(np.float32)).to(dev)
+    wsd = shape_conf(sd, cfg.num_classes, *a14_cell(name, cfg, sd, frame,
+                                                     dev))
+    plain_pipe = Pipeline(cfg, wsd, dev, 'float32', use_kernels=False)
+    kernel_pipe = Pipeline(cfg, wsd, dev, 'float32')
+    reset_launches()
+    plain = plain_pipe(frame)
+    torch.cuda.synchronize()
+    check(not any(read_launches(KERNELS).values()),
+          f'{name}: the plain path launched a kernel')
+    # the path's run: counts from 0, read right after
+    reset_launches()
+    before = dict(detection.branch_counts)
+    got = kernel_pipe(frame)
+    torch.cuda.synchronize()
+    launches = read_launches(KERNELS)
+    branch = {k: detection.branch_counts[k] - before[k] for k in before}
+    runs = {'fast_nms_iou_max', 'mask_assembly', 'stem_s2d'} | (
+        {'dcn'} if any('conv_offset_mask' in k for k in sd) else set())
+    print(f'{name} {cfg.max_size} b1 f32 path launches: '
+          f'{json.dumps(launches)}; NMS tails {branch}')
+    for kname, n in launches.items():
+        check(n > 0 if kname in runs else n == 0,
+              f'{name}: {kname} launched {n} times on its path')
+    check(branch['pruned'] == 1, f'{name}: the pruned NMS tail not taken')
+    tag = f'{name} {cfg.max_size} sparse b1 f32'
+    check_output(tag, got, cfg, 1)
+    check_output(tag + ' plain', plain, cfg, 1)
+    compare(tag, got, plain, exact=True, ties_ok=True)
+    check(bool(got.valid.any()), f'{name}: no detections')
+    del plain_pipe, kernel_pipe
+    return launches
+
+
+def a14_train(name, sd, dev, card):
+    """One b8 f32 train step at the config's size, kernels against plain
+    (phase 6's rule).  Returns the kernel step's launches."""
+    overrides = A14_CONFIGS[name]
+    cfg = config_named(name).copy(lr=1e-4, lr_warmup_init=1e-7, **overrides)
+    tag = f'{name} {cfg.max_size} b8 f32 train step'
+    names = ['backbone.conv1.weight']
+    offsets = sorted(k for k in sd if k.endswith('conv_offset_mask.weight'))
+    if offsets:
+        dcn0 = offsets[0][:-len('conv_offset_mask.weight')]
+        names += [dcn0 + 'conv_offset_mask.weight', dcn0 + 'weight']
+    blocks = len(offsets)
+    want = dict(stem_s2d=int(bool(cfg.stem_s2d)),
+                dcn=blocks * (2 if cfg.train_remat in ('dcn', 'all') else 1),
+                dcn_col2im=blocks)
+    batch = make_train_batch(cfg)
+    sd = tame_residuals(sd)
+    t0 = time.perf_counter()
+    with deterministic_library():
+        _, plain_losses, plain_grads, plain_launches = run_train_steps(
+            cfg, sd, batch, dev, False, names, steps=1)
+        check(not any(plain_launches[0].values()),
+              f'{tag}: the plain path launched a kernel')
+        _, losses, grads, launches = run_train_steps(
+            cfg, sd, batch, dev, True, names, steps=1)
+    print(f'{tag}: launches per step {json.dumps(launches[0])} (expected '
+          f'{json.dumps(want)}); kernels {json.dumps(losses[0])}; plain '
+          f'versions {json.dumps(plain_losses[0])}; '
+          f'{time.perf_counter() - t0:.1f} s [{card}]')
+    check(launches[0] == want, f'{tag}: launches per step {launches[0]}')
+    got, ref = losses[0], plain_losses[0]
+    check(got['finite'] and ref['finite'], f'{tag}: the step was skipped')
+    for k in got:
+        check(np.isfinite(got[k]) and abs(got[k] - ref[k]) <= 1e-4 * abs(
+            ref[k]), f'{tag}: loss {k} {got[k]!r} against the plain '
+            f'versions\' {ref[k]!r}')
+    # under batch statistics the s2d stem's first conv1 gradient is held to
+    # STEM_BATCH_STATS_LIMIT, as phase 6 holds yolact_base's
+    stem_limit = STEM_BATCH_STATS_LIMIT if cfg.stem_s2d else 1e-3
+    grad_checks(tag, names[:1], grads, plain_grads, stem_limit)
+    grad_checks(tag, names[1:], grads, plain_grads, 1e-3)
+    return launches[0]
+
+
+def a14_phase(dev, card):
+    """Phase 4b's registered configs (A14_CONFIGS): their launches, by
+    config, on the inference path (b1 f32) and per train step."""
+    out = {}
+    for name in A14_CONFIGS:
+        t0 = time.perf_counter()
+        cfg = config_named(name)
+        sd = random_state_dict(cfg, torch.Generator().manual_seed(0))
+        if any(k.endswith('conv_offset_mask.weight') for k in sd):
+            sd = seed_offsets_state_dict(sd, torch.Generator().manual_seed(3))
+        out[name] = dict(inference_b1_f32=a14_inference(name, sd, dev),
+                         train_step_b8_f32=a14_train(name, sd, dev, card))
+        del sd
+        torch.cuda.empty_cache()
+        print(f'{name}: {time.perf_counter() - t0:.1f} s [{card}]')
+    return out
 
 
 # ---- phase 9: model options and video -------------------------------------
@@ -2973,9 +3168,10 @@ class StepRecorder:
     kernel's launches (the counters' difference across the call).  With a
     profiler it steps the profiler's schedule after each step."""
 
-    def __init__(self, prof=None):
+    def __init__(self, prof=None, before=None):
         self.steps = []
         self.prof = prof
+        self.before = before
 
     def __enter__(self):
         self.real = step_module.train_step
@@ -2986,6 +3182,8 @@ class StepRecorder:
         step_module.train_step = self.real
 
     def __call__(self, state, batch, generator):
+        if self.before is not None and not self.steps:
+            self.before(state)
         before = read_launches(TRAIN_KERNELS)
         step, lr = state.step, learning_rate(state.cfg, state.step)
         out = self.real(state, batch, generator)
@@ -3003,11 +3201,11 @@ class StepRecorder:
 TRAINER_PROFILE = dict(wait=2, warmup=1, active=5, repeat=1)
 
 
-def run_trainer(argv, dataset, val_dataset=None, profile=False):
+def run_trainer(argv, dataset, val_dataset=None, profile=False, before=None):
     """cli/train.train(argv) on the in-memory datasets, its output captured:
     (summary, output, steps recorded, the kernels' launches in the run,
     the profiler or None).  `profile` traces TRAINER_PROFILE's iterations
-    with torch.profiler."""
+    with torch.profiler; `before(state)` is called before the first step."""
     reset_launches()
     buf = io.StringIO()
     prof = torch.profiler.profile(
@@ -3015,7 +3213,7 @@ def run_trainer(argv, dataset, val_dataset=None, profile=False):
                     torch.profiler.ProfilerActivity.CUDA],
         schedule=torch.profiler.schedule(**TRAINER_PROFILE)) \
         if profile else None
-    with StepRecorder(prof) as rec, contextlib.redirect_stdout(buf), \
+    with StepRecorder(prof, before) as rec, contextlib.redirect_stdout(buf), \
             prof or contextlib.nullcontext():
         summary = train_cli.train(argv, dataset=dataset,
                                   val_dataset=val_dataset)
@@ -3501,6 +3699,10 @@ DP_SECONDS = 600     # a rank that gives no result in this long fails
 # same launches as one process (the DCN blocks' replays included)
 SP_SPACE = 2
 SP_TIMED_STEPS = 2
+# phase 12(a)'s checked steps: one, so that phase 13 fits the run's time
+# limit; losses, gradients, the ranks' bit-equality, the control and the
+# launches are all checked on it
+SP_CHECKED_STEPS = 1
 SP_INFER_RUNS = (('b1 f32', 'float32', 1), ('b8 bf16', 'bfloat16', 8))
 
 
@@ -4253,7 +4455,7 @@ def sp_infer_config():
 
 def sp_rank(rank, port, paths, results):
     """One rank of phase 12, in a process of its own (spawn): the gloo
-    group on cuda:0 split data 1 x space SP_SPACE; (a) TRAIN_STEPS steps
+    group on cuda:0 split data 1 x space SP_SPACE; (a) SP_CHECKED_STEPS steps
     of the global b8 batch, its rows of every map on this rank, then
     SP_TIMED_STEPS timed steps, one more with its collectives timed, then
     the control (the first step again with the head outputs' gather taking
@@ -4282,8 +4484,8 @@ def sp_rank(rank, port, paths, results):
         batch = make_train_batch(cfg)        # data 1: all of the batch
         gen = torch.Generator(device=dev).manual_seed(11)
         with deterministic_library():
-            losses, launches, digests, grads = dp_steps(state, batch, gen,
-                                                        DP_GRADS)
+            losses, launches, digests, grads = dp_steps(
+                state, batch, gen, DP_GRADS, steps=SP_CHECKED_STEPS)
         times = []
         for _ in range(SP_TIMED_STEPS):
             torch.cuda.synchronize()
@@ -4393,7 +4595,7 @@ def sp_steps(ranks, one, card):
     tag = (f'spatial {DP_CONFIG} 550 b8 f32 (data 1 x space {SP_SPACE}, '
            f'gloo ranks on one card)')
     losses, launches, grads = one['losses'], one['launches'], one['grads']
-    for step in range(TRAIN_STEPS):
+    for step in range(SP_CHECKED_STEPS):
         print(f'{tag} step {step}: one process {json.dumps(losses[step])}; '
               f'ranks {json.dumps([r["losses"][step] for r in ranks])}')
         check(len({r['digests'][step] for r in ranks}) == 1,
@@ -4413,7 +4615,7 @@ def sp_steps(ranks, one, card):
                   f'{run["launches"][step]}, one process {launches[step]}, '
                   f'expected {DP_PER_STEP}')
     print(f'{tag}: both ranks\' weights bit-equal after each of '
-          f'{TRAIN_STEPS} steps; launches per rank per step '
+          f'{SP_CHECKED_STEPS} steps; launches per rank per step '
           f'{json.dumps(ranks[0]["launches"][0])} (one process '
           f'{json.dumps(launches[0])})')
     # as phase 10: the rounding of the row-sharded convs and of the global
@@ -5012,6 +5214,109 @@ def spatial_configs_phase(sds, frames8, dev, card, configs=SPC_CONFIGS,
     return launches
 
 
+# ---- phase 13: the horizon tools ------------------------------------------
+
+# yolact_plus_resnet50_horizon (yolact_tpu_torch/scripts/train_horizon.py)
+# at 550 b8 bf16 from the trainer's seeded random weights on the 64
+# synthetic images: a segment that ends in a checkpoint, then --resume
+# latest; the long run (2400 iterations) is the tool's own, not this one
+HORIZON_CONFIG = 'yolact_plus_resnet50'
+HORIZON_ITERS = (20, 40)
+FLOPS_CONFIGS = ('yolact_base', 'yolact_plus_base')
+
+
+def horizon_phase(dev, card):
+    """Phase 13 (see the module docstring).  Returns the launches per step
+    of the horizon's training."""
+    from yolact_tpu_torch.scripts import flops as flops_tool
+    from yolact_tpu_torch.scripts import map_ab
+    from yolact_tpu_torch.scripts import train_horizon as th
+    t0 = time.perf_counter()
+    cfg = register_config(th.horizon_config(HORIZON_CONFIG, HORIZON_ITERS[0]))
+    train_set, val_set = th.horizon_datasets(cfg)
+    blocks = sum(isinstance(m, DCNLayer) for m in Yolact(cfg).modules())
+    per_step = dict(stem_s2d=0, dcn=2 * blocks, dcn_col2im=blocks)
+    print(f'phase 13: {len(train_set)} synthetic images '
+          f'({sum(len(v) for v in train_set.coco.img_to_anns.values())} '
+          f'objects) made in {time.perf_counter() - t0:.1f} s')
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_horizon_') as tmp:
+        flags = ['--batch', '8', '--out_dir', f'{tmp}/out',
+                 '--save_folder', f'{tmp}/weights/',
+                 '--cuda', str(dev.type == 'cuda')]
+        first, start, loaded = None, 0, []
+        for end in HORIZON_ITERS:
+            cfg = register_config(th.horizon_config(HORIZON_CONFIG, end))
+            args = th.parse_args([HORIZON_CONFIG, '--iters', str(end)] + flags
+                                 + (['--resume', 'latest'] if first else []))
+            before = None if first is None else (
+                lambda state, saved=first['state']:
+                loaded.append(states_equal(state, saved)))
+            t1 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            summary, out, steps, launches, _ = run_trainer(
+                th.trainer_argv(args), train_set, val_set, before=before)
+            tag = f'horizon {cfg.name} {start}-{end}'
+            print(f'{tag}: {len(steps)} iterations in '
+                  f'{time.perf_counter() - t1:.1f} s, median '
+                  f'{statistics.median(summary["iter_seconds"][2:]) * 1e3!r}'
+                  f' ms per iteration (host clock), peak memory allocated '
+                  f'{torch.cuda.max_memory_allocated() / 2 ** 30!r} GiB; '
+                  f'launches per step {json.dumps(steps[0]["launches"])} '
+                  f'[{card}]; its loss lines:')
+            print('\n'.join(l for l in out.splitlines() if '||' in l))
+            checks(tag, cfg, summary, steps, per_step, start, end)
+            check(os.path.exists(summary['path']) and summary['path']
+                  .endswith(f'_{end}.pth'), f'{tag}: checkpoint '
+                  f'{summary["path"]}')
+            if first is not None:
+                print(f'{tag}: resumed at step {steps[0]["step"]} at lr '
+                      f'{steps[0]["lr"]!r}; the state it loaded against '
+                      f'segment 1\'s final state: weights and buffers, '
+                      f'momentum, step bit-equal {loaded}')
+                check(summary['start_iter'] == start
+                      and steps[0]['step'] == start
+                      and steps[0]['lr'] == learning_rate(cfg, start),
+                      f'{tag}: resumed at step {steps[0]["step"]}, lr '
+                      f'{steps[0]["lr"]!r}')
+                check(loaded == [(True, True, True)],
+                      f'{tag}: the resumed state differs from the saved one')
+            first, start = summary, end
+        th.print_loss_blocks(summary['log'], th.JAX_LOG.format(HORIZON_CONFIG))
+        path = summary['path']
+        del first, summary
+        torch.cuda.empty_cache()
+
+        # --eval, then map_ab's rows, on the final checkpoint
+        t1 = time.perf_counter()
+        reset_launches()
+        maps = th.evaluate_checkpoint(cfg, path, val_set, 8, dev, quiet=True)
+        print(f'horizon --eval {os.path.basename(path)} with the kernels: box '
+              f'{maps["box"]["all"]!r} mask {maps["mask"]["all"]!r} mAP; '
+              f'launches {json.dumps(read_launches(KERNELS))}; '
+              f'{time.perf_counter() - t1:.1f} s [{card}]')
+        rows = map_ab.ab_rows(cfg, checkpoint.load_weights(cfg, path), val_set,
+                              dev, 8)
+        clean, lines = map_ab.verdict(rows)
+        print('\n'.join(lines))
+        rows = dict(rows)
+        check(clean, 'horizon map_ab: DIRTY')
+        check(maps == rows['mask assembly kernel/default']
+              == rows['mask assembly plain'],
+              'horizon --eval: the kernels\' mAP differs from the plain '
+              'versions\'')
+
+    # flops: inference at b1 and b8, the b8 train step
+    for name in FLOPS_CONFIGS:
+        for batch in (1, 8):
+            print(json.dumps(dict(flops_tool.forward_flops(name, batch,
+                                                           device=dev),
+                                  card=card)))
+        print(json.dumps(dict(flops_tool.train_step_flops(name, 8, device=dev),
+                              card=card)))
+        torch.cuda.empty_cache()
+    return steps[0]['launches']
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False; this smoke '
@@ -5065,6 +5370,7 @@ def main():
             print(f'{config} weights: {time.perf_counter() - t0:.2f} s')
         launches[name], outs[name], pipes[name] = main_path(
             name, sds[config], frames8, dev)
+    a14_launches = a14_phase(dev, card)
     phase_done('4b other backbones')
     # the s2d stem against the plain stem, same weights and frames
     for cell in ('dense', 'sparse'):
@@ -5129,6 +5435,11 @@ def main():
     del sds
     torch.cuda.empty_cache()
     phase_done('12b spatial partitioning, other configs')
+
+    # ---- phase 13: the horizon tools ----
+    horizon_launches = horizon_phase(dev, card)
+    torch.cuda.empty_cache()
+    phase_done('13 horizon tools')
 
     # ---- phase 7: timing; the s2d A/B in the order plain, s2d, s2d, plain
     order = ('yolact_base', 'yolact_base_s2d', 'yolact_base_s2d',
@@ -5201,6 +5512,12 @@ def main():
                        'export_launches': {
                            tag: counts[name]
                            for tag, counts in export_launches.items()},
+                       'a14_launches': {
+                           config: {run: counts.get(name, 0)
+                                    for run, counts in runs.items()}
+                           for config, runs in a14_launches.items()},
+                       'horizon_launches_per_step': horizon_launches.get(
+                           name, 0),
                        'option_launches': {
                            path: counts[name]
                            for path, counts in option_launches.items()

@@ -46,6 +46,33 @@ def test_nvml_query_without_nvidia_smi(monkeypatch, failure):
     assert nvinfo.nvml_query() == {}
 
 
+@pytest.mark.parametrize('failure', [None, 'missing', 'error'])
+def test_name_and_power_limit(monkeypatch, failure):
+    """nvidia-smi's first line of name and power limit, as every
+    measurement is tagged; None without nvidia-smi or when it fails."""
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        if failure == 'error':
+            raise subprocess.CalledProcessError(9, cmd)
+        return subprocess.CompletedProcess(
+            cmd, 0, stdout='NVIDIA H100 80GB HBM3, 700.00 W\nNVIDIA H100 '
+            '80GB HBM3, 500.00 W\n', stderr='')
+
+    monkeypatch.setattr(nvinfo.shutil, 'which',
+                        lambda name: None if failure == 'missing'
+                        else '/bin/smi')
+    monkeypatch.setattr(nvinfo.subprocess, 'run', run)
+    got = nvinfo.name_and_power_limit()
+    if failure:
+        assert got is None
+    else:
+        assert got == 'NVIDIA H100 80GB HBM3, 700.00 W'
+        assert calls == [['/bin/smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader']]
+
+
 def test_visible_devices_follow_cuda_visible_devices(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     monkeypatch.setattr(torch.cuda, 'device_count', lambda: 2)

@@ -366,7 +366,7 @@ PORT_SOURCES = sorted(
                                   'probe_dcn.py', 'probe_dp.py',
                                   'probe_host.py', 'probe_small_kernels.py',
                                   'probe_export.py', 'probe_spatial.py',
-                                  'probe_trainer.py',
+                                  'probe_trainer.py', 'probe_horizon.py',
                                   'tests/torch_parallel_worker.py',
                                   'tests/torch_spatial_worker.py']
 

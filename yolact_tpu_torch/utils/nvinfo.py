@@ -17,7 +17,7 @@ from __future__ import annotations
 import os
 import shutil
 import subprocess
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -64,6 +64,24 @@ def nvml_query() -> Dict[int, Dict[str, object]]:
                 row[key] = None
         out[int(values[0])] = row
     return out
+
+
+def name_and_power_limit() -> Optional[str]:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (the
+    tag every measurement carries), or None where nvidia-smi is missing or
+    fails."""
+    exe = shutil.which('nvidia-smi')
+    if exe is None:
+        return None
+    try:
+        proc = subprocess.run(
+            [exe, '--query-gpu=name,power.limit', '--format=csv,noheader'],
+            capture_output=True, text=True, timeout=30, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = proc.stdout.strip().splitlines()
+    return lines[0].strip() if lines else None
 
 
 def device_info(nvml: bool = True) -> List[Dict[str, object]]:
