@@ -1,0 +1,12 @@
+"""dcn_col2im_roofline.train: percent of the dcn_col2im kernel's device
+time a train step (``dcn_col2im_kernel``, every launch of it) that its
+least time at the cell's shapes is (``yardstick.py``); none where the
+step does not launch it or the profile lost its events."""
+
+from benchmark.record import roofline
+
+
+def read(run):
+    if run.mode != 'train':
+        return None
+    return roofline(run, 'dcn_col2im_kernel')

@@ -1,0 +1,12 @@
+"""dcn_im2col_roofline.infer: percent of the dcn_im2col kernel's device
+time a Pipeline call (``dcn_im2col_kernel``, every launch of it) that its
+least time at the cell's shapes is (``yardstick.py``); none where the
+path does not launch it or the profile lost its events."""
+
+from benchmark.record import roofline
+
+
+def read(run):
+    if run.mode != 'infer':
+        return None
+    return roofline(run, 'dcn_im2col_kernel')
