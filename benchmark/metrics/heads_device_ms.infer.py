@@ -1,0 +1,10 @@
+"""heads_device_ms.infer: device ms a Pipeline call of the program's
+``heads`` span, the prototype net and the prediction heads: the median
+over the profiled slice's first pass (``spans.py``); none without a
+trace, on the CPU, or where the program has no such span."""
+
+from benchmark.spans import span_ms
+
+
+def read(run):
+    return span_ms(run, 'heads') if run.mode == 'infer' else None

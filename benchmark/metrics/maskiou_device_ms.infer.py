@@ -1,0 +1,11 @@
+"""maskiou_device_ms.infer: device ms a Pipeline call of the program's
+``maskiou`` span, the mask scorer (``rescore_with_maskiou``), YOLACT++
+only: the median over the profiled slice's first pass (``spans.py``);
+none without a trace, on the CPU, or where the program has no such
+span."""
+
+from benchmark.spans import span_ms
+
+
+def read(run):
+    return span_ms(run, 'maskiou') if run.mode == 'infer' else None

@@ -1,0 +1,11 @@
+"""preprocess_device_ms.infer: device ms a Pipeline call of the program's
+``preprocess`` span, the frames' resize, normalisation and space-to-
+depth (``_prepare_input``): the median over the profiled slice's first
+pass (``spans.py``); none without a trace, on the CPU, or where the
+program has no such span."""
+
+from benchmark.spans import span_ms
+
+
+def read(run):
+    return span_ms(run, 'preprocess') if run.mode == 'infer' else None

@@ -1915,7 +1915,7 @@ def device_events(prof):
     return [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, 'is_user_annotation', False)
-            and e.name not in annotations | {'train_iteration'}]
+            and e.name not in annotations | {'iteration'}]
 
 
 PROFILES = collections.Counter()    # profile_kernels: profiles, lost events
@@ -3223,11 +3223,11 @@ def run_trainer(argv, dataset, val_dataset=None, profile=False, before=None):
 
 def loop_busy(prof):
     """Device busy ms per iteration and idle share over the profiled
-    iterations but the first (the train_iteration ranges cli/train.py
+    iterations but the first (the iteration spans cli/train.py
     records; validation and set-up fall outside), from the kernel events,
     or None when the profiler recorded no kernel."""
     iters = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.name == 'train_iteration'
+                   for e in prof.events() if e.name == 'iteration'
                    and e.device_type == torch.autograd.DeviceType.CPU)
     start, end = iters[1][0], iters[-1][1]
     # the union of the device events' intervals inside the window

@@ -898,3 +898,74 @@ def test_group_norm_and_transposed_rows_on_the_card(cuda, space, height):
         grad = np.concatenate([r[name]['grad'] for r in ranks], 2)
         np.testing.assert_allclose(grad, g, rtol=0, err_msg=name,
                                    atol=1e-5 * np.abs(g).max())
+
+
+SPAN_CHILDREN = ('input', 'preprocess', 'backbone', 'fpn', 'heads', 'detect',
+                 'masks', 'maskiou')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['yolact_base', 'yolact_plus_base'])
+def test_spans_bracket_kernels_and_cover_the_call(cuda, tmp_path, name):
+    """A profiled bfloat16 b16 call at 550² (raw 480x640 frames, random
+    weights): every kernel falls inside the GPU user annotation of the
+    innermost span (``utils/timer.py``) open when it was launched, within
+    1 µs, and the device ms of the call's layer spans sum to within 5% of
+    the ``call`` span's (the host's own gaps between them are the rest)."""
+    import json
+    from yolact_tpu_torch.config import get_config
+    from yolact_tpu_torch.utils import timer
+    cfg = get_config(name)
+    sd = random_state_dict(cfg, torch.Generator().manual_seed(0))
+    pipe = Pipeline(cfg, sd, cuda, 'bfloat16')
+    frames = np.random.default_rng(0).integers(
+        0, 256, (16, 480, 640, 3), dtype=np.uint8)
+    for _ in range(3):
+        pipe(frames)
+    torch.cuda.synchronize()
+    timer.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        pipe(frames)
+        torch.cuda.synchronize()
+    (root,) = timer.roots()
+    children = [s.name for s in root.spans if s.parent is root.spans[0]]
+    assert children == [c for c in SPAN_CHILDREN
+                        if c != 'maskiou' or cfg.use_maskiou]
+    call_ms = root.device_ms('call')
+    parts = sum(root.device_ms(c) for c in children)
+    assert 0.95 * call_ms <= parts <= call_ms * 1.0001, (parts, call_ms)
+
+    path = str(tmp_path / 'trace.json')
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)['traceEvents'] if e.get('ph') == 'X']
+    spans = {s.name for s in root.spans}
+    host = [e for e in events if e.get('cat') == 'user_annotation'
+            and e['name'] in spans]
+    device = [e for e in events if e.get('cat') == 'gpu_user_annotation'
+              and e['name'] in spans]
+    kernels = {e['args']['correlation']: e for e in events
+               if e.get('cat') == 'kernel'}
+    launches = [e for e in events if e.get('cat') in ('cuda_runtime',
+                                                      'cuda_driver')
+                and e['args'].get('correlation') in kernels]
+    assert len(host) == len(root.spans) and kernels and launches
+    # a kernel belongs to the innermost span open when it was launched
+    # (an enclosing span's annotation on the device is its children's)
+    launched_in = {}
+    for e in launches:
+        around = [h for h in host if h['ts'] <= e['ts'] <= h['ts'] + h['dur']]
+        assert around, e['name']
+        name = min(around, key=lambda h: h['dur'])['name']
+        launched_in.setdefault(name, []).append(
+            kernels[e['args']['correlation']])
+    assert sum(map(len, launched_in.values())) == len(kernels)
+    for name, inside in launched_in.items():
+        brackets = [d for d in device if d['name'] == name]
+        assert brackets, name
+        for k in inside:
+            assert any(d['ts'] - 1 <= k['ts'] and
+                       k['ts'] + k['dur'] <= d['ts'] + d['dur'] + 1
+                       for d in brackets), (name, k['name'])

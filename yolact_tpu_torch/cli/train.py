@@ -76,6 +76,7 @@ import time
 import torch
 
 from yolact_tpu_torch.parallel import mesh as parallel
+from yolact_tpu_torch.utils import timer
 
 
 def str2bool(v):
@@ -366,9 +367,10 @@ def _train(args, mesh, dataset, val_dataset):
                     say(f'(delayed settings applied at iter {iteration})')
                     cfg = state.cfg = state.model.cfg = new_cfg
 
-                with torch.profiler.record_function('train_iteration'):
+                with timer.span('iteration', device):
                     wait = time.time()
-                    batch = loader.next_batch()
+                    with timer.span('loader_wait'):
+                        batch = loader.next_batch()
                     summary['wait_seconds'].append(time.time() - wait)
                     losses = train_step(state, batch, generator)
 

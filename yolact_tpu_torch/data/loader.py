@@ -51,6 +51,7 @@ import torch
 
 from yolact_tpu_torch.data.coco import (COCODetection, pack_batch_masks,
                                         pad_batch)
+from yolact_tpu_torch.utils import timer
 
 
 class _WorkerError:
@@ -218,8 +219,13 @@ class BatchLoader:
     def next_batch(self) -> dict:
         """The next batch in epoch order (deterministic for a fixed seed);
         epochs stream back-to-back.  Raises after stop() or a worker
-        error instead of blocking forever."""
+        error instead of blocking forever.  While ``utils/timer.py``
+        records, counts the batches already held or queued on entry
+        (``loader_ready``)."""
         self.start()
+        if timer.active():
+            timer.count('loader_ready',
+                        len(self._hold) + self._batch_queue.qsize())
         while True:
             if self._next_seq in self._hold:
                 batch = self._hold.pop(self._next_seq)

@@ -24,6 +24,7 @@ from yolact_tpu_torch.config import YolactConfig
 from yolact_tpu_torch.kernels import _build
 from yolact_tpu_torch.kernels.nms import nms_iou_max, nms_iou_max_plain
 from yolact_tpu_torch.ops.boxes import decode
+from yolact_tpu_torch.utils import timer
 
 # detect() calls that took the pruned / the unpruned NMS tail
 branch_counts = {'pruned': 0, 'full': 0}
@@ -141,6 +142,8 @@ def detect(cfg: YolactConfig, pred_outs: Dict[str, torch.Tensor],
     scores_all = eval_scores(cfg, pred_outs)[..., 1:].transpose(1, 2)
     best = scores_all.max(dim=1).values                      # [B, P]
     cand = best > cfg.nms_conf_thresh
+    if timer.active():
+        timer.count('nms_candidates', cand.sum())
     scores_all = torch.where(cand[:, None, :], scores_all, -1.0)
     boxes = decode(loc, priors[None], cfg.use_yolo_regressors)
 
@@ -155,7 +158,8 @@ def detect(cfg: YolactConfig, pred_outs: Dict[str, torch.Tensor],
     # unpruned tail, so results are exact either way.  JAX decides with
     # lax.cond on the device; so does torch.cond here while torch.export
     # traces, and eager mode reads the predicate on the host (one device
-    # sync per batch) and counts the tail it takes.
+    # sync per batch, the span detect.fits_read) and counts the tail it
+    # takes.
     n_cand = cfg.nms_candidates
     P = scores_all.shape[-1]
 
@@ -197,10 +201,14 @@ def detect(cfg: YolactConfig, pred_outs: Dict[str, torch.Tensor],
                     for t in branch(*a))
             ob, oc, cl, sc, va = torch.cond(fits, dense(pruned), dense(full),
                                             operands)
-        elif bool(fits):
-            branch_counts['pruned'] += 1
-            ob, oc, cl, sc, va = pruned(*operands)
         else:
-            branch_counts['full'] += 1
-            ob, oc, cl, sc, va = full(*operands)
+            with timer.span('detect.fits_read'):
+                timer.count('host_syncs')
+                fit = bool(fits)
+            if fit:
+                branch_counts['pruned'] += 1
+                ob, oc, cl, sc, va = pruned(*operands)
+            else:
+                branch_counts['full'] += 1
+                ob, oc, cl, sc, va = full(*operands)
     return Detections(ob, oc, cl.to(torch.int32), sc, va, proto)

@@ -42,6 +42,7 @@ from yolact_tpu_torch.models.resnet import DCNLayer
 from yolact_tpu_torch.models.yolact import Yolact, init_train_heads
 from yolact_tpu_torch.ops.boxes import decode
 from yolact_tpu_torch.parallel.mesh import Mesh, Rows
+from yolact_tpu_torch.utils import timer
 
 
 def calc_size_preserve_ar(img_w: int, img_h: int, max_size: int):
@@ -162,18 +163,25 @@ def forward_and_detect(cfg: YolactConfig, model: Yolact,
     already normalized [B, H, W, 3] batch (see :func:`_prepare_input`).
     ``use_kernels=False`` runs every kernel's plain PyTorch version, to
     compare the two.  ``mesh``: a spatial mesh (module docstring), with
-    `images` the data rank's frames."""
-    x = _prepare_input(cfg, images, preprocess)
+    `images` the data rank's frames.  While ``utils/timer.py`` records,
+    the layers are spans: ``preprocess``, the model's ``backbone``,
+    ``fpn`` and ``heads``, ``detect``, ``masks`` and ``maskiou``."""
+    with timer.span('preprocess'):
+        x = _prepare_input(cfg, images, preprocess)
     preds = _model_outputs(model, x, use_kernels, mesh)
-    dets = detect(cfg, preds, use_cross_class_nms=use_cross_class_nms,
-                  use_kernels=use_kernels)
-    masks, dets = postprocess_device(cfg, dets, crop_masks=crop_masks,
-                                     score_threshold=score_threshold,
-                                     use_kernels=use_kernels)
+    with timer.span('detect'):
+        dets = detect(cfg, preds, use_cross_class_nms=use_cross_class_nms,
+                      use_kernels=use_kernels)
+    with timer.span('masks'):
+        masks, dets = postprocess_device(cfg, dets, crop_masks=crop_masks,
+                                         score_threshold=score_threshold,
+                                         use_kernels=use_kernels)
     mask_scores = None
     if (cfg.use_maskiou and cfg.mask_type != MaskType.DIRECT
             and cfg.eval_mask_branch):
-        mask_scores = rescore_with_maskiou(model.maskiou_net, masks, dets)
+        with timer.span('maskiou'):
+            mask_scores = rescore_with_maskiou(model.maskiou_net, masks,
+                                               dets)
     return InferenceOutput(dets.boxes, dets.classes, dets.scores, masks,
                            dets.valid, mask_scores)
 
@@ -271,8 +279,10 @@ class Pipeline:
                         mesh=mesh)
 
     def __call__(self, images) -> InferenceOutput:
-        with torch.inference_mode():
-            images = torch.as_tensor(images, device=self.device)
+        with torch.inference_mode(), timer.span('call', self.device):
+            with timer.span('input'):
+                timer.count_copy(images, self.device)
+                images = torch.as_tensor(images, device=self.device)
             return forward_and_detect(self.cfg, self.model, images, **self._kw)
 
 

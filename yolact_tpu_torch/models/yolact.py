@@ -75,6 +75,7 @@ from yolact_tpu_torch.models.resnet import DCNLayer, ResNetBackbone
 from yolact_tpu_torch.models.vgg import VGGBackbone
 from yolact_tpu_torch.ops.anchors import generate_priors
 from yolact_tpu_torch.parallel.mesh import Rows, gather_rows
+from yolact_tpu_torch.utils import timer
 
 # modules whose parameters a spatial split runs after the gather, on every
 # space rank alike: their gradients are summed over the data ranks only
@@ -220,22 +221,24 @@ class Yolact(nn.Module):
         sampling and the s2d stem conv on the card too, to compare the
         two.  ``train``: see the module docstring.  ``rows``: `x` is this
         rank's rows of an input of ``rows.height`` under a spatial split
-        (the module docstring)."""
+        (the module docstring).  The trunk, the FPN and the heads are the
+        spans ``backbone``, ``fpn`` and ``heads`` (``utils/timer.py``)."""
         cfg = self.cfg
         # logical image size: a space-to-depth input is at half resolution
         scale = 2 if cfg.stem_s2d else 1
         h, w = height(x, rows) * scale, x.shape[3] * scale
-        x = x.to(self.compute_dtype)
         # freeze_bn keeps batch norm on its running statistics in training
         bn_train = train and not cfg.freeze_bn
         remat = cfg.train_remat if train else 'none'
-        if rows is None:
-            outs = self.backbone(x, use_kernels, bn_train=bn_train,
-                                 remat=remat)
-            heights = (None,) * len(outs)
-        else:
-            outs, heights = self.backbone.forward_rows(
-                x, rows, use_kernels, bn_train=bn_train, remat=remat)
+        with timer.span('backbone'):
+            x = x.to(self.compute_dtype)
+            if rows is None:
+                outs = self.backbone(x, use_kernels, bn_train=bn_train,
+                                     remat=remat)
+                heights = (None,) * len(outs)
+            else:
+                outs, heights = self.backbone.forward_rows(
+                    x, rows, use_kernels, bn_train=bn_train, remat=remat)
         if bn_train:
             # a shared head's batch norms chain their statistics over the
             # levels of this forward, from the buffers
@@ -243,8 +246,17 @@ class Yolact(nn.Module):
         sel = cfg.backbone.selected_layers
         outs, heights = [outs[i] for i in sel], [heights[i] for i in sel]
         if self.fpn is not None:
-            outs, heights = self.fpn.forward_rows(outs, heights)
+            with timer.span('fpn'):
+                outs, heights = self.fpn.forward_rows(outs, heights)
+        with timer.span('heads'):
+            return self._heads(x, outs, heights, rows, h, w, bn_train, train)
 
+    def _heads(self, x, outs, heights, rows, h, w, bn_train: bool,
+               train: bool) -> Dict[str, torch.Tensor]:
+        """The prototypes, the prediction heads and (training) the
+        class-existence and semantic-segmentation heads, on the levels
+        `outs` of the input `x` (its logical size `h` x `w`)."""
+        cfg = self.cfg
         proto = proto_feat = None
         if self.proto_net is not None:
             src = cfg.mask_proto_src

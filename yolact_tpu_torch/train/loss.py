@@ -57,6 +57,7 @@ from yolact_tpu_torch.ops.boxes import (center_size, decode,
                                         elemwise_box_iou, log_sum_exp,
                                         sanitize_coordinates)
 from yolact_tpu_torch.train.matcher import MatchResult, match
+from yolact_tpu_torch.utils import timer
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -548,9 +549,10 @@ def multibox_loss(cfg: YolactConfig, predictions: Dict, batch: Dict,
                 f'match the model target ({H}, {packed_width(W)})')
         return unpack_bits_last(packed, W).float()
 
-    m = match(cfg, gt_boxes, gt_labels, priors,
-              loc_pred=loc_data if cfg.use_prediction_matching else None,
-              num_gts=num_gts)
+    with timer.span('match'):
+        m = match(cfg, gt_boxes, gt_labels, priors,
+                  loc_pred=loc_data if cfg.use_prediction_matching else None,
+                  num_gts=num_gts)
 
     losses: Dict[str, torch.Tensor] = {}
     total_num_pos = m.pos.sum()

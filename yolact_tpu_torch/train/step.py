@@ -99,6 +99,7 @@ from yolact_tpu_torch.ops.bits import packed_width, unpack_bits_last
 from yolact_tpu_torch.parallel.mesh import Mesh, Rows, shard_batch
 from yolact_tpu_torch.train.loss import multibox_loss
 from yolact_tpu_torch.train.schedule import learning_rate
+from yolact_tpu_torch.utils import timer
 
 
 @dataclasses.dataclass
@@ -163,6 +164,9 @@ def create_train_state(cfg: YolactConfig, seed: int = 0,
 
 def batch_to_device(batch: Dict[str, Any], device: torch.device
                     ) -> Dict[str, torch.Tensor]:
+    if timer.active():
+        for v in batch.values():
+            timer.count_copy(v, device)
     return {k: torch.as_tensor(v).to(device, non_blocking=True)
             for k, v in batch.items()}
 
@@ -236,20 +240,24 @@ def loss_and_grads(state: TrainState, batch: Dict[str, Any],
     if isinstance(num_gts, torch.Tensor):
         # a count on the card would cost a sync: the matcher loops all rows
         num_gts = num_gts.numpy() if num_gts.device.type == 'cpu' else None
-    tensors = batch_to_device(batch, state.device)
     mesh = state.mesh
-    if mesh is not None and mesh.spatial:
-        # one batch per data rank, its space rank 0's: a host loader
-        # augments each space rank's copy on that rank's own draws
-        tensors = {k: mesh.space.broadcast(v)
-                   for k, v in sorted(tensors.items())}
-        if num_gts is not None:
-            num_gts = tensors['num_gts'].cpu().numpy()
-    tensors = prepare_batch(cfg, tensors, augment_draws)
+    with timer.span('input'):
+        tensors = batch_to_device(batch, state.device)
+        if mesh is not None and mesh.spatial:
+            # one batch per data rank, its space rank 0's: a host loader
+            # augments each space rank's copy on that rank's own draws
+            tensors = {k: mesh.space.broadcast(v)
+                       for k, v in sorted(tensors.items())}
+            if num_gts is not None:
+                timer.count('host_syncs')
+                num_gts = tensors['num_gts'].cpu().numpy()
+    with timer.span('augment'):
+        tensors = prepare_batch(cfg, tensors, augment_draws)
     state.optimizer.zero_grad(set_to_none=True)
     losses = forward_loss(state, tensors, mask_priorities,
                           maskiou_priorities, use_kernels, num_gts)
-    losses['total'].backward()
+    with timer.span('backward'):
+        losses['total'].backward()
     return sum_over_ranks(state, losses)
 
 
@@ -267,12 +275,14 @@ def forward_loss(state: TrainState, tensors: Dict[str, torch.Tensor],
     if mesh is not None and mesh.spatial:
         rows = Rows(mesh.space, x.shape[2])
         x = rows.take(x)
-    preds = model(x, use_kernels=use_kernels, train=True, rows=rows)
-    losses, _ = multibox_loss(
-        cfg, preds, tensors, mask_priorities, maskiou_priorities,
-        maskiou_net=model.maskiou_net, conf_state=state.conf_state,
-        num_gts=None if num_gts is None else np.asarray(num_gts),
-        mesh=None if mesh is None else mesh.data_mesh)
+    with timer.span('forward'):
+        preds = model(x, use_kernels=use_kernels, train=True, rows=rows)
+    with timer.span('loss'):
+        losses, _ = multibox_loss(
+            cfg, preds, tensors, mask_priorities, maskiou_priorities,
+            maskiou_net=model.maskiou_net, conf_state=state.conf_state,
+            num_gts=None if num_gts is None else np.asarray(num_gts),
+            mesh=None if mesh is None else mesh.data_mesh)
     state.conf_state = losses.pop('_conf_state', state.conf_state)
     return dict(losses, total=sum(losses.values()))
 
@@ -289,16 +299,18 @@ def sum_over_ranks(state: TrainState, losses: Dict[str, torch.Tensor]
         return out
     params = [p for group in state.optimizer.param_groups
               for p in group['params']]
-    if mesh.spatial:
-        model = state.model
-        shared = {id(p) for name in SPACE_REPLICATED
-                  if getattr(model, name, None) is not None
-                  for p in getattr(model, name).parameters()}
-        mesh.all_sum_grads([p for p in params if id(p) not in shared])
-        mesh.data_mesh.all_sum_grads([p for p in params if id(p) in shared])
-    else:
-        mesh.all_sum_grads(params)
-    summed = mesh.data_mesh.all_sum(torch.stack(list(out.values())))
+    with timer.span('grad_sum'):
+        if mesh.spatial:
+            model = state.model
+            shared = {id(p) for name in SPACE_REPLICATED
+                      if getattr(model, name, None) is not None
+                      for p in getattr(model, name).parameters()}
+            mesh.all_sum_grads([p for p in params if id(p) not in shared])
+            mesh.data_mesh.all_sum_grads([p for p in params
+                                          if id(p) in shared])
+        else:
+            mesh.all_sum_grads(params)
+        summed = mesh.data_mesh.all_sum(torch.stack(list(out.values())))
     return dict(zip(out, summed.unbind()))
 
 
@@ -318,17 +330,20 @@ def apply_gradients(state: TrainState, losses: Dict[str, Any]
     ``finite`` (whether the update was applied)."""
     # the loss can still be finite on the step where the backward pass
     # overflows, so the guard covers the gradients too
-    finite = bool(losses['total'].isfinite() & grads_finite(state))
-    if state.mesh is not None:        # every rank skips, or none does
-        finite = state.mesh.all_true(finite)
+    with timer.span('finite_read'):
+        timer.count('host_syncs')
+        finite = bool(losses['total'].isfinite() & grads_finite(state))
+        if state.mesh is not None:        # every rank skips, or none does
+            finite = state.mesh.all_true(finite)
     lr = learning_rate(state.cfg, state.step)   # resume-safe: from the count
-    if finite:
-        for group in state.optimizer.param_groups:
-            group['lr'] = lr
-        state.optimizer.step()
-        commit_batch_stats(state.model)
-    else:
-        drop_batch_stats(state.model)
+    with timer.span('optimizer'):
+        if finite:
+            for group in state.optimizer.param_groups:
+                group['lr'] = lr
+            state.optimizer.step()
+            commit_batch_stats(state.model)
+        else:
+            drop_batch_stats(state.model)
     # the iteration still advances on a skipped step, like the reference
     state.step += 1
     return dict(losses, lr=lr, finite=finite)
@@ -342,26 +357,32 @@ def train_step(state: TrainState, batch: Dict[str, Any],
     ``finite`` (whether the update was applied).  Under a mesh `batch` is
     the rank's rows of the global batch (its data rank's under a spatial
     split), and `generator` is seeded alike on every rank: the draws are
-    the global batch's."""
-    image = batch['image']
-    priors = state.model.priors(image.shape[1], image.shape[2], state.device)
-    mesh = state.mesh
-    data = None if mesh is None else mesh.data_mesh
-    world = 1 if data is None else data.size
-    n = image.shape[0] * world
-    # the draws' order: the augmentation's first (as JAX's step splits its
-    # key before the loss's), then the loss's priorities
-    augment_draws = None
-    if state.cfg.use_device_augment:
-        from yolact_tpu_torch.data.device_augment import draw_augment
-        augment_draws = draw_augment(state.cfg, n, generator, state.device)
-    mask_priorities, maskiou_priorities = draw_priorities(
-        state.cfg, n, priors.shape[0], generator, state.device)
-    if world > 1:
-        mask_priorities = mask_priorities[data.rows(n)]
-        if augment_draws is not None:
-            augment_draws = shard_batch(augment_draws, data.rank, data.size)
-    return apply_gradients(
-        state, loss_and_grads(state, batch, mask_priorities,
-                              maskiou_priorities, use_kernels=use_kernels,
-                              augment_draws=augment_draws))
+    the global batch's.  The step is the span ``step``, its phases spans
+    inside it (``utils/timer.py``)."""
+    with timer.span('step', state.device):
+        image = batch['image']
+        priors = state.model.priors(image.shape[1], image.shape[2],
+                                    state.device)
+        mesh = state.mesh
+        data = None if mesh is None else mesh.data_mesh
+        world = 1 if data is None else data.size
+        n = image.shape[0] * world
+        # the draws' order: the augmentation's first (as JAX's step splits
+        # its key before the loss's), then the loss's priorities
+        with timer.span('draws'):
+            augment_draws = None
+            if state.cfg.use_device_augment:
+                from yolact_tpu_torch.data.device_augment import draw_augment
+                augment_draws = draw_augment(state.cfg, n, generator,
+                                             state.device)
+            mask_priorities, maskiou_priorities = draw_priorities(
+                state.cfg, n, priors.shape[0], generator, state.device)
+            if world > 1:
+                mask_priorities = mask_priorities[data.rows(n)]
+                if augment_draws is not None:
+                    augment_draws = shard_batch(augment_draws, data.rank,
+                                                data.size)
+        return apply_gradients(
+            state, loss_and_grads(state, batch, mask_priorities,
+                                  maskiou_priorities, use_kernels=use_kernels,
+                                  augment_draws=augment_draws))
