@@ -42,7 +42,7 @@ from yolact_tpu_torch.kernels import _build, stem
 SOURCE = 'yolact_tpu_torch/csrc/stem_s2d.cu'
 LO_HI = ('for (int m = 0; m < 4; ++m) mma_tf32(acc[m][n], alo[m], bh[n][0], '
          'bh[n][1]);')
-STORE = 'dst[(n * 8 + tig * 2 + (e & 1)) * plane] = acc[m][n][e];'
+STORE = '*reinterpret_cast<float2*>(dst + n * 8) ='
 STAGE = ('      f32_stage_halo(x, halo_base + (buf ^ 1) * kF32HaloBytes, next, '
          'h, w);')
 
@@ -55,8 +55,8 @@ def variants(src):
             raise RuntimeError(f'probe_stem: {line!r} not in {SOURCE}')
     return {'kernel': src,
             'two_products': src.replace(LO_HI, ';'),
-            'no_stores': src.replace(STORE, 'if (acc[m][n][e] == -1.5e38f) '
-                                     + STORE),
+            'no_stores': src.replace(STORE, 'if (acc[m][n][2 * half] == '
+                                     '-1.5e38f) ' + STORE),
             'no_staging': src.replace(STAGE, '      if (next < 0) '
                                       + STAGE.strip())}
 

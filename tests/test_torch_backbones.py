@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_inputs as TI
 from _tiny import tiny_darknet_config, tiny_resnet_config
 from yolact_tpu import config as C
 from yolact_tpu.convert import backbone_import as jax_bb
@@ -550,3 +551,63 @@ def test_trainer_runs(tmp_path, family):
     if family == 'gn':
         assert not torch.equal(end['backbone.bn1.weight'],
                                start['backbone.bn1.weight'])
+
+
+LAYOUT_CONFIGS = {
+    'yolact_base': lambda: TI.tiny_resnet_config(nms_candidates=256),
+    'yolact_plus_base': lambda: TI.tiny_plus_config(nms_candidates=256),
+    'darknet': lambda: TI.tiny_darknet_config(nms_candidates=256),
+    'vgg': lambda: TI.tiny_vgg_config(nms_candidates=256),
+    'resnet_gn': lambda: TI.tiny_gn_config(nms_candidates=256),
+}
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('name', sorted(LAYOUT_CONFIGS))
+def test_maps_and_weights_are_channels_last(name, dtype, monkeypatch):
+    """After ``load_model`` every conv and DCN weight outside the mask
+    scorer is channels_last in the compute dtype, and ``Conv2d`` hands it
+    to the conv as it is (same storage).  On the input a Pipeline gives
+    the model (the s2d one for the ResNets), every trunk stage output,
+    FPN level and proto map is channels_last, and the heads' flattens and
+    the prototypes' permute are views."""
+    from yolact_tpu_torch.infer import (_prepare_input, load_model,
+                                        maybe_enable_stem_s2d)
+    from yolact_tpu_torch.models.resnet import DCNLayer
+    cfg = maybe_enable_stem_s2d(LAYOUT_CONFIGS[name]())
+    assert cfg.stem_s2d == (name not in ('darknet', 'vgg'))
+    model = load_model(cfg, random_state_dict(
+        cfg, torch.Generator().manual_seed(0)), torch.device('cpu'), dtype)
+    want = getattr(torch, dtype)
+    scorer = (set(model.maskiou_net.modules())
+              if model.maskiou_net is not None else set())
+    convs = [m for m in model.modules() if m not in scorer and isinstance(
+        m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, DCNLayer))]
+    for m in convs:
+        assert m.weight.dtype == want
+        assert m.weight.is_contiguous(memory_format=torch.channels_last)
+
+    passed = []
+    conv_forward = layers.Conv2d._conv_forward
+
+    def spy(self, x, weight, bias):
+        passed.append(weight.data_ptr() == self.weight.data_ptr())
+        return conv_forward(self, x, weight, bias)
+
+    monkeypatch.setattr(layers.Conv2d, '_conv_forward', spy)
+    frames = np.random.RandomState(0).randint(
+        0, 256, (2, cfg.max_size, cfg.max_size, 3)).astype(np.float32)
+    cl = torch.channels_last
+    with torch.no_grad():
+        x = _prepare_input(cfg, torch.from_numpy(frames), True)
+        outs = model.backbone(x.to(want))
+        levels = [outs[i] for i in cfg.backbone.selected_layers]
+        if model.fpn is not None:
+            levels = model.fpn(levels)
+        proto = model.proto_net(levels[cfg.mask_proto_src])
+        preds = model(x)
+    assert passed and all(passed)
+    for t in (*outs, *levels, proto):
+        assert t.is_contiguous(memory_format=cl), tuple(t.shape)
+    assert preds['proto']._base is not None          # a view, no copy
+    assert preds['proto'].is_contiguous()

@@ -316,6 +316,14 @@ def test_stem_kernel_matches_plain(cuda, dtype, shape, wide):
     assert stem.launches == n0 + 1
     want = stem.stem_conv_s2d_plain(x, w2)
     assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    # NHWC storage, as the plain version's and the op's fake's
+    b, _, h, w = shape
+    assert got.stride() == want.stride() == (h * w * 64, 1, w * 64, 64)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode() as mode:
+        fake = torch.ops.yolact_tpu_torch.stem_s2d(mode.from_tensor(x),
+                                                   mode.from_tensor(w2))
+    assert fake.stride() == got.stride()
     if dtype == torch.float32:
         assert _rel_err(got, want) <= 1e-5
     else:

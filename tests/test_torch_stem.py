@@ -192,6 +192,31 @@ def test_stem_conv_on_cpu_is_the_plain_version():
     assert stem.launches == n0
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(2, 12, 9, 7), (1, 12, 1, 5),
+                                   (3, 12, 4, 1)])
+def test_stem_conv_is_channels_last_and_its_fake_agrees(dtype, shape):
+    """The plain version returns [B, 64, H, W] over NHWC storage, the
+    kernel's layout, with the values of the NCHW conv; the custom op's
+    fake implementation gives the same strides (``torch.export``)."""
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen).to(dtype)
+    w2 = torch.randn(64, 12, 4, 4, generator=gen).to(dtype)
+    got = stem.stem_conv_s2d_plain(x, w2)
+    b, _, h, w = shape
+    assert got.shape == (b, 64, h, w) and got.dtype == dtype
+    assert got.stride() == (h * w * 64, 1, w * 64, 64)
+    want = torch.nn.functional.conv2d(
+        torch.nn.functional.pad(x.float(), (2, 1, 2, 1)), w2.float())
+    assert torch.equal(got, want.to(dtype))
+    assert torch.ops.yolact_tpu_torch.stem_s2d(x, w2).stride() == got.stride()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode() as mode:
+        fake = torch.ops.yolact_tpu_torch.stem_s2d(
+            mode.from_tensor(x), mode.from_tensor(w2))
+    assert fake.shape == got.shape and fake.stride() == got.stride()
+
+
 def test_tiny_s2d_forward_matches_jax_and_plain_stem(jax_vars):
     """Yolact(cfg.copy(stem_s2d=True)) runs the s2d stem on a half-size
     12-channel input (the port once ignored the flag and built the 7x7

@@ -402,6 +402,36 @@ def test_pipeline_call_spans_and_counters():
     assert [r.counter('nms_candidates') for r in roots] == [want, want]
 
 
+def test_nchw_maps_counts_maps_that_are_not_channels_last(monkeypatch):
+    """A recorded yolact_base call takes ``nchw_maps`` and reads 0: the
+    trunk's stages, the FPN's levels, the prototypes and the heads' inputs
+    are channels_last.  Forced to NCHW, the FPN's levels count, and so do
+    the heads' inputs, which they are, but for a 1 x 1 level, whose bytes
+    are the same in both layouts; the proto net's conv puts its output
+    back to channels_last."""
+    cfg = tiny_resnet_config(nms_candidates=256)
+    pipe = Pipeline(cfg, random_state_dict(cfg, torch.Generator()
+                                           .manual_seed(0)), 'cpu')
+    frames = np.random.RandomState(0).randint(0, 256, (2, 64, 80, 3),
+                                              dtype=np.uint8)
+    with timer.recording():
+        pipe(frames)
+    assert [r.counter('nchw_maps') for r in timer.roots()] == [0]
+    fpn = pipe.model.fpn.forward_rows
+    sizes = []
+
+    def nchw_levels(*args):
+        outs, rows = fpn(*args)
+        sizes.extend(t.shape[2] * t.shape[3] for t in outs)
+        return tuple(t.contiguous() for t in outs), rows
+
+    monkeypatch.setattr(pipe.model.fpn, 'forward_rows', nchw_levels)
+    with timer.recording():
+        pipe(frames)
+    assert sizes[-1] == 1 and len(sizes) == 5
+    assert [r.counter('nchw_maps') for r in timer.roots()] == [2 * 4]
+
+
 def test_train_step_spans():
     state = create_train_state(tiny_plus_config(), device='cpu')
     batch = make_train_batch(np.random.RandomState(0), state.cfg)

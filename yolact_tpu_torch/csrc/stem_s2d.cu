@@ -1,10 +1,11 @@
 // Space-to-depth stem conv: the 4x4/s1 conv with padding (2, 1) on each
 // spatial axis (2 before, 1 after) over a 2x2 space-to-depth input,
 //
-//     out[b, o, y, x] = sum_{c, i, j} xpad[b, c, y + i, x + j] * w2[o, c, i, j]
+//     out[b, y, x, o] = sum_{c, i, j} xpad[b, c, y + i, x + j] * w2[o, c, i, j]
 //
-// with xpad = x padded by 2 rows / columns before and 1 after, x [B, 12, H, W],
-// w2 [64, 12, 4, 4], out [B, 64, H, W], float32 or bfloat16, summed in
+// with xpad = x padded by 2 rows / columns before and 1 after, x [B, 12, H, W]
+// (NCHW), w2 [64, 12, 4, 4], out [B, H, W, 64] (NHWC: the channels_last
+// layout the trunk's convolutions run in), float32 or bfloat16, summed in
 // float32 and rounded once to the input dtype.  With the weight of
 // models/layers.py:s2d_stem_kernel this is the ResNet's 7x7/s2/p3 stem.
 // Replaces the Pallas TPU kernel yolact_tpu/kernels/stem.py:_kernel
@@ -37,9 +38,11 @@
 //     it).  Rows are padded to 44 words so the fragment loads of a warp
 //     fall on distinct banks;
 //   - the epilogue rounds each float32 sum once to bf16, stages the tile
-//     as [64][8][32] in the shared memory the halo and weight used, and
-//     stores rows of 32 pixels along W: a warp writes 64 contiguous bytes
-//     of one channel row.
+//     as [8][32][64] (pixels padded to 72 channels, so the fragments'
+//     32-bit stores of a warp fall on distinct banks) in the shared memory
+//     the halo and weight used, and stores it in 16-byte pieces: in NHWC a
+//     tile row of 32 pixels is 4 KB of contiguous output, a warp writes 512
+//     contiguous bytes of it.
 //   The 45 zero taps of the embedded 7x7 are multiplied like the rest.
 //
 // float32: the same implicit GEMM on the tensor cores in TF32, with each
@@ -65,8 +68,9 @@
 //   - per k-step a warp loads its eight B fragments, then issues the 96
 //     products pass by pass, 32 independent accumulators between two
 //     products into the same one;
-//   - the sums are stored straight from the fragments: a warp's store
-//     covers 8 consecutive pixels of 4 channel rows.
+//   - the sums are stored straight from the fragments, a thread's two
+//     adjacent channels as one 8-byte store: a warp's store covers the
+//     same 8 channels (32 bytes) of 8 consecutive pixels.
 //   Measured on an H100 (probe_stem.py, PERF.md): 0.39-0.40 ms at b8, 4.3x
 //   its bound and ahead of cuDNN's float32 4x4 and 7x7/s2 convs in the same
 //   process; one product fewer saves 8%, no stores 17%, no halo staging 7%:
@@ -254,21 +258,23 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int m = 0; m < 4; ++m) mma_tf32(acc[m][n], ahi[m], bh[n][0], bh[n][1]);
     }
 
-    // stores straight from the fragments: a warp's store covers 8
-    // consecutive pixels of 4 channel rows
+    // stores straight from the fragments (NHWC): a thread's channels
+    // n * 8 + tig * 2 and + 1 of a pixel are one 8-byte store
     const F32Tile t = f32_tile(tile, h, w);
-    float* ob = out + static_cast<size_t>(t.b) * kCout * plane;
+    float* ob = out + static_cast<size_t>(t.b) * plane * kCout;
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       const int y = t.y0 + warp * 2 + (m >> 1);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int xo = t.x0 + (m & 1) * 16 + g + (e >> 1) * 8;
+      for (int half = 0; half < 2; ++half) {
+        const int xo = t.x0 + (m & 1) * 16 + g + half * 8;
         if (y < h && xo < w) {
-          float* dst = ob + static_cast<size_t>(y) * w + xo;
+          float* dst =
+              ob + (static_cast<size_t>(y) * w + xo) * kCout + tig * 2;
 #pragma unroll
           for (int n = 0; n < 8; ++n) {
-            dst[(n * 8 + tig * 2 + (e & 1)) * plane] = acc[m][n][e];
+            *reinterpret_cast<float2*>(dst + n * 8) =
+                make_float2(acc[m][n][2 * half], acc[m][n][2 * half + 1]);
           }
         }
       }
@@ -286,14 +292,20 @@ constexpr int kPairCols = kTileW + 2;            // pair words used per row
 constexpr int kPairRow = 44;                     // words per halo row
 constexpr int kHaloWords = kCin * kHaloH * kPairCols;
 constexpr int kHaloSteps = (kHaloWords + kThreads - 1) / kThreads;
-constexpr int kOutRow = kTileH * kTileW + 8;     // bf16 per staged channel
+constexpr int kPixRow = kCout + 8;               // bf16 per staged pixel
 constexpr size_t kWeightBytes = static_cast<size_t>(kCout) * kWRow * 2;
 constexpr size_t kHaloBytes = static_cast<size_t>(kCin) * kHaloH * kPairRow * 4;
-constexpr size_t kOutBytes = static_cast<size_t>(kCout) * kOutRow * 2;
+constexpr size_t kOutBytes =
+    static_cast<size_t>(kTileH) * kTileW * kPixRow * 2;
 constexpr size_t kMmaSmemBytes =
     kWeightBytes + kHaloBytes > kOutBytes ? kWeightBytes + kHaloBytes
                                           : kOutBytes;
 static_assert(kWeightBytes % 16 == 0, "halo must start 16-byte aligned");
+static_assert((kPixRow / 2) % 32 == 4 && (kPixRow * 2) % 16 == 0,
+              "staged pixels: a warp's fragment stores on distinct banks, "
+              "16-byte aligned rows");
+static_assert(kThreads == kTileW * (kCout * 2 / 16),
+              "one 16-byte piece per thread covers a tile row");
 static_assert(kPairRow % 32 >= 10 && kPairRow % 32 <= 22 &&
                   kPairRow >= kPairCols,
               "halo rows: the two tap rows of a fragment on distinct banks");
@@ -407,29 +419,38 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   __syncthreads();    // everyone is done with the halo and the weight
 
-  // stage [o][ty][tx], rounded once
+  // stage [ty][tx][o], rounded once: a thread's two adjacent channels of
+  // a pixel are one 32-bit word
+  uint32_t* os32 = reinterpret_cast<uint32_t*>(smem);
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int o = n * 8 + tig * 2 + (e & 1);
-        const int tx = m * 16 + g + (e >> 1) * 8;
-        os[o * kOutRow + warp * kTileW + tx] = __float2bfloat16_rn(acc[m][n][e]);
+      for (int half = 0; half < 2; ++half) {
+        const int tx = m * 16 + g + half * 8;
+        const __nv_bfloat162 v = __floats2bfloat162_rn(
+            acc[m][n][2 * half], acc[m][n][2 * half + 1]);
+        os32[((warp * kTileW + tx) * kPixRow + n * 8 + tig * 2) / 2] =
+            *reinterpret_cast<const uint32_t*>(&v);
       }
   __syncthreads();
 
-  // a warp stores one channel row of 32 pixels at a time
-  const int tx = lane, xo = x0 + lane;
-  __nv_bfloat16* ob = out + static_cast<size_t>(b) * kCout * plane;
-#pragma unroll 4
-  for (int r = warp; r < kCout * kTileH; r += kThreads / 32) {
-    const int o = r / kTileH, ty = r % kTileH;
-    const int y = y0 + ty;
-    if (y < h && xo < w) {
-      ob[o * plane + static_cast<size_t>(y) * w + xo] =
-          os[o * kOutRow + ty * kTileW + tx];
+  // NHWC: a tile row is up to 32 pixels of 128 contiguous bytes; thread t
+  // stores the 16-byte piece t % 8 of pixel t / 8, row by row
+  const int px = tid >> 3, piece = tid & 7;
+  const int xo = x0 + px;
+  if (xo < w) {
+    __nv_bfloat16* ob = out + (static_cast<size_t>(b) * h * w + xo) * kCout +
+                        piece * 8;
+#pragma unroll
+    for (int ty = 0; ty < kTileH; ++ty) {
+      const int y = y0 + ty;
+      if (y < h) {
+        *reinterpret_cast<uint4*>(ob + static_cast<size_t>(y) * w * kCout) =
+            *reinterpret_cast<const uint4*>(
+                os + (ty * kTileW + px) * kPixRow + piece * 8);
+      }
     }
   }
 }

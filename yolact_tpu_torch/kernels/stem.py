@@ -4,15 +4,18 @@ Replaces the Pallas TPU kernel ``yolact_tpu/kernels/stem.py:_kernel``
 (``stem_conv_s2d_pallas``): the 4x4/s1 conv with padding (2, 1) on each
 spatial axis (2 before, 1 after) over a 2x2 space-to-depth input, which
 with the weight of ``models/layers.py:s2d_stem_kernel`` computes the
-ResNet's 7x7/s2/p3 stem.  Layouts are the port's NCHW: ``x [B, 12, H, W]``,
-``w2 [64, 12, 4, 4]`` -> ``[B, 64, H, W]``, summed in float32 and returned
-in the input dtype (float32 or bfloat16).
+ResNet's 7x7/s2/p3 stem.  Layouts: ``x [B, 12, H, W]`` contiguous (NCHW),
+``w2 [64, 12, 4, 4]`` -> ``[B, 64, H, W]`` as a ``channels_last`` view (the
+kernel writes NHWC, the layout the trunk's convolutions run in; the plain
+version returns the same strides), summed in float32 and returned in the
+input dtype (float32 or bfloat16).
 
 The kernel (``csrc/stem_s2d.cu``) is an implicit GEMM on the tensor cores
 (M = output pixels, N = 64 channels, K = 192 taps), with the input halo
 tile and the whole weight in shared memory.  In bfloat16 (``mma.sync``
 m16n8k16, float32 sums, a block per tile of 8 x 32 pixels) it is bound by
-its 77.4 MB output write at yolact_base 550 b8.  In float32 (``mma.sync``
+its 77.4 MB output write at yolact_base 550 b8, which it stores as whole
+NHWC pixel rows in 16-byte pieces.  In float32 (``mma.sync``
 m16n8k8 in TF32, a persistent block per SM walking tiles of 16 x 32) each
 product is split in three, hi*hi + hi*lo + lo*hi with hi and lo TF32, so
 the sums keep ~2^-21 of each product where one TF32 pass would keep 2^-11
@@ -47,13 +50,19 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def stem_conv_s2d_plain(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
-    """x [B, C, H, W], w2 [O, C, 4, 4] -> [B, O, H, W]: the 4x4/s1 conv
-    with padding (2, 1), computed in float32 and rounded once to x's dtype,
-    as the kernel does.  (cuDNN's own bfloat16 conv accumulates on the
-    tensor cores with its own rounding: near-zero outputs then differ by
-    thousands of bf16 ulps from any float32 sum.)"""
+    """x [B, C, H, W], w2 [O, C, 4, 4] -> [B, O, H, W] channels_last: the
+    4x4/s1 conv with padding (2, 1), computed in float32 and rounded once
+    to x's dtype, as the kernel does.  (cuDNN's own bfloat16 conv
+    accumulates on the tensor cores with its own rounding: near-zero
+    outputs then differ by thousands of bf16 ulps from any float32 sum.)"""
     out = F.conv2d(F.pad(x.float(), (2, 1, 2, 1)), w2.float())
-    return out.to(x.dtype)
+    return out.to(x.dtype, memory_format=torch.channels_last)
+
+
+def _nhwc_empty(x: torch.Tensor, cout: int) -> torch.Tensor:
+    """The output of x [B, C, H, W]: [B, cout, H, W] over NHWC storage."""
+    b, _, h, w = x.shape
+    return x.new_empty((b, h, w, cout)).permute(0, 3, 1, 2)
 
 
 def _check(x: torch.Tensor, w2: torch.Tensor) -> None:
@@ -80,7 +89,7 @@ def _launch(x: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
         raise ValueError('stem_conv_s2d: a bfloat16 w2 must be 16-byte '
                          'aligned (the kernel copies it in 16-byte pieces)')
     b, _, h, w = x.shape
-    out = torch.empty((b, COUT, h, w), dtype=x.dtype, device=x.device)
+    out = _nhwc_empty(x, COUT)
     if out.numel() == 0:
         return out
     lib = _build.load()
@@ -124,8 +133,7 @@ def _stem_s2d_cuda(x, w2):
 
 @stem_s2d_op.register_fake
 def _stem_s2d_fake(x, w2):
-    b, _, h, w = x.shape
-    return x.new_empty((b, w2.shape[0], h, w))
+    return _nhwc_empty(x, w2.shape[0])
 
 
 def _stem_s2d_setup(ctx, inputs, output):

@@ -1,4 +1,4 @@
-"""DarkNet-53 backbone (YOLOv3), NCHW.
+"""DarkNet-53 backbone (YOLOv3), over channels_last maps.
 
 Port of ``yolact_tpu/models/darknet.py`` with the reference's parameter
 names (``backbone.py:222-318``), which JAX's importer reads

@@ -1,4 +1,5 @@
-"""Feature Pyramid Network, NCHW.  Port of ``yolact_tpu/models/fpn.py``.
+"""Feature Pyramid Network over channels_last maps.  Port of
+``yolact_tpu/models/fpn.py``.
 
 1x1 lateral convs with top-down accumulation, 3x3 pred convs (+ReLU), then
 stride-2 3x3 downsample convs (or stride-2 subsampling).  The reference

@@ -1,4 +1,4 @@
-"""Prototype network and prediction head, NCHW.
+"""Prototype network and prediction head, over channels_last maps.
 
 Port of ``yolact_tpu/models/heads.py`` (``ProtoNet``, ``PredictionHead``,
 ``FastMaskIoUNet``).  Parameter names are the reference's
@@ -61,7 +61,7 @@ def _load_grid(path: str) -> np.ndarray:
 class ProtoNet(nn.Sequential):
     """Mask prototype network.  An ``nn.Sequential`` of the make_net spec
     (so its parameters are ``proto_net.{i}``), followed by the prototype
-    activation.  NCHW in, NCHW out.
+    activation.  [B, C, H, W] in and out, channels_last.
 
     ``mask_proto_use_grid`` concatenates the grid file's channels to the
     input (a buffer outside the state dict, as the reference keeps it);
@@ -99,18 +99,20 @@ class ProtoNet(nn.Sequential):
             grid = self.grid.to(x.dtype)
             if rows is not None:
                 grid = rows.take(grid, dim=1)
-            x = torch.cat([x, grid.expand(x.shape[0], -1, -1, -1)], dim=1)
+            grid = grid.expand(x.shape[0], -1, -1, -1)
+            # a cat of mixed layouts comes out NCHW
+            x = torch.cat([x, grid.contiguous(
+                memory_format=torch.channels_last)], dim=1)
         x, rows = run_rows(self, x, rows)
         x = _activation(self.activation)(x)
         if self.bias:
-            x = torch.cat([x, x.new_ones((x.shape[0], 1) + x.shape[2:])],
-                          dim=1)
+            x = torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
         return x, rows
 
 
 def _flatten(y: torch.Tensor, last: int) -> torch.Tensor:
     """[B, A*last, H, W] conv output -> [B, H*W*A, last], the JAX NHWC
-    flatten order."""
+    flatten order (a view of a channels_last output)."""
     return y.permute(0, 2, 3, 1).reshape(y.shape[0], -1, last)
 
 

@@ -1,4 +1,5 @@
-"""Building blocks shared by the backbone and heads, NCHW.
+"""Building blocks shared by the backbone and heads, over [B, C, H, W]
+maps held channels_last.
 
 Port of ``yolact_tpu/models/layers.py``.  Convolutions are plain
 ``nn.Conv2d`` with torch integer padding (the reference's own layer), and
@@ -20,6 +21,14 @@ activation runs a bfloat16 conv over float32 master weights, and autograd
 brings float32 gradients back to them.  For inference
 ``Yolact.set_compute_dtype`` casts the weights once, and the cast at use is
 then a no-op.  Batch norm keeps float32 statistics and parameters.
+
+Layout.  The maps between layers are channels_last (NHWC storage), the
+layout cuDNN's Hopper convolutions run in: the s2d stem writes NHWC, and a
+conv weight is channels_last (:func:`conv_weight`), so a conv's output is
+channels_last whatever its input's layout (the 3-channel image of the
+other stems included), and batch norm, ReLU, pooling, the bilinear
+resize and the adds keep it.  Group norm computes NCHW on the card and
+puts its output back in its input's layout (:func:`is_channels_last`).
 """
 
 from __future__ import annotations
@@ -34,13 +43,29 @@ from torch import nn
 from yolact_tpu_torch.parallel.mesh import Rows, fetch_rows
 
 
+def conv_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A conv weight in `dtype`: the weight itself where it has that dtype
+    (an inference model's, cast once and made channels_last by
+    ``Yolact.set_compute_dtype``, or a float32 master in a float32 step),
+    else its cast, channels_last: a copy either way."""
+    if w.dtype == dtype:
+        return w
+    return w.to(dtype, memory_format=torch.channels_last)
+
+
+def is_channels_last(x: torch.Tensor) -> bool:
+    """Whether the map x [B, C, H, W] holds each pixel's channels together:
+    channels_last, or rows of such a map (a single channel always does)."""
+    return x.stride(1) == 1 or x.shape[1] == 1
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` in its input's dtype: weight and bias are cast to it at
     use (see the module docstring)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        return self._conv_forward(x, conv_weight(self.weight, x.dtype), bias)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -54,7 +79,7 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
+        return F.conv_transpose2d(x, conv_weight(self.weight, x.dtype), bias,
                                   self.stride, self.padding,
                                   self.output_padding, self.groups,
                                   self.dilation)
@@ -218,7 +243,11 @@ class GroupNorm(nn.GroupNorm):
     of its data rank's images, and the moments of each image's group span
     the whole height: :func:`mesh_moments` per ``[N, G]`` over the SPACE
     group only (the data ranks hold other images).  Having no running
-    statistics, group norm takes this collective in inference too."""
+    statistics, group norm takes this collective in inference too.
+
+    The grouped moments want NCHW (``F.group_norm`` on the card makes its
+    input contiguous, and the split's groups are a reshape of it); the
+    output goes back to the input's layout."""
 
     def __init__(self, num_channels: int, num_groups: int = 32):
         super().__init__(num_groups, num_channels, eps=1e-5)
@@ -226,9 +255,12 @@ class GroupNorm(nn.GroupNorm):
     def forward(self, x: torch.Tensor, train: bool = False,
                 rows: Optional[Rows] = None) -> torch.Tensor:
         wide = x.to(torch.promote_types(x.dtype, torch.float32))
+        layout = (torch.channels_last if is_channels_last(x)
+                  else torch.contiguous_format)
         if rows is None or rows.space.size == 1:
-            return F.group_norm(wide, self.num_groups, self.weight,
-                                self.bias, self.eps).to(x.dtype)
+            out = F.group_norm(wide, self.num_groups, self.weight,
+                               self.bias, self.eps)
+            return out.to(x.dtype, memory_format=layout)
         b, c, n, w = x.shape
         g = self.num_groups
         xg = wide.reshape(b, g, (c // g) * n * w)
@@ -236,7 +268,7 @@ class GroupNorm(nn.GroupNorm):
         out = ((xg - mean[..., None]) * torch.rsqrt(var + self.eps)[..., None]
                ).reshape(b, c, n, w)
         out = out * self.weight[:, None, None] + self.bias[:, None, None]
-        return out.to(x.dtype)
+        return out.to(x.dtype, memory_format=layout)
 
 
 def commit_batch_stats(model: nn.Module) -> int:
@@ -334,7 +366,8 @@ def conv_rows(conv: nn.Conv2d, x: torch.Tensor,
     out = rows.at(out_size(rows.height, k, s, p, d))
     xw = fetch_rows(x, rows, _windows(out, k, s, p, d))
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    y = F.conv2d(xw, conv.weight.to(x.dtype), bias, conv.stride, (0, pw),
+    y = F.conv2d(xw, conv_weight(conv.weight, x.dtype), bias, conv.stride,
+                 (0, pw),
                  conv.dilation, conv.groups)
     return _kept(y, out), out
 
@@ -392,7 +425,8 @@ def conv_transpose_rows(conv: nn.ConvTranspose2d, x: torch.Tensor,
         i0 = -(-(o0 + p - span + 1) // s)
         wins.append((i0, max((max(o1, o0 + 1) - 1 + p) // s + 1, i0 + 1)))
     xw = fetch_rows(x, rows, wins)
-    y = F.conv_transpose2d(xw, conv.weight.to(x.dtype), None, conv.stride,
+    y = F.conv_transpose2d(xw, conv_weight(conv.weight, x.dtype), None,
+                           conv.stride,
                            (0, pw), (0, opw), conv.groups, conv.dilation)
     o0, o1 = out.own()
     top = o0 + p - wins[rows.space.rank][0] * s

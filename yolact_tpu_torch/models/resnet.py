@@ -1,4 +1,4 @@
-"""ResNet backbone (bottleneck blocks, batch norm), NCHW.
+"""ResNet backbone (bottleneck blocks, batch norm), over channels_last maps.
 
 Port of ``yolact_tpu/models/resnet.py`` (``Bottleneck``, ``_stage_plan``,
 ``ResNetBackbone``) with the reference's parameter names
@@ -15,6 +15,12 @@ every norm taking the map's rows (group norm's moments span the space
 ranks), or on the whole map (``rows`` None, which ``forward`` passes); a
 DCN layer gathers its input's whole height and samples it for its own
 output rows (``kernels/dcn.py``, ``row0``).
+
+Layout.  Every map from the stem on is channels_last: the s2d stem kernel
+writes NHWC (``kernels/stem.py``), the 7x7 stem's and every other conv's
+weight is channels_last (``models/layers.py``), and a DCN layer's output
+is a channels_last view (its offsets and mask alone are made contiguous
+NCHW, as its sampler reads them).
 """
 
 from __future__ import annotations
@@ -181,9 +187,10 @@ class ResNetBackbone(nn.Module):
     sampling and the s2d stem conv.
 
     ``stem_s2d``: the input is the 2x2 space-to-depth of the raw-order
-    (BGR) image, ``[B, 12, S/2, S/2]`` (``models/layers.py:s2d_input``),
-    and the stem runs as the 4x4/s1 conv of ``kernels/stem.py`` with the
-    weight derived from ``conv1.weight`` by ``s2d_stem_kernel``.  The
+    (BGR) image, ``[B, 12, S/2, S/2]`` contiguous
+    (``models/layers.py:s2d_input``), and the stem runs as the 4x4/s1 conv
+    of ``kernels/stem.py``, channels_last out, with the weight derived from
+    ``conv1.weight`` by ``s2d_stem_kernel``.  The
     parameter keeps its name and shape, so state dicts are unchanged.  For
     inference the derived weight is cached and rebuilt whenever
     ``conv1.weight`` changes: another storage (a dtype cast or a move to

@@ -1,4 +1,4 @@
-"""SSD-style VGG-16 backbone, NCHW.
+"""SSD-style VGG-16 backbone, over channels_last maps.
 
 Port of ``yolact_tpu/models/vgg.py`` (reference ``backbone.py:324-444``).
 The architecture is the reference's nested-tuple mini-language: per group,

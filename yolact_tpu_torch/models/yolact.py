@@ -36,10 +36,14 @@ run on whole maps on every space rank alike (:data:`SPACE_REPLICATED`).
 Prototypes as features are gathered a second time for the heads, with the
 other gradient (:meth:`Yolact.forward`).
 
-Input is NCHW, already preprocessed (``infer.preprocess_device``); with
-``cfg.stem_s2d`` (ResNets only) it is the 2x2 space-to-depth
+Input is [B, 3, S, S], already preprocessed (``infer.preprocess_device``);
+with ``cfg.stem_s2d`` (ResNets only) it is the 2x2 space-to-depth
 ``[B, 12, S/2, S/2]`` (``infer.preprocess_device_s2d``) and the trunk's
-first conv is the s2d stem kernel.
+first conv is the s2d stem kernel.  Every map from the stem's output to
+the heads' inputs is channels_last (``models/layers.py``); while
+``utils/timer.py`` records, the counter ``nchw_maps`` counts the trunk's
+stage outputs, the FPN's levels, the prototypes and the heads' inputs that
+are not.
 Output dict, in the JAX package's layouts:
   loc    [B, P, 4]       raw box regressions
   conf   [B, P, C]       raw class logits
@@ -70,7 +74,8 @@ from yolact_tpu_torch.models.fpn import FPN
 from yolact_tpu_torch.models.heads import (FastMaskIoUNet, PredictionHead,
                                            ProtoNet)
 from yolact_tpu_torch.models.layers import (Conv2d, Linear, conv_rows,
-                                            drop_batch_stats, height)
+                                            drop_batch_stats, height,
+                                            is_channels_last)
 from yolact_tpu_torch.models.resnet import DCNLayer, ResNetBackbone
 from yolact_tpu_torch.models.vgg import VGGBackbone
 from yolact_tpu_torch.ops.anchors import generate_priors
@@ -80,6 +85,13 @@ from yolact_tpu_torch.utils import timer
 # modules whose parameters a spatial split runs after the gather, on every
 # space rank alike: their gradients are summed over the data ranks only
 SPACE_REPLICATED = ('class_existence_fc', 'maskiou_net')
+
+
+def count_nchw(*maps: torch.Tensor) -> None:
+    """While recording, add to the counter ``nchw_maps`` the maps among
+    `maps` that are not channels_last."""
+    if timer.active():
+        timer.count('nchw_maps', sum(not is_channels_last(m) for m in maps))
 
 
 def head_in_channels(cfg: YolactConfig) -> Tuple[int, ...]:
@@ -193,17 +205,18 @@ class Yolact(nn.Module):
         on float32 masks: its weights are never cast, so they keep every bit.
 
         ``cast_weights`` (inference) casts the conv and DCN weights once,
-        in place.  Training passes False: the parameters stay the float32
-        master weights, each conv casts its weight at use, and the
-        gradients come back in float32, as flax's ``dtype`` over float32
-        params does."""
+        in place, to channels_last in the same copy, so a conv takes its
+        weight as it is on every call (``models/layers.py:conv_weight``).
+        Training passes False: the parameters stay the float32 NCHW master
+        weights, each conv casts its weight at use, and the gradients come
+        back in float32, as flax's ``dtype`` over float32 params does."""
         if cast_weights:
             scorer = (set(self.maskiou_net.modules())
                       if self.maskiou_net is not None else set())
             for m in self.modules():
                 if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, DCNLayer)) \
                         and m not in scorer:
-                    m.to(dtype)
+                    m.to(dtype, memory_format=torch.channels_last)
         self.compute_dtype = dtype
         return self
 
@@ -239,6 +252,7 @@ class Yolact(nn.Module):
             else:
                 outs, heights = self.backbone.forward_rows(
                     x, rows, use_kernels, bn_train=bn_train, remat=remat)
+            count_nchw(*outs)
         if bn_train:
             # a shared head's batch norms chain their statistics over the
             # levels of this forward, from the buffers
@@ -248,6 +262,7 @@ class Yolact(nn.Module):
         if self.fpn is not None:
             with timer.span('fpn'):
                 outs, heights = self.fpn.forward_rows(outs, heights)
+                count_nchw(*outs)
         with timer.span('heads'):
             return self._heads(x, outs, heights, rows, h, w, bn_train, train)
 
@@ -265,6 +280,7 @@ class Yolact(nn.Module):
             else:
                 local, r = self.proto_net.forward_rows(outs[src],
                                                        heights[src])
+            count_nchw(local)
             # the loss consumes the whole prototypes alike on every rank:
             # each rank keeps its own rows' gradient
             proto = gather_rows(local, r, 'shared')
@@ -293,6 +309,7 @@ class Yolact(nn.Module):
                 feat = proto_feat if heights[idx] is None else \
                     heights[idx].take(proto_feat)
                 head_x = torch.cat([head_x, feat], dim=1)
+            count_nchw(head_x)
             preds.append(head(head_x, head_index=idx, bn_train=bn_train,
                               rows=heights[idx]))
         pred_outs = {k: torch.cat([p[k] for p in preds], dim=1)
