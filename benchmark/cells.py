@@ -5,6 +5,21 @@ which names a configuration (``configs/<config>.json``) and a traffic mix
 (``traffic/<mix>.json``); a mix names its loop (``modes/<mode>.py``); a
 metric is ``metrics/<name>.py``, listed in ``BENCHMARK.json`` at the root
 of the checkout.  An unknown name raises :class:`UnknownName`.
+
+A configuration joins as new files alone, each found by name:
+
+* ``configs/<config>.json``: the sizes as run, the ``port_config`` that
+  names it in the port and in the reference, its FLOPs an image
+  (``yardstick.forward_flops``) and its weight shaping;
+* ``workloads/<config>.<mix>.json``: the cell, with its limits;
+* ``reference/configs/<port_config>.py``: the reference's config, a
+  ``CONFIG`` of that name (``reference/config.py:get_config``);
+* ``reference/models/<type>.py``, where its backbone ``type`` is a family
+  the reference lacks: ``build_backbone``, ``out_channels`` and
+  ``feature_sizes_1d`` (``reference/config.py:backbone_family``);
+* ``metrics/<name>.py`` for a metric that it reads and no file reads yet;
+* its entries in ``BENCHMARK.json``: the configuration, the cell, and the
+  cell's name in the ``workloads`` of each metric that reads it.
 """
 
 from __future__ import annotations

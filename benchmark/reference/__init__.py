@@ -7,10 +7,12 @@ package, so that no later change to the port changes the reference:
 training, ``train/loss.py``, ``train/matcher.py``, ``train/schedule.py``,
 ``data/device_augment.py``.  What differs from the port:
 
-* only what the benchmark's configurations (``yolact_base``,
-  ``yolact_plus_base``) run is kept: the ResNet backbone with an FPN, on
-  one device; no other backbone or registered config, and no spatial
-  split or data-parallel branch;
+* only what the benchmark's configurations run is kept: ``yolact_base``
+  and ``yolact_plus_base`` in ``config.py``, any other config as a
+  module of ``configs/``, each backbone family as ``models/<type>.py``
+  (``config.get_config``, ``config.backbone_family``; the ResNet is the
+  one family so far), with an FPN, on one device; no spatial split or
+  data-parallel branch;
 
 * ``kernels/`` holds each hand-written kernel's plain version alone,
   under the kernel's name;

@@ -1,18 +1,26 @@
 """Immutable configuration: the port's ``config.py`` for the benchmark's
-two configurations, ``yolact_base`` and ``yolact_plus_base`` (dbolya/yolact
-``data/config.py``), with the dataclasses and derived sizes they need.
+configurations (dbolya/yolact ``data/config.py``), with the dataclasses and
+derived sizes they need.
 
 The reference (dbolya/yolact ``data/config.py``) uses a mutable attribute-bag
 ``Config`` plus a process-global ``cfg`` that the model constructor writes back
 into (``yolact.py:407-428``).  Here every config is a frozen dataclass threaded
 explicitly through the model, and the values that the reference computes
 at runtime (``mask_dim``, ``num_heads``) are derived statically, so that a
-config fully determines the model.  :func:`get_config` resolves a name.
+config fully determines the model.
+
+Both are found by name, so that a configuration joins as new files alone:
+:func:`get_config` resolves ``yolact_base`` and ``yolact_plus_base`` here
+and any other name as the module ``reference/configs/<name>.py``, whose
+``CONFIG`` is that config; :func:`backbone_family` resolves a backbone
+``type`` as the module ``reference/models/<type>.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
+import pkgutil
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -122,8 +130,8 @@ RESNET_TRANSFORM = TransformConfig(normalize=True)
 class BackboneConfig:
     """Backbone family + anchor layout (``data/config.py:210-299``).
 
-    ``type`` is a string key resolved by the model factory instead of a
-    live class reference; the benchmark's configurations are 'resnet'.
+    ``type`` names the backbone family instead of a live class
+    reference: the module ``models/<type>.py`` (:func:`backbone_family`).
     """
     name: str = 'Base Backbone'
     path: str = 'path/to/pretrained/weights'
@@ -414,14 +422,50 @@ def net_spec_out_channels(spec: Tuple[LayerSpec, ...], in_channels: int) -> int:
     return ch
 
 
+def _import_if_there(name: str):
+    """The module `name`, or None where there is no such module (an error
+    inside a module that is there propagates)."""
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name != name:
+            raise
+        return None
+
+
+class UnknownBackbone(ValueError, NotImplementedError):
+    """A backbone ``type`` with no family module.  Both base classes, so
+    that it is what each of the family's callers raised before it was
+    looked up by name."""
+
+
+FAMILY_FUNCTIONS = ('build_backbone', 'out_channels', 'feature_sizes_1d')
+
+
+def backbone_family(bb_type: str):
+    """The module ``benchmark.reference.models.<bb_type>`` of a backbone
+    family, imported on first use (the models import this module).  It
+    defines:
+
+    * ``build_backbone(cfg)``: the trunk, an ``nn.Module`` whose
+      ``forward(x, use_kernels, bn_train=..., remat=...)`` returns one
+      feature map a stage;
+    * ``out_channels(bb)``: each stage's output channels;
+    * ``feature_sizes_1d(cfg, img)``: each stage's output size along one
+      side of an `img`-pixel input.
+    """
+    name = f'benchmark.reference.models.{bb_type}'
+    module = _import_if_there(name) if bb_type.isidentifier() else None
+    missing = [f for f in FAMILY_FUNCTIONS if not hasattr(module, f)]
+    if missing:
+        raise UnknownBackbone(f'unknown backbone type {bb_type!r}: no '
+                              f'module {name} with {", ".join(missing)}')
+    return module
+
+
 def backbone_channels(bb: BackboneConfig) -> Tuple[int, ...]:
-    """Per-layer output channels of a ResNet backbone (before `add_layer`
-    growth): bottleneck expansion 4 (``backbone.py:60-139``)."""
-    if bb.type != 'resnet':
-        raise ValueError(f'unknown backbone type {bb.type!r}')
-    base = [64 * 4, 128 * 4, 256 * 4, 512 * 4]
-    n_extra = max(bb.selected_layers) + 1 - len(base)
-    return tuple(base + [1024] * max(0, n_extra))
+    """Per-stage output channels of the backbone, from its family."""
+    return tuple(backbone_family(bb.type).out_channels(bb))
 
 
 # ---------------------------------------------------------------------------
@@ -486,9 +530,22 @@ _CONFIG_REGISTRY: Dict[str, YolactConfig] = {
 
 def get_config(name: str) -> YolactConfig:
     """Resolve a config name: accepts 'yolact_base' or 'yolact_base_config'
-    (parity with set_cfg, ``data/config.py:812-822``)."""
+    (parity with set_cfg, ``data/config.py:812-822``).  A name that is not
+    built in is the module ``benchmark.reference.configs.<name>``, whose
+    ``CONFIG`` is a :class:`YolactConfig` of that name."""
     key = name[:-len('_config')] if name.endswith('_config') else name
     if key in _CONFIG_REGISTRY:
         return _CONFIG_REGISTRY[key]
-    raise KeyError(
-        f'Unknown config {name!r}. Known: {sorted(_CONFIG_REGISTRY)}')
+    module_name = f'benchmark.reference.configs.{key}'
+    module = _import_if_there(module_name) if key.isidentifier() else None
+    if module is None:
+        from benchmark.reference import configs
+        found = sorted(m.name for m in pkgutil.iter_modules(configs.__path__))
+        raise KeyError(
+            f'Unknown config {name!r}. Built in: {sorted(_CONFIG_REGISTRY)}; '
+            f'modules in reference/configs: {found}')
+    cfg = module.CONFIG
+    if not isinstance(cfg, YolactConfig) or cfg.name != key:
+        raise ValueError(f'{module_name}.CONFIG must be a YolactConfig '
+                         f'named {key!r}')
+    return cfg

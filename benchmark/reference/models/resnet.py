@@ -5,11 +5,14 @@ Port of ``yolact_tpu/models/resnet.py`` (``Bottleneck``, ``_stage_plan``,
 (``layers.{stage}.{block}.conv1.weight``, ``...downsample.0.weight``).
 Atrous stages, SSD-style extra stages, DCNv2 blocks (YOLACT++) and the
 space-to-depth stem are kept.
+
+The backbone family ``'resnet'`` (``config.backbone_family``):
+:func:`build_backbone`, :func:`out_channels`, :func:`feature_sizes_1d`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from benchmark.reference.kernels import dcn, stem
 from benchmark.reference.models.layers import (BatchNorm2d, Conv2d, max_pool,
                                                s2d_stem_kernel)
+from benchmark.reference.ops.anchors import conv_out
 
 EXPANSION = 4
 
@@ -221,3 +225,46 @@ class ResNetBackbone(nn.Module):
                     x = block(x, use_kernels, bn_train)
             outs.append(x)
         return tuple(outs)
+
+
+def build_backbone(cfg) -> ResNetBackbone:
+    """The ResNet backbone of ``cfg.backbone`` (JAX ``_build_backbone``)."""
+    bb = cfg.backbone
+    num_stages = max(bb.selected_layers) + 1
+    layers = tuple(bb.args[0])
+    return ResNetBackbone(
+        layers=layers,
+        dcn_layers=tuple(bb.args[1]) if len(bb.args) > 1 else (0, 0, 0, 0),
+        dcn_interval=bb.args[2] if len(bb.args) > 2 else 1,
+        atrous_layers=tuple(bb.args[3]) if len(bb.args) > 3 else (),
+        num_stages=max(num_stages, len(layers)),
+        stem_s2d=cfg.stem_s2d)
+
+
+def out_channels(bb) -> Tuple[int, ...]:
+    """Per-layer output channels of a ResNet backbone (before `add_layer`
+    growth): bottleneck expansion 4 (``backbone.py:60-139``)."""
+    base = [64 * 4, 128 * 4, 256 * 4, 512 * 4]
+    n_extra = max(bb.selected_layers) + 1 - len(base)
+    return tuple(base + [1024] * max(0, n_extra))
+
+
+def _resnet_sizes(img: int, num_layers: int, atrous_layers=()) -> List[int]:
+    """Feature sizes after each ResNet stage (stem conv, max pool, then a
+    stride-2 3x3 conv opening every stage but the first and atrous ones)."""
+    s = conv_out(img, 7, 2, 3)   # conv1
+    s = conv_out(s, 3, 2, 1)     # maxpool
+    sizes = []
+    for i in range(num_layers):
+        if i != 0 and i not in atrous_layers:
+            s = conv_out(s, 3, 2, 1)
+        sizes.append(s)
+    return sizes
+
+
+def feature_sizes_1d(cfg, img: int) -> List[int]:
+    """The size along one side after each stage, for an `img`-pixel side."""
+    bb = cfg.backbone
+    n_backbone = max(bb.selected_layers) + 1
+    atrous = bb.args[3] if len(bb.args) > 3 else ()
+    return _resnet_sizes(img, max(n_backbone, len(bb.args[0])), atrous)

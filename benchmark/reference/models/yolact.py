@@ -1,11 +1,12 @@
 """Top-level YOLACT model, eval forward: backbone -> FPN -> (protonet ‖ heads).
 
 Port of ``yolact_tpu/models/yolact.py:Yolact`` for what the benchmark's
-configurations use: a ResNet backbone (DCNv2 blocks and the s2d stem
-among its options), an FPN, lincomb masks from a feature map or from the
-image itself (``mask_proto_src=None``, not with the s2d stem) and direct
-masks (``MaskType.DIRECT``: no protonet, ``mask_size^2`` sigmoid values
-per prior).  With ``cfg.use_maskiou`` the model also holds the YOLACT++
+configurations use: the backbone of the config's family
+(``config.backbone_family``: ``models/<type>.py``; the ResNet's options
+hold DCNv2 blocks and the s2d stem), an FPN, lincomb masks from a
+feature map or from the image itself (``mask_proto_src=None``, not with
+the s2d stem) and direct masks (``MaskType.DIRECT``: no protonet,
+``mask_size^2`` sigmoid values per prior).  With ``cfg.use_maskiou`` the model also holds the YOLACT++
 mask scorer as ``maskiou_net`` (the JAX package keeps it in a separate
 ``MaskIoUHead`` tree); ``forward`` does not run it, ``infer`` does, on
 the assembled masks.
@@ -44,29 +45,14 @@ from typing import Dict
 import torch
 from torch import nn
 
-from benchmark.reference.config import MaskType, YolactConfig, backbone_channels
+from benchmark.reference.config import (MaskType, YolactConfig,
+                                        backbone_channels, backbone_family)
 from benchmark.reference.models.fpn import FPN
 from benchmark.reference.models.heads import (FastMaskIoUNet, PredictionHead,
                                               ProtoNet)
 from benchmark.reference.models.layers import Conv2d, Linear, drop_batch_stats
-from benchmark.reference.models.resnet import DCNLayer, ResNetBackbone
+from benchmark.reference.models.resnet import DCNLayer
 from benchmark.reference.ops.anchors import generate_priors
-
-
-def _build_backbone(cfg: YolactConfig) -> nn.Module:
-    """The ResNet backbone of ``cfg.backbone`` (JAX ``_build_backbone``)."""
-    bb = cfg.backbone
-    if bb.type != 'resnet':
-        raise NotImplementedError(f'backbone type {bb.type!r}')
-    num_stages = max(bb.selected_layers) + 1
-    layers = tuple(bb.args[0])
-    return ResNetBackbone(
-        layers=layers,
-        dcn_layers=tuple(bb.args[1]) if len(bb.args) > 1 else (0, 0, 0, 0),
-        dcn_interval=bb.args[2] if len(bb.args) > 2 else 1,
-        atrous_layers=tuple(bb.args[3]) if len(bb.args) > 3 else (),
-        num_stages=max(num_stages, len(layers)),
-        stem_s2d=cfg.stem_s2d)
 
 
 class Yolact(nn.Module):
@@ -82,7 +68,7 @@ class Yolact(nn.Module):
                                       'with prototypes as features')
         self.cfg = cfg
         self.compute_dtype = torch.float32
-        self.backbone = _build_backbone(cfg)
+        self.backbone = backbone_family(cfg.backbone.type).build_backbone(cfg)
         chans = backbone_channels(cfg.backbone)
         self.fpn = FPN(cfg.fpn,
                        [chans[i] for i in cfg.backbone.selected_layers])

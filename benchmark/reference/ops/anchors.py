@@ -6,7 +6,8 @@ size, in the iteration order the heads' conv outputs flatten to
 (row-major pixels, then aspect-ratio group, scale, ratio), including the
 reference's ``use_square_anchors`` bug-compat flag.  The result equals the
 JAX package's bit for bit, for the ResNet backbones of the benchmark's
-configurations.
+configurations.  Each stage's size is its backbone family's
+(``config.backbone_family``).
 """
 
 from __future__ import annotations
@@ -17,42 +18,28 @@ from typing import List, Tuple
 
 import numpy as np
 
-from benchmark.reference.config import YolactConfig
+from benchmark.reference.config import YolactConfig, backbone_family
 
 
-def _conv_out(size: int, k: int, s: int, p: int, d: int = 1,
-              ceil_mode: bool = False) -> int:
+def conv_out(size: int, k: int, s: int, p: int, d: int = 1,
+             ceil_mode: bool = False) -> int:
     num = size + 2 * p - (d * (k - 1) + 1)
     if ceil_mode:
         return -(-num // s) + 1
     return num // s + 1
 
 
-def _resnet_sizes(img: int, num_layers: int, atrous_layers=()) -> List[int]:
-    """Feature sizes after each ResNet stage (stem conv, max pool, then a
-    stride-2 3x3 conv opening every stage but the first and atrous ones)."""
-    s = _conv_out(img, 7, 2, 3)   # conv1
-    s = _conv_out(s, 3, 2, 1)     # maxpool
-    sizes = []
-    for i in range(num_layers):
-        if i != 0 and i not in atrous_layers:
-            s = _conv_out(s, 3, 2, 1)
-        sizes.append(s)
-    return sizes
-
-
 def _feature_sizes_1d(cfg: YolactConfig, img: int) -> List[int]:
+    """The prediction levels' sizes along one side: the selected stages of
+    the backbone's family (``feature_sizes_1d``), then the FPN's
+    downsampled levels."""
     bb = cfg.backbone
-    n_backbone = max(bb.selected_layers) + 1
-    if bb.type != 'resnet':
-        raise ValueError(f'unknown backbone type {bb.type!r}')
-    atrous = bb.args[3] if len(bb.args) > 3 else ()
-    sizes = _resnet_sizes(img, max(n_backbone, len(bb.args[0])), atrous)
+    sizes = backbone_family(bb.type).feature_sizes_1d(cfg, img)
     selected = [sizes[i] for i in bb.selected_layers]
     if cfg.fpn is not None:
         for _ in range(cfg.fpn.num_downsample):
             if cfg.fpn.use_conv_downsample:
-                selected.append(_conv_out(selected[-1], 3, 2, 1))
+                selected.append(conv_out(selected[-1], 3, 2, 1))
             else:
                 selected.append((selected[-1] - 1) // 2 + 1)
     return selected
@@ -124,7 +111,7 @@ def spec_out_hw(spec, h: int, w: int) -> Tuple[int, int]:
         elif k > 0:                     # conv
             s, p, d = kw.get('stride', 1), kw.get('padding', 0), \
                 kw.get('dilation', 1)
-            h, w = _conv_out(h, k, s, p, d), _conv_out(w, k, s, p, d)
+            h, w = conv_out(h, k, s, p, d), conv_out(w, k, s, p, d)
         elif num is None:               # bilinear upsample by -k
             h, w = h * -k, w * -k
         else:                           # transposed conv, torch's size

@@ -4,6 +4,7 @@ whole (``yolact_tpu_torch`` begins with ``yolact_tpu``)."""
 
 import json
 import os
+import pkgutil
 import subprocess
 import sys
 
@@ -36,11 +37,23 @@ def test_the_harness_imports_no_jax():
     assert 'yolact_tpu_torch' in top
 
 
+def reference_modules(package):
+    """``benchmark.reference.<package>`` and every module in it: the
+    config modules and backbone families that ``get_config`` and
+    ``backbone_family`` import by name."""
+    where = os.path.join(cells.HERE, 'reference', package)
+    return [f'benchmark.reference.{package}'] + [
+        f'benchmark.reference.{package}.{m.name}'
+        for m in pkgutil.iter_modules([where])]
+
+
 def test_the_reference_imports_nothing_of_the_port():
     top = loaded_after(['benchmark.reference.infer', 'benchmark.judge',
                         'benchmark.reference.train.step',
                         'benchmark.reference.data.batch',
-                        'benchmark.yardstick', 'benchmark.weights'])
+                        'benchmark.yardstick', 'benchmark.weights',
+                        *reference_modules('configs'),
+                        *reference_modules('models')])
     assert not top & (FORBIDDEN | {'yolact_tpu_torch'}), top
 
 

@@ -32,6 +32,15 @@ def span_name(metric):
     return SPAN_OF.get(metric, metric.split('_device_ms')[0])
 
 
+def counter_name(metric):
+    """The program's counter that a ``program_counter`` metric reads."""
+    return metric.split('.')[0]
+
+
+COUNTERS = tuple(counter_name(m['name']) for m in span_metrics()
+                 if m['source'] == 'program_counter')
+
+
 class FakeEvent:
     now = [0.0]
 
@@ -55,15 +64,18 @@ def recorder(monkeypatch):
     timer.reset()
 
 
-def record_calls(timer, ms_per_call, device='cuda:0', syncs=1):
-    """One root a call; each span of the call takes its ms (a dict)."""
+def record_calls(timer, ms_per_call, device='cuda:0', syncs=1,
+                 counters=('host_syncs',)):
+    """One root a call; each span of the call takes its ms (a dict) and
+    counts each of `counters` `syncs` times."""
     for ms in ms_per_call:
         with timer.span('call', device):
             for name, t in ms.items():
                 with timer.span(name):
                     FakeEvent.now[0] += t
                     for _ in range(syncs):
-                        timer.count('host_syncs')
+                        for counter in counters:
+                            timer.count(counter)
 
 
 def run_with_trace(calls=CALLS):
@@ -81,10 +93,15 @@ def test_reader_takes_the_median_of_the_first_pass(recorder, metric):
     with recorder.recording():
         # the first pass's three calls, then a second pass's two
         record_calls(recorder, [{s: k * 1.0 for s in spans}
-                                for k in (5, 1, 3)], syncs=1)
-        record_calls(recorder, [{s: 100.0 for s in spans}] * 2, syncs=4)
+                                for k in (5, 1, 3)], syncs=1,
+                     counters=COUNTERS)
+        record_calls(recorder, [{s: 100.0 for s in spans}] * 2, syncs=4,
+                     counters=COUNTERS)
         run = run_with_trace()
-        want = 3.0 if metric != 'host_syncs.infer' else len(spans)
+        # a span's median ms, or a counter's count a call: one a span
+        source = next(m['source'] for m in span_metrics()
+                      if m['name'] == metric)
+        want = 3.0 if source == 'program_span' else len(spans)
         assert read(run) == pytest.approx(want)
         run.device_trace = None
         assert read(run) is None                  # no trace
