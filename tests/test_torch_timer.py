@@ -17,13 +17,15 @@ import pytest
 import torch
 
 from test_torch_inputs import (SyntheticTrainSet, make_train_batch,
-                               tiny_plus_config, tiny_resnet_config)
+                               tiny_darknet_config, tiny_plus_config,
+                               tiny_resnet_config)
 from yolact_tpu.utils import timer as jax_timer
 from yolact_tpu_torch.cli import train as cli
 from yolact_tpu_torch.config import register_config
 from yolact_tpu_torch.data.augmentations import SSDAugmentation
 from yolact_tpu_torch.data.loader import BatchLoader
 from yolact_tpu_torch.infer import Pipeline, random_state_dict
+from yolact_tpu_torch.models.darknet import DarkNetBackbone
 from yolact_tpu_torch.train.step import create_train_state, train_step
 from yolact_tpu_torch.utils import timer
 
@@ -430,6 +432,103 @@ def test_nchw_maps_counts_maps_that_are_not_channels_last(monkeypatch):
         pipe(frames)
     assert sizes[-1] == 1 and len(sizes) == 5
     assert [r.counter('nchw_maps') for r in timer.roots()] == [2 * 4]
+
+
+def test_darknet_early_stages_span_under_backbone(monkeypatch):
+    """A recorded DarkNet call has one ``early_stages`` span under
+    ``backbone``, around the pre-conv and the first two stages."""
+    cfg = tiny_darknet_config(nms_candidates=256)
+    pipe = Pipeline(cfg, random_state_dict(cfg, torch.Generator()
+                                           .manual_seed(0)), 'cpu')
+    frames = np.random.RandomState(0).randint(0, 256, (2, 64, 80, 3),
+                                              dtype=np.uint8)
+    trunk = pipe.model.backbone
+    entered = []
+    for name in ('_preconv', 'layers.0.0', 'layers.1.1', 'layers.2.0'):
+        unit = trunk.get_submodule(name)
+
+        def spy(*a, name=name, run=unit.forward_rows):
+            entered.append((name, [s.name for s in timer._stack()]))
+            return run(*a)
+        monkeypatch.setattr(unit, 'forward_rows', spy)
+    with timer.recording():
+        pipe(frames)
+    (root,) = timer.roots()
+    early = [s for s in root.spans if s.name == 'early_stages']
+    assert len(early) == 1 and early[0].parent.name == 'backbone'
+    assert [s for s in root.spans if s.parent is early[0]] == []
+    inside = {name: 'early_stages' in stack for name, stack in entered}
+    assert inside == {'_preconv': True, 'layers.0.0': True,
+                      'layers.1.1': True, 'layers.2.0': False}
+
+
+@pytest.mark.parametrize('layers', [(1, 2, 8, 8, 4), (1, 1, 1, 1, 1),
+                                    (1,)])
+def test_early_stages_span_holds_the_first_two_stages(monkeypatch, layers):
+    """Each recorded forward opens ``early_stages`` once; every unit of the
+    first two stages runs inside it and every later unit outside, and a
+    trunk of fewer stages closes it at its end."""
+    trunk = DarkNetBackbone(layers).eval()
+    inside = []
+    for s, stage in enumerate(trunk.layers):
+        for unit in stage:
+            def spy(*a, s=s, run=unit.forward_rows):
+                inside.append((s, 'early_stages' in
+                               [t.name for t in timer._stack()]))
+                return run(*a)
+            monkeypatch.setattr(unit, 'forward_rows', spy)
+    with timer.recording(), torch.no_grad():
+        for _ in range(2):
+            with timer.span('call'):
+                trunk(torch.zeros(1, 3, 32, 48))
+    assert inside == [(s, s < 2) for s, n in enumerate(layers)
+                      for _ in range(n + 1)] * 2
+    for root in timer.roots():
+        early = [t for t in root.spans if t.name == 'early_stages']
+        assert len(early) == 1 and early[0].parent.name == 'call'
+
+
+@pytest.mark.parametrize('record', [False, True])
+def test_darknet_frees_the_stem_map_once_stage_0_opens(monkeypatch, record):
+    """The span around the early stages holds no map longer than the
+    stages do: the pre-conv's output (the largest map, 550² at 550) is
+    freed once stage 0's stride-2 conv has run, recording or not."""
+    import weakref
+    trunk = DarkNetBackbone((1, 1, 1, 1, 1)).eval()
+    stem, refs, alive = trunk._preconv.forward_rows, [], []
+
+    def keep(*a):
+        out = stem(*a)
+        refs.append(weakref.ref(out[0]))
+        return out
+
+    block = trunk.layers[0][1]
+    run = block.forward_rows
+
+    def check(*a):
+        alive.append(refs[-1]() is not None)
+        return run(*a)
+    monkeypatch.setattr(trunk._preconv, 'forward_rows', keep)
+    monkeypatch.setattr(block, 'forward_rows', check)
+    with (timer.recording() if record else contextlib.nullcontext()), \
+            torch.no_grad():
+        trunk(torch.zeros(1, 3, 32, 32))
+    assert alive == [False]
+
+
+def test_darknet_takes_no_span_or_counter_off_recording(monkeypatch):
+    """Outside recording a DarkNet forward opens no span (none made) and
+    keeps no counter."""
+    def forbidden(*a, **k):
+        raise AssertionError('a span made with recording off')
+
+    monkeypatch.setattr(timer, 'Span', forbidden)
+    assert not timer.active()
+    with torch.no_grad():
+        outs = DarkNetBackbone((1, 1, 1, 1, 1)).eval()(
+            torch.zeros(1, 3, 32, 32))
+    assert len(outs) == 5
+    assert timer.roots() == [] and timer._total == {}
 
 
 def test_train_step_spans():

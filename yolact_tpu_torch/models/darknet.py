@@ -10,10 +10,15 @@ Each module's wiring is its ``forward_rows``, which runs on a rank's rows
 of a map split by height over a spatial mesh (``parallel/mesh.py``), the
 convs fetching their halos (``models/layers.py:conv_rows``), or on the
 whole map (``rows`` None, which ``forward`` passes).
+
+While ``utils/timer.py`` records, the pre-conv and the first two stages
+(the 550², 275² and 138² maps at 550, which no FPN level reads) are the
+span ``early_stages``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -22,6 +27,10 @@ from torch import nn
 
 from yolact_tpu_torch.models.layers import BatchNorm2d, Conv2d, conv_rows
 from yolact_tpu_torch.parallel.mesh import Rows
+from yolact_tpu_torch.utils import timer
+
+# stages under the span ``early_stages``, after the pre-conv
+EARLY_STAGES = 2
 
 
 class DarkConv(nn.Sequential):
@@ -102,11 +111,15 @@ class DarkNetBackbone(nn.Module):
                                 Tuple[Optional[Rows], ...]]:
         """:meth:`forward` on a rank's rows of the input (`rows`; None:
         the whole input), with each output's rows."""
-        x, r = self._preconv.forward_rows(x, rows, bn_train)
         outs, heights = [], []
-        for stage in self.layers:
-            for block in stage:
-                x, r = block.forward_rows(x, r, bn_train)
-            outs.append(x)
-            heights.append(r)
+        with contextlib.ExitStack() as early:
+            early.enter_context(timer.span('early_stages'))
+            x, r = self._preconv.forward_rows(x, rows, bn_train)
+            for s, stage in enumerate(self.layers):
+                for block in stage:
+                    x, r = block.forward_rows(x, r, bn_train)
+                outs.append(x)
+                heights.append(r)
+                if s == EARLY_STAGES - 1:
+                    early.close()
         return tuple(outs), tuple(heights)
